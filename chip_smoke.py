@@ -1,0 +1,429 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (miniasm_tpu_torch) on one GPU.
+
+What it does, in order:
+  1. prints the card (nvidia-smi name and power limit) and the versions,
+     builds the host loader and the hand-written CUDA kernels of csrc/
+     (one nvcc per source, all started together);
+  2. simulates an E. coli-scale read set with the port's simulator
+     (4.6 Mb genome, 40x, seed 11, reads of 8000 +- 2000 bp: 911,422 PAF
+     lines) and its noisy variant (half of the PAF lines dropped,
+     random.Random(36)), so that tips, bubbles, internal cuts and
+     bi-loops all fire;
+  3. drives the port's main path on the card through its CLI (PAF -> GFA,
+     -p ug) on both inputs, then -p sg (noisy) and -p bed (clean) once;
+     every kernel launch counter is set to 0 just before each run and read
+     just after it, and the run fails unless each kernel launched as that
+     run requires (EXPECT): all four on the noisy runs;
+  4. holds each kernel against its plain PyTorch version on the card, on
+     the inputs the main path gave it (the largest call of each), bit for
+     bit, and times both with CUDA events;
+  5. runs the same commands with MINIASM_TPU_TORCH_DEVICE=cpu (the plain
+     versions only) and requires byte-identical stdout.
+
+It prints one JSON line per kernel and one {"kernels": [...]} line, and as
+its last line {"ok": true, "device": {"platform": "gpu", ...}}.  Any
+failed phase exits non-zero without that line, as does a run without a
+CUDA device or outside a checkout of the repository.
+
+    python3 chip_smoke.py [--genome BP] [--json PATH]
+
+--genome below E. coli's 4.6 Mb gives a quick check, not the measured
+size.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import random
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
+INT32_OPS_S = 33.5e12   # 64 INT32 lanes per SM: half the 67 TFLOP/s float32
+ECOLI_BP = 4_600_000
+COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
+# launches each run must show, counted in that run alone: a number is
+# exact, ">0" at least one, "any" not checked.  The clean set's perfect
+# overlaps leave no vertex with two live out-arcs, so it has no bubble
+# source and K4 is held on the noisy set, where every kernel must launch.
+_CLEAN = {"cut_hit2arc": 2, "sweep": 2, "trans_multi": ">0",
+          "bubble_bfs": "any"}
+_NOISY = {"cut_hit2arc": 2, "sweep": 2, "trans_multi": ">0",
+          "bubble_bfs": ">0"}
+EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
+          "ecoli_ug_3": _CLEAN, "noisy_ug": _NOISY, "noisy_sg": _NOISY,
+          "ecoli_bed": {"cut_hit2arc": 2, "sweep": 2, "trans_multi": 0,
+                        "bubble_bfs": 0}}
+# the main path's run whose counts the kernels line reports
+RUN_OF_RECORD = "noisy_ug"
+
+
+def _say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _fail(msg: str) -> None:
+    sys.stderr.write("chip_smoke: FAILED: %s\n" % msg)
+    sys.exit(1)
+
+
+def _smi() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0 or not r.stdout.strip():
+        _fail("nvidia-smi failed: %s" % r.stderr.strip())
+    return r.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# recording the kernels' inputs on the main path
+
+class Recorder:
+    """Wraps a module-level kernel wrapper so the main path's calls keep
+    a copy of the largest input each variant saw (key_fn names the
+    variant).  The wrapped call itself is unchanged."""
+
+    def __init__(self, mod, name: str, key_fn):
+        self.mod, self.name, self.key_fn = mod, name, key_fn
+        self.orig = getattr(mod, name)
+        self.calls: dict = {}
+
+    def __enter__(self):
+        def wrapped(*a, **k):
+            size = sum(x.numel() for x in a if isinstance(x, torch.Tensor))
+            key = self.key_fn(a, k)
+            if key not in self.calls or self.calls[key][0] < size:
+                self.calls[key] = (size, tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in a), dict(k))
+            return self.orig(*a, **k)
+
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def _cli(args, device: str) -> tuple[str, float, dict, dict]:
+    """One CLI run with stdout captured, its launch counts set to 0 just
+    before it and read just after it; returns (stdout, seconds, stage
+    timing, launches)."""
+    from miniasm_tpu_torch import cli, cuda, pipeline
+    from miniasm_tpu_torch.device import ENV
+    from miniasm_tpu_torch.utils import timers
+
+    os.environ[ENV] = device
+    buf = io.StringIO()
+    cuda.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = cuda.launch_counts()
+    if rc != 0:
+        _fail("cli %s on %s exited %d" % (" ".join(args), device, rc))
+    stages = dict(pipeline.LAST_TIMING)
+    stages.update({"extra." + k: v for k, v in timers.EXTRA.items()})
+    return buf.getvalue(), dt, stages, launches
+
+
+def _check_launches(tag: str, launches: dict) -> None:
+    for name, want in EXPECT[tag].items():
+        got = launches[name]
+        if want == "any":
+            continue
+        if (got <= 0) if want == ">0" else (got != want):
+            _fail("%s: kernel %s launched %d times, this run needs %s"
+                  % (tag, name, got, want))
+
+
+def _gfa_summary(gfa: str) -> dict:
+    lens = [int(x.split("\t")[3][5:]) for x in gfa.splitlines()
+            if x.startswith("S\t")]
+    return {"unitigs": len(lens), "total_bp": sum(lens),
+            "longest_bp": max(lens) if lens else 0,
+            "bytes": len(gfa.encode())}
+
+
+# ---------------------------------------------------------------------------
+# per-kernel comparison, timing and bound
+
+def _time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _max_abs_err(got, want) -> float:
+    err = 0.0
+    for x, y in zip(_as_tuple(got), _as_tuple(want)):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return float("inf")
+        if x.numel():
+            d = (x.to(torch.int64) - y.to(torch.int64)).abs().max()
+            err = max(err, float(d))
+    return err
+
+
+def _cost(name, args, kw, out):
+    """(bytes, ops) the function needs on these inputs: every input read
+    once, every output written once; ops counted from this run's data."""
+    if name == "cut_hit2arc":
+        colmat, coords, lanes, tab = args
+        n = colmat.shape[1]
+        b = 3 * 4 * n + _nbytes(coords, lanes, tab) + _nbytes(out)
+        return b, 110 * n   # ~30 ops of cut, ~35 per hit2arc lane, filter
+    if name == "sweep":
+        keys, T = args[0], args[1]
+        return _nbytes(keys) + _nbytes(out), 8 * keys.numel()
+    if name == "trans_multi":
+        first, av, al, sdel_v = args[:4]
+        deg = first[1:] - first[:-1]
+        # one length test and target compare per arc of each neighbour's
+        # row, plus the pairwise multi-arc compare of each row
+        ops = int(deg[av.long()].sum()) * 2 + int((deg * deg).sum())
+        return _nbytes(first, av, al, sdel_v) + _nbytes(out), ops
+    if name == "bubble_bfs":
+        first, av, al, adel, live_out, sources = args[:6]
+        res, vis, par = out
+        deg = first[1:] - first[:-1]
+        nb = res[1].long()
+        kk = torch.arange(vis.shape[1], device=vis.device)
+        seen = (kk[None, :] < nb[:, None]) & (vis >= 0)
+        ops = int(deg[vis.clamp(min=0).long()][seen].sum()) * 8
+        return (_nbytes(first, av, al, adel, live_out, sources)
+                + _nbytes(*out)), ops
+    raise KeyError(name)
+
+
+def _kernel_phase(recs, launches, launches_clean):
+    """Kernel vs plain version on the recorded main-path inputs."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.graph import devbub, devclean
+    from miniasm_tpu_torch.select import fused2
+
+    plain = {"cut_hit2arc": fused2.cut_hit2arc_plain,
+             "sweep": fused2.sweep_plain,
+             "trans_multi": devclean.trans_multi_plain,
+             "bubble_bfs": devbub.bubble_bfs_plain}
+    reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
+            "bubble_bfs": 10}
+    by_name = {k.name: k for k in cuda.KERNELS}
+    rows = []
+    for rec in recs:
+        name = rec.name
+        if not rec.calls:
+            _fail("kernel %s: the main path recorded no call" % name)
+        K = by_name[name]
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+        err = 0.0
+        shapes = {}
+        for key, (_size, args, kw) in sorted(rec.calls.items(),
+                                             key=lambda x: str(x[0])):
+            got = rec.orig(*args, **kw)
+            torch.cuda.synchronize()
+            want = plain[name](*args, **kw)
+            e = _max_abs_err(got, want)
+            if e != 0.0:
+                _fail("kernel %s[%s] disagrees with its plain version "
+                      "(max abs err %r)" % (name, key, e))
+            err = max(err, e)
+            tot["ms"] += _time_ms(lambda: rec.orig(*args, **kw), reps[name])
+            tot["plain_ms"] += _time_ms(lambda: plain[name](*args, **kw), 2)
+            b, o = _cost(name, args, kw, got)
+            tot["bytes"] += b
+            tot["ops"] += o
+            shapes[str(key)] = [list(x.shape) for x in args
+                                if hasattr(x, "shape")]
+        t_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
+        t_ops = tot["ops"] / INT32_OPS_S * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": "miniasm_tpu_torch/csrc/" + K.source,
+               "replaces": K.replaces, "launches": launches[name],
+               "launches_ecoli_ug": launches_clean[name],
+               "max_abs_err": err, "ms": tot["ms"],
+               "plain_ms": tot["plain_ms"],
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None, "calls_timed": len(rec.calls),
+               "shapes": shapes}
+        _say("kernel " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--genome", type=int, default=ECOLI_BP)
+    ap.add_argument("--json", default=None,
+                    help="also write every measurement to this file")
+    a = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this run needs a GPU")
+    if not os.path.isfile(os.path.join(HERE, "miniasm_tpu_torch",
+                                       "__init__.py")):
+        _fail("miniasm_tpu_torch/ is not beside this script: run it from "
+              "a checkout of the repository")
+    sys.path.insert(0, HERE)
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.graph import devbub, devclean
+    from miniasm_tpu_torch.io.native.build import get_lib
+    from miniasm_tpu_torch.select import fused2
+
+    report: dict = {}
+    smi = _smi()
+    _say(smi)
+    kind = torch.cuda.get_device_name(0)
+    _say("torch %s, CUDA %s, python %s, device %s"
+         % (torch.__version__, torch.version.cuda, sys.version.split()[0],
+            kind))
+
+    # --- 1. build ---
+    t0 = time.time()
+    get_lib()
+    t_native = time.time() - t0
+    t_nvcc = cuda.build()
+    _say("[build] host loader %.2f s, CUDA kernels %.2f s (%s)"
+         % (t_native, t_nvcc, ", ".join(cuda.sources())))
+    for src, log in sorted(cuda.BUILD_LOG.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                _say("[ptxas %s] %s" % (src, line.strip()))
+    report["build_s"] = {"native": t_native, "nvcc": t_nvcc}
+
+    # --- 2. data ---
+    if a.genome < ECOLI_BP:
+        _say("[data] NOTE: genome of %d bp, below E. coli's %d: a quick "
+             "check, not the measured size" % (a.genome, ECOLI_BP))
+    t0 = time.time()
+    ddir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(ddir, exist_ok=True)
+    paf = os.path.join(ddir, "ecoli_%d.paf" % a.genome)
+    noisy = os.path.join(ddir, "ecoli_%d_noisy.paf" % a.genome)
+    sim = simulate(genome_len=a.genome, coverage=COVERAGE,
+                   mean_read=MEAN_READ, sd_read=SD_READ, seed=SEED)
+    n_lines = write_paf(sim, paf)
+    rng = random.Random(36)
+    n_noisy = 0
+    with open(paf) as f, open(noisy, "w") as g:
+        for line in f:
+            if rng.random() > 0.50:
+                g.write(line)
+                n_noisy += 1
+    _say("[data] %d reads, %d PAF lines (%.1f MB), noisy %d lines, %.2f s"
+         % (len(sim["names"]), n_lines, os.path.getsize(paf) / 1e6,
+            n_noisy, time.time() - t0))
+    report["data"] = {"genome_bp": a.genome, "coverage": COVERAGE,
+                      "reads": len(sim["names"]), "paf_lines": n_lines,
+                      "noisy_lines": n_noisy}
+
+    # --- 3. the main path on the card ---
+    recs = [Recorder(fused2, "cut_hit2arc",
+                     lambda a_, k: "final" if k["final_pass"] else "relaxed"),
+            Recorder(fused2, "sweep",
+                     lambda a_, k: "fine" if a_[3] else "crude"),
+            Recorder(devclean, "trans_multi", lambda a_, k: "all"),
+            Recorder(devbub, "bubble_bfs", lambda a_, k: "all")]
+    runs = {}
+    with contextlib.ExitStack() as st:
+        for r in recs:
+            st.enter_context(r)
+        # a cold run (first use of every CUDA library), three warm runs of
+        # the clean set for the spread, the noisy set, then -p sg and bed
+        for tag, args in (("ecoli_ug_cold", ["-p", "ug", paf]),
+                          ("ecoli_ug", ["-p", "ug", paf]),
+                          ("ecoli_ug_2", ["-p", "ug", paf]),
+                          ("ecoli_ug_3", ["-p", "ug", paf]),
+                          ("noisy_ug", ["-p", "ug", noisy]),
+                          ("noisy_sg", ["-p", "sg", noisy]),
+                          ("ecoli_bed", ["-p", "bed", paf])):
+            out, dt, stages, launches = _cli(args, "cuda")
+            runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
+                         "launches": launches}
+            if args[1] == "ug":
+                runs[tag]["gfa"] = _gfa_summary(out)
+            _say("[card] %s: %.3f s, %d bytes, %s; launches %s; "
+                 "stages %s" % (tag, dt, len(out),
+                                json.dumps(runs[tag].get("gfa")),
+                                json.dumps(launches), json.dumps(stages)))
+            _check_launches(tag, launches)
+            if not out:
+                _fail("%s printed nothing" % tag)
+    for tag in ("ecoli_ug", "ecoli_ug_2", "ecoli_ug_3"):
+        if runs[tag]["out"] != runs["ecoli_ug_cold"]["out"]:
+            _fail("two card runs on one input differ")
+    for tag in ("ecoli_ug", "noisy_ug"):
+        if runs[tag]["gfa"]["unitigs"] == 0:
+            _fail("%s: no unitig in the output" % tag)
+    longest = runs["ecoli_ug"]["gfa"]["longest_bp"]
+    if longest < 0.5 * a.genome:
+        _fail("the clean set's longest unitig is %d bp of a %d bp genome"
+              % (longest, a.genome))
+
+    # --- 4. kernels against their plain versions ---
+    rows = _kernel_phase(recs, runs[RUN_OF_RECORD]["launches"],
+                         runs["ecoli_ug"]["launches"])
+
+    # --- 5. the same commands on the CPU ---
+    for tag, args in (("ecoli_ug", ["-p", "ug", paf]),
+                      ("noisy_ug", ["-p", "ug", noisy]),
+                      ("noisy_sg", ["-p", "sg", noisy]),
+                      ("ecoli_bed", ["-p", "bed", paf])):
+        out, dt, _, _ = _cli(args, "cpu")
+        same = out == runs[tag]["out"]
+        _say("[cpu] %s: %.3f s, stdout %s the card's"
+             % (tag, dt, "identical to" if same else "DIFFERS from"))
+        runs[tag]["cpu_wall_s"] = dt
+        if not same:
+            _fail("%s: card and CPU outputs differ" % tag)
+
+    if a.json:
+        for r in runs.values():
+            r.pop("out", None)
+        report.update({"card": smi, "kind": kind, "runs": runs,
+                       "kernels": rows})
+        os.makedirs(os.path.dirname(os.path.abspath(a.json)), exist_ok=True)
+        with open(a.json, "w") as f:
+            json.dump(report, f, indent=1)
+    _say(smi)
+    _say(json.dumps({"kernels": rows}))
+    _say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,347 @@
+"""Device-side bubble popping (reference asg_pop_bubble, asg.c:360-433).
+
+Port of miniasm_tpu/graph/devbub.py.  The per-source Kahn BFS runs on the
+device for all candidate sources at once (the `bubble_bfs` kernel, K4,
+csrc/bubble.cu: one thread per source, in the serial asg_bub_pop1 order),
+and the HOST commits the verdicts in the reference's ascending-source
+order.
+
+Exact-semantics notes (all mirrored from asg_bub_pop1):
+  - an arc pointing back at v0 aborts the bubble EVEN IF the arc is
+    deleted (the w==v0 test precedes the del test, asg.c:379-381);
+  - a distance overrun (d+l > max_dist) on any live arc aborts;
+  - first visit sets p/d/r but NOT c (c stays 0 until a second in-edge
+    relaxes it, asg.c:383-389) — the parent tie-break is c+1 > c_w, or
+    c+1 == c_w and d+l > d_w, against the RUNNING values;
+  - visited vertices with NO raw arc slots (idx_cnt==0) count as tips
+    and never enter the stack (asg.c:393-396);
+  - success == stack holds exactly one vertex (the sink) and nothing is
+    pending; the kept path is the max-read-count chain via p from sink.
+
+The kernel stops an aborted source at the offending arc, like the
+reference; the JAX program processes whole rows and may visit a superset
+there.  The visited set of a failed source only sets the staleness radius
+of the ordered commit, and both are exact read sets of their verdicts.
+
+Ordered commit (pop order matters: each pop mutates the graph later
+sources read): walk sources ascending; a device verdict is valid while
+the bubble's read set {v0,v0^1} ∪ visited ∪ visited^1 is disjoint from
+rows touched by earlier commits; a stale source is recomputed by the
+sequential host BFS against the live graph.  Commits only shrink
+live-arc sets, so candidates never grow and the scan-order equivalence
+argument of graph/hybrid.py applies unchanged.
+
+Capacity: visited sets are capped at K per source; any overflow re-runs
+the whole dispatch with K doubled, so results are always exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cuda import I32, I64, P, Kernel, ptr
+from .asg import Graph
+
+# _bub_kernel: bounded Kahn BFS per bubble source
+K_BUB = Kernel(
+    "bubble_bfs", "bubble.cu", "ma_bubble_bfs",
+    [P, P, P, P, P, P, I64, I32, I32, P, P, P, P],
+    replaces="miniasm_tpu/graph/devbub.py:63")
+
+
+def bubble_bfs_plain(first, av, al, adel, live_out, sources, K: int,
+                     max_dist: int):
+    """Plain PyTorch version of the bubble_bfs kernel: the same serial
+    per-source BFS, run in lockstep over all sources (one arc per source
+    per step).  Returns (res (4, S) int32 [ok | ovf<<1, nb, ntip, sink],
+    vis (S, K) int32, par (S, K) int32)."""
+    dev = av.device
+    i64 = torch.int64
+    S = sources.shape[0]
+    first = first.to(i64)
+    cnt = first[1:] - first[:-1]
+    v0 = sources.to(i64)
+    vis = torch.full((S, K), -1, dtype=i64, device=dev)
+    par = torch.full((S, K), -1, dtype=i64, device=dev)
+    d = torch.zeros((S, K), dtype=i64, device=dev)
+    c = torch.zeros((S, K), dtype=i64, device=dev)
+    r = torch.zeros((S, K), dtype=i64, device=dev)
+    stk = torch.zeros((S, K + 1), dtype=i64, device=dev)
+    vis[:, 0] = v0
+    zero = torch.zeros(S, dtype=i64, device=dev)
+    sp, nb, npend, ntip = zero + 1, zero + 1, zero.clone(), zero.clone()
+    cur_v, cur_d, cur_c, ai, aend = (zero.clone() for _ in range(5))
+    sink = zero - 1
+    no = torch.zeros(S, dtype=torch.bool, device=dev)
+    ok, ovf, done, in_row = no.clone(), no.clone(), no.clone(), no.clone()
+    kk = torch.arange(K, device=dev)
+    while True:
+        act = ~done
+        if not bool(act.any()):
+            break
+        # pop the next vertex where no row is in progress
+        pi = torch.nonzero(act & ~in_row).flatten()
+        if pi.numel():
+            sp[pi] -= 1
+            slot = stk[pi, sp[pi]]
+            v = vis[pi, slot]
+            cur_v[pi], cur_d[pi], cur_c[pi] = v, d[pi, slot], c[pi, slot]
+            ai[pi], aend[pi] = first[v], first[v + 1]
+            in_row[pi] = True
+        # one arc of the row
+        idx = torch.nonzero(act & in_row & (ai < aend)).flatten()
+        if idx.numel():
+            a = ai[idx]
+            w = av[a].to(i64)
+            dl = adel[a] != 0
+            dd = cur_d[idx] + al[a].to(i64)
+            fail = (w == v0[idx]) | (~dl & (dd > max_dist))
+            proc = ~fail & ~dl
+            eq = (vis[idx] == w[:, None]) & (kk[None, :] < nb[idx][:, None])
+            found = eq.any(1)
+            ws = eq.to(torch.int32).argmax(1)
+            full = proc & ~found & (nb[idx] == K)
+            ovf[idx[full]] = True
+            fail = fail | full
+            proc = proc & ~full
+            new = proc & ~found
+            ni = idx[new]
+            ns = nb[ni]
+            ws[new] = ns
+            vis[ni, ns] = w[new]
+            par[ni, ns] = cur_v[ni]
+            d[ni, ns] = dd[new]
+            r[ni, ns] = live_out[w[new] ^ 1].to(i64)
+            nb[ni] += 1
+            npend[ni] += 1
+            old = proc & found
+            oi, os_ = idx[old], ws[old]
+            cw, dw = c[oi, os_], d[oi, os_]
+            cv1, ddo = cur_c[oi] + 1, dd[old]
+            upd = (cv1 > cw) | ((cv1 == cw) & (ddo > dw))
+            par[oi[upd], os_[upd]] = cur_v[oi[upd]]
+            c[oi, os_] = torch.maximum(cw, cv1)
+            d[oi, os_] = torch.minimum(dw, ddo)
+            qi, qs = idx[proc], ws[proc]
+            r[qi, qs] -= 1
+            ready = r[qi, qs] == 0
+            tip = cnt[w[proc]] == 0
+            push = ready & ~tip
+            pu = qi[push]
+            stk[pu, sp[pu]] = qs[push]
+            sp[pu] += 1
+            ntip[qi[ready & tip]] += 1
+            npend[qi[ready]] -= 1
+            done[idx[fail]] = True
+            ai[idx] += 1
+        # end of a row: the BFS fails on an empty stack, succeeds on a
+        # lone sink with nothing pending
+        em = ~done & in_row & (ai >= aend)
+        in_row &= ~em
+        done |= em & (sp == 0)
+        oi = torch.nonzero(em & (sp == 1) & (npend == 0)).flatten()
+        ok[oi] = True
+        done[oi] = True
+        sink[oi] = vis[oi, stk[oi, 0]]
+    res = torch.stack([ok.to(i64) | (ovf.to(i64) << 1), nb, ntip, sink])
+    return res.to(torch.int32), vis.to(torch.int32), par.to(torch.int32)
+
+
+def bubble_bfs(first, av, al, adel, live_out, sources, K: int,
+               max_dist: int):
+    """K4.  first (V+1,) int64 CSR offsets; av/al (A,) int32; adel (A,)
+    uint8 tombstones; live_out (V,) int32 live arcs per row; sources (S,)
+    int32.  Returns (res (4, S), vis (S, K), par (S, K)), all int32."""
+    if av.device.type == "cpu":
+        return bubble_bfs_plain(first, av, al, adel, live_out, sources, K,
+                                max_dist)
+    if first.dtype != torch.int64 or av.dtype != torch.int32 \
+            or al.dtype != torch.int32 or adel.dtype != torch.uint8 \
+            or live_out.dtype != torch.int32 or sources.dtype != torch.int32:
+        raise TypeError("bubble_bfs: int64 offsets, int32 columns and "
+                        "uint8 tombstones expected")
+    dev = av.device
+    S = sources.shape[0]
+    res = torch.empty((4, S), dtype=torch.int32, device=dev)
+    vis = torch.empty((S, K), dtype=torch.int32, device=dev)
+    par = torch.empty((S, K), dtype=torch.int32, device=dev)
+    work = torch.empty((S, 4 * K + 1), dtype=torch.int32, device=dev)
+    if S:
+        K_BUB(ptr(first), ptr(av), ptr(al), ptr(adel), ptr(live_out),
+              ptr(sources), S, int(K), int(max_dist), ptr(res), ptr(vis),
+              ptr(par), ptr(work))
+    return res, vis, par
+
+
+def _arc_cols(g: Graph, device: torch.device) -> dict:
+    """CSR columns of the graph (tombstoned arcs included: the back-arc
+    test reads them) and the live out-degree of every row."""
+    V = g.n_vtx
+    first = np.empty(V + 1, dtype=np.int64)
+    first[:V] = g.idx_start
+    first[V] = g.n_arc
+    live = ~g.adel
+    row = np.repeat(np.arange(V), g.idx_cnt)
+    live_out = np.bincount(row[live], minlength=V).astype(np.int32)
+    cols = {"first": first, "av": g.v.astype(np.int32),
+            "al": g.l.astype(np.int32), "adel": g.adel.astype(np.uint8),
+            "live_out": live_out}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in cols.items()}
+
+
+def _dispatch(g: Graph, cands, max_dist: int, K: int, device):
+    """Run the kernel over candidate sources, doubling K on overflow."""
+    c = _arc_cols(g, device)
+    src = torch.from_numpy(np.asarray(cands, dtype=np.int32)).to(device)
+    while True:
+        res, vis, par = bubble_bfs(c["first"], c["av"], c["al"], c["adel"],
+                                   c["live_out"], src, K, int(max_dist))
+        res = res.cpu().numpy()
+        if not (res[0] & 2).any():
+            return ((res[0] & 1).astype(bool), res[1], res[2], res[3],
+                    vis.cpu().numpy(), par.cpu().numpy(), K)
+        K *= 2
+
+
+def _host_pop1(g: Graph, v0: int, max_dist: int):
+    """Bounded Kahn BFS for ONE source against the LIVE graph — the
+    host-sequential conflict path of SURVEY §7 ("non-overlapping bubbles
+    commit in parallel; conflicting bubbles serialize").  Identical
+    semantics to the device kernel (and asg_bub_pop1); used only for
+    sources whose device verdict went stale behind an earlier commit.
+
+    Returns (ok, vis_list, sink, parent_map, ntip)."""
+    vis = [v0]
+    parent = {}
+    dd = {v0: 0}
+    cc = {v0: 0}
+    rr = {}
+    stack = [v0]
+    npend = 0
+    ntip = 0
+    while True:
+        v = stack.pop()
+        dv, cv = dd[v], cc[v]
+        s = int(g.idx_start[v])
+        nv = int(g.idx_cnt[v])
+        for ai in range(s, s + nv):
+            w = int(g.v[ai])
+            if w == v0:  # back-arc aborts even when deleted (asg.c:379)
+                return False, vis, -1, parent, 0
+            if g.adel[ai]:
+                continue
+            l = int(g.l[ai])
+            if dv + l > max_dist:
+                return False, vis, -1, parent, 0
+            if w not in dd:
+                vis.append(w)
+                parent[w] = v
+                dd[w] = dv + l
+                cc[w] = 0
+                sw = int(g.idx_start[w ^ 1])
+                cw = int(g.idx_cnt[w ^ 1])
+                rr[w] = int(np.count_nonzero(~g.adel[sw:sw + cw]))
+                npend += 1
+            else:
+                if cv + 1 > cc[w] or (cv + 1 == cc[w] and dv + l > dd[w]):
+                    parent[w] = v
+                if cv + 1 > cc[w]:
+                    cc[w] = cv + 1
+                if dv + l < dd[w]:
+                    dd[w] = dv + l
+            rr[w] -= 1
+            if rr[w] == 0:
+                if g.idx_cnt[w]:
+                    stack.append(w)
+                else:
+                    ntip += 1
+                npend -= 1
+        if not stack:
+            return False, vis, -1, parent, 0
+        if len(stack) == 1 and npend == 0:
+            return True, vis, stack[0], parent, ntip
+
+
+def pop_bubbles_dev(g: Graph, cand_mask, max_dist: int,
+                    device: torch.device = torch.device("cpu")) -> int:
+    """Ordered commit of device-detected bubbles: ONE kernel dispatch
+    computes every source's verdict against the pass-entry graph; the
+    host walks sources in ascending order, applying device verdicts
+    whose read sets are untouched by earlier commits and recomputing
+    the (rare) conflicting sources with the sequential host BFS.
+    Returns the reference's packed counter (n_popped | n_tips<<32,
+    asg.c:405/431)."""
+    cands = [int(v) for v in np.flatnonzero(cand_mask)]
+    if not cands:
+        return 0
+    import time as _time
+
+    from ..utils.timers import add_extra
+
+    t0 = _time.time()
+    n_pop = 0
+    n_tip = 0
+    ok, nb, ntip, sink, vis, par, _K = _dispatch(g, cands, max_dist, 64,
+                                                 device)
+    add_extra("clean.bubble_s", _time.time() - t0)
+    touched = np.zeros(g.n_vtx, bool)
+    any_commit = False
+    for j, v0 in enumerate(cands):
+        # live re-validation like the reference scan (asg.c:420-424)
+        if g.sdel[v0 >> 1] or g.idx_cnt[v0] < 2:
+            continue
+        s = g.idx_start[v0]
+        if int(np.sum(~g.adel[s:s + g.idx_cnt[v0]])) < 2:
+            continue
+        nbj = int(nb[j])
+        vset = vis[j, :nbj]
+        stale = False
+        if any_commit:
+            rd = np.concatenate([vset, vset ^ 1, [v0, v0 ^ 1]])
+            stale = bool(touched[rd].any())
+        if stale:
+            okj, vlist, snk, parent, ntj = _host_pop1(g, v0, max_dist)
+            if not okj:
+                continue
+            vset = np.asarray(vlist, dtype=np.int64)
+        else:
+            if not bool(ok[j]):
+                continue
+            snk = int(sink[j])
+            parent = dict(zip(vset.tolist(), par[j, :nbj].tolist()))
+            ntj = int(ntip[j])
+        _commit(g, v0, vset, snk, parent)
+        n_pop += 1
+        n_tip += ntj
+        touched[np.asarray(vset)] = True
+        touched[np.asarray(vset) ^ 1] = True
+        touched[[v0, v0 ^ 1]] = True
+        any_commit = True
+    return n_pop | (n_tip << 32)
+
+
+def _commit(g: Graph, v0: int, vset, sink: int, parent):
+    """asg_bub_backtrack (asg.c:338-357): delete every visited read and
+    every live out-arc of the processed vertices, then restore the
+    max-count path sink -> v0."""
+    for w in vset[1:]:
+        g.sdel[w >> 1] = True
+    for u in (int(x) for x in np.concatenate([[v0], vset[1:]])):
+        if u == sink:
+            continue
+        s = g.idx_start[u]
+        c = g.idx_cnt[u]
+        for ai in range(s, s + c):
+            if g.adel[ai]:
+                continue
+            g.adel[ai] = True
+            g.arc_del(int(g.v[ai]) ^ 1, int(g.u[ai]) ^ 1, True)
+    v = sink
+    while v != v0:
+        u = parent[v]
+        g.sdel[v >> 1] = False
+        g.arc_del(u, v, False)
+        g.arc_del(v ^ 1, u ^ 1, False)
+        v = u

@@ -1,0 +1,289 @@
+"""One-pass device graph-cleaning detection: transitive reduction,
+symmetry enforcement, and candidate detection for every order-dependent
+pass.
+
+Port of miniasm_tpu/graph/devclean.py.  On one entry state it computes,
+chained like the reference's pass sequence:
+
+  1. Myers transitive-reduction elimination marks (asg.c:148-193);
+  2. multi-arc marks on the post-trans live set (asg.c:104-121);
+  3. asymmetric-arc marks on the post-multi live set (asg.c:124-138);
+  4. weak-overlap (del_short) marks at EVERY drop ratio of the 4.3/4.5
+     schedule on the post-symm live set (asg.c:83-101);
+  5. tip / internal / bi-loop candidate vertices (asg_is_utg_end +
+     asg_extend classification, asg.c:199-306);
+  6. bubble-source candidates (>= 2 live out-arcs, asg.c:420-424).
+
+Chaining masks in one pass is order-equivalent to the reference's
+pass-compact-pass sequence because asg_cleanup never re-sorts after the
+first sort (the is_srt latch, asg.c:75-78): compaction preserves relative
+arc order, so "live slots in slot order" here is the sequence the
+reference's next pass scans.
+
+Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), one block per
+vertex row over the CSR arc list; steps 3-6 are torch ops on the same
+per-arc columns.  The host applies the masks and commits the candidates in
+reference order (graph/hybrid.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cuda import I32, I64, P, Kernel, ptr
+from .asg import Graph
+
+# _clean_kernel stage A (l.179-225): transitive-reduction and multi-arc marks
+K_TRANS = Kernel(
+    "trans_multi", "clean.cu", "ma_trans_multi",
+    [P, P, P, P, I64, I32, I32, I32, P],
+    replaces="miniasm_tpu/graph/devclean.py:143")
+
+# compare-tensor budget of the plain version: rows * D * D bools per chunk
+_CHUNK_ELEMS = 1 << 26
+# shared memory a block of the kernel may use on an H100 (227 KB); a row
+# holds 3 int32 per arc
+_SMEM_MAX = 232448
+
+
+def build_arcs(g: Graph, device: torch.device) -> dict:
+    """Per-arc CSR columns and per-vertex delete bits of a compacted graph
+    (no tombstones: detection runs right after a cleanup, like every
+    reference pass), on `device`."""
+    if g.adel.any():
+        raise ValueError("detect() requires a compacted graph")
+    V = g.n_vtx
+    first = np.empty(V + 1, dtype=np.int64)
+    first[:V] = g.idx_start
+    first[V] = g.n_arc
+    cols = {
+        "first": first,
+        "au": g.u.astype(np.int32), "av": g.v.astype(np.int32),
+        "al": g.l.astype(np.int32), "aol": g.ol.astype(np.int32),
+        "sdel_v": g.sdel[np.arange(V) >> 1].astype(np.uint8),
+    }
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in cols.items()}
+    out["V"] = V
+    out["D"] = max(int(g.idx_cnt.max()) if g.n_arc else 1, 1)
+    return out
+
+
+def _short_frac_cut() -> float:
+    """Exact emulation of the reference's weak-arc threshold rounding
+    (asg.c:90): thres = (uint32_t)((float)(ol * ratio) + .499) — an f32
+    product, an f64 add of .499, then truncation.  Equivalently:
+    thres = floor(part32) + [frac(part32) >= 1 - 0.499_f64].  The cut
+    constant is the smallest float32 >= (1 - 0.499) in f64, so the float32
+    comparison of the (exact) fraction matches the f64 semantics."""
+    c = 1.0 - 0.499  # f64
+    c32 = np.float32(c)
+    if float(c32) < c:
+        c32 = np.nextafter(c32, np.float32(2.0))
+    return float(c32)
+
+
+def _ratio_schedule(opt):
+    """The 4.3 + 4.5 drop-ratio sequence (main.c:167-188), float32 chain
+    like the reference's float ma_opt_t members."""
+    fmin = np.float32(opt.min_ovlp_drop_ratio)
+    fmax = np.float32(opt.max_ovlp_drop_ratio)
+    rs = []
+    for i in range(opt.n_rounds + 1):
+        rs.append(float(fmin + (fmax - fmin) / np.float32(opt.n_rounds)
+                        * np.float32(i)))
+    rs.append(float(np.float32(opt.final_ovlp_drop_ratio)))
+    return tuple(rs)
+
+
+def trans_multi_plain(first, av, al, sdel_v, D: int, fuzz: int,
+                      do_trans: bool):
+    """Plain PyTorch version of the trans_multi kernel, the JAX program's
+    table form: scatter the CSR rows into (V, D) tables, run the slot loop
+    vectorized over rows, then the multi-arc compare.  Returns (A,) uint8
+    bits: bit0 eliminated, bit1 multi-arc."""
+    dev = av.device
+    i32 = torch.int32
+    V = first.shape[0] - 1
+    A = av.shape[0]
+    nv = (first[1:] - first[:-1]).to(i32)
+    au = torch.repeat_interleave(torch.arange(V, device=dev), nv.long())
+    slots = torch.arange(A, device=dev) - first[:-1][au]
+    nbr_v = torch.full((V, D), -1, dtype=i32, device=dev)
+    nbr_l = torch.full((V, D), 2**31 - 1, dtype=i32, device=dev)
+    nbr_v[au, slots] = av
+    nbr_l[au, slots] = al
+    slot = torch.arange(D, device=dev)
+    in_table = slot[None, :] < nv[:, None]
+    elim = torch.zeros((V, D), dtype=torch.bool, device=dev)
+    if do_trans:
+        last = (nv - 1).clamp(min=0).long()
+        bound = torch.where(
+            nv > 0, nbr_l.gather(1, last[:, None])[:, 0] + fuzz, 0)
+        active = (nv > 0) & (sdel_v == 0)
+        mark = torch.where(in_table & active[:, None], 1, 0).to(torch.int8)
+        step = max(_CHUNK_ELEMS // D // D, 1)
+        for i in range(D):
+            # slot i is scanned only while still in play (earlier slots'
+            # demotions count), so the slots run in order
+            rows = torch.nonzero(active & (i < nv)
+                                 & (mark[:, i] == 1)).flatten()
+            for c0 in range(0, rows.shape[0], step):
+                r = rows[c0:c0 + step]
+                wi = nbr_v[r, i].long()
+                wn_v = nbr_v[wi]
+                # the neighbour's row sorted by length: the <= bound mask
+                # equals the reference's break on the first violation
+                within = nbr_l[wi] + nbr_l[r, i][:, None] <= bound[r][:, None]
+                cand = within & (slot[None, :] < nv[wi][:, None])
+                hit = (nbr_v[r][:, :, None] == wn_v[:, None, :]) \
+                    & cand[:, None, :]
+                # duplicate targets demote together
+                demote = hit.any(2) & (mark[r] != 0)
+                mark[r] = torch.where(demote, 2, mark[r])
+        elim = mark == 2
+    live = in_table & ~elim
+    multi = torch.zeros((V, D), dtype=torch.bool, device=dev)
+    step = max(_CHUNK_ELEMS // D // D, 1)
+    earlier = slot[None, :] < slot[:, None]  # [j, j2]: j2 before j
+    for c0 in range(0, V, step):
+        cv = nbr_v[c0:c0 + step]
+        lv = live[c0:c0 + step]
+        eq = cv[:, :, None] == cv[:, None, :]
+        multi[c0:c0 + step] = (eq & earlier[None] & lv[:, None, :]).any(2) \
+            & lv
+    bits = elim.to(torch.uint8) | (multi.to(torch.uint8) << 1)
+    return bits[au, slots].contiguous()
+
+
+def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool):
+    """K3.  first (V+1,) int64 CSR offsets; av/al (A,) int32 targets and
+    lengths (rows sorted by length); sdel_v (V,) uint8.  Returns (A,) uint8
+    [bit0 transitively reduced, bit1 multi-arc]."""
+    if av.device.type == "cpu":
+        return trans_multi_plain(first, av, al, sdel_v, D, fuzz, do_trans)
+    if first.dtype != torch.int64 or av.dtype != torch.int32 \
+            or al.dtype != torch.int32 or sdel_v.dtype != torch.uint8:
+        raise TypeError("trans_multi: int64 offsets, int32 arcs, uint8 "
+                        "delete bits expected")
+    if 3 * 4 * D > _SMEM_MAX:
+        raise ValueError("trans_multi: a row of %d arcs does not fit the "
+                         "kernel's shared memory (at most %d)"
+                         % (D, _SMEM_MAX // 12))
+    V = first.shape[0] - 1
+    bits = torch.empty(av.shape[0], dtype=torch.uint8, device=av.device)
+    if av.shape[0]:
+        K_TRANS(ptr(first), ptr(av), ptr(al), ptr(sdel_v), V, int(D),
+                int(fuzz), 1 if do_trans else 0, ptr(bits))
+    return bits
+
+
+def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
+           device: torch.device = torch.device("cpu")) -> dict:
+    """Run detection on the current graph.  Returns a dict with per-arc
+    masks (numpy (n_arc,) bool in CSR arc order), candidate vertex masks
+    ((n_vtx,) bool), and counters."""
+    import time as _time
+
+    from ..utils.timers import add_extra
+
+    t0 = _time.time()
+    c = build_arcs(g, device)
+    add_extra("clean.build_s", _time.time() - t0)
+    ratios = _ratio_schedule(opt)
+    V, A = c["V"], g.n_arc
+    dev = device
+    i64 = torch.int64
+    bits = trans_multi(c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
+                       int(opt.gap_fuzz), do_trans)
+    elim = (bits & 1) != 0
+    multi = (bits & 2) != 0
+    live1 = ~elim & ~multi
+    au = c["au"].to(i64)
+    av = c["av"].to(i64)
+    aol = c["aol"]
+
+    # asymmetric arcs (asg.c:124-138): live u->v needs a live v^1 -> u^1
+    key = torch.sort(torch.where(live1, (au << 32) | av, -1)).values
+    q = ((av ^ 1) << 32) | (au ^ 1)
+    if A:
+        pos = torch.searchsorted(key, q).clamp(max=A - 1)
+        has_comp = key[pos] == q
+    else:
+        has_comp = torch.zeros(0, dtype=torch.bool, device=dev)
+    asymm = live1 & ~has_comp
+    # downstream masks see the post-symm live set when the graph will be
+    # symmetric at their apply point; when trans reduced nothing the
+    # reference leaves multi/asymm arcs until pop_bubble symms the graph
+    live = (live1 & ~asymm) if do_symm else ~elim
+
+    nlive = torch.zeros(V, dtype=i64, device=dev).scatter_add(
+        0, au, live.to(i64))
+    arc_id = torch.arange(A, device=dev)
+    first_live = torch.full((V,), A, dtype=i64, device=dev).scatter_reduce(
+        0, au, torch.where(live, arc_id, A), "amin")
+    fa = first_live.clamp(max=max(A - 1, 0))
+
+    # weak-overlap masks at every scheduled ratio (asg.c:83-101); ol is
+    # non-increasing in slot order, so "the suffix below the first live
+    # arc's threshold" is a plain mask on the non-first live arcs
+    shorts = []
+    if A:
+        first_ol = aol[fa].to(torch.float32)
+        is_first = arc_id == first_live[au]
+        frac_cut = torch.tensor(np.float32(_short_frac_cut()),
+                                device=dev)
+        for r in ratios:
+            part = first_ol * torch.tensor(np.float32(r), device=dev)
+            base = torch.floor(part)
+            thres = (base + (part - base >= frac_cut).to(torch.float32))
+            thres = thres.to(i64)
+            shorts.append(live & (nlive >= 2)[au] & ~is_first
+                          & (aol.to(i64) < thres[au]))
+    else:
+        shorts = [torch.zeros(0, dtype=torch.bool, device=dev)
+                  for _ in ratios]
+
+    # unitig-end classification per vertex row (asg.c:204-221):
+    # code_row[r] = what asg_is_utg_end(r^1) returns: TIP/MO/MN/ME
+    fl_v = (torch.where(nlive > 0, av[fa], 0) if A
+            else torch.zeros(V, dtype=i64, device=dev))
+    nw = nlive[fl_v ^ 1]
+    code_row = torch.where(nlive == 0, 1, torch.where(
+        nlive > 1, 2, torch.where(nw != 1, 3, 0)))
+    # asg_extend(v, max_ext) (asg.c:223-236)
+    vids = torch.arange(V, device=dev)
+    cur = vids
+    final = torch.full((V,), -1, dtype=i64, device=dev)
+    for _ in range(int(opt.max_ext)):
+        cc = code_row[cur]
+        final = torch.where((final < 0) & (cc != 0), cc, final)
+        cur = torch.where(final < 0, fl_v[cur], cur)
+    ext_code = torch.where(final < 0, 0, final)
+    not_sdel = c["sdel_v"] == 0
+    start_code = code_row[vids ^ 1]
+    tip = not_sdel & (start_code == 1) & (ext_code != 0)
+    mn_start = not_sdel & (start_code == 3)
+    internal = mn_start & (ext_code == 3)
+    biloop = mn_start & (ext_code == 2)
+    bubble = not_sdel & (nlive >= 2)
+
+    counters = torch.stack([elim.sum(), multi.sum(), asymm.sum()]
+                           + [m.sum() for m in shorts])
+    masks = torch.stack([elim, multi, asymm] + shorts) if A else None
+    cands = torch.stack([tip, internal, biloop, bubble])
+    counters = [int(x) for x in counters.cpu()]
+    masks = (masks.cpu().numpy() if A
+             else np.zeros((3 + len(ratios), 0), dtype=bool))
+    cands = cands.cpu().numpy()
+    add_extra("clean.detect_s", _time.time() - t0)
+    add_extra("clean.detect_n", 1)
+    return {
+        "trans": masks[0], "multi": masks[1], "asymm": masks[2],
+        "shorts": [masks[3 + k] for k in range(len(ratios))],
+        "ratios": ratios,
+        "tip": cands[0], "internal": cands[1], "biloop": cands[2],
+        "bubble": cands[3],
+        "counters": counters,
+    }

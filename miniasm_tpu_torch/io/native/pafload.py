@@ -1,0 +1,152 @@
+"""ctypes wrapper for the pipelined native PAF loader (pafmt.cpp).
+
+Reader and parser threads tokenize, filter and intern in C++ while the
+caller pulls (7, piece) int32 column pieces [qid qs qe tid ts te flags]
+(flags bit0=valid bit1=rev bit2=iden_ok).  The pieces are concatenated on
+the host into one exact-size colmat and uploaded with one pinned copy."""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from ..seqdict import SeqDict
+
+_CHUNK = 1 << 19  # records per piece for large inputs
+
+
+class _MaMtInfo(ctypes.Structure):
+    _fields_ = [
+        ("n_orig", ctypes.c_int64),
+        ("n_mirror", ctypes.c_int64),
+        ("n_seq", ctypes.c_int64),
+        ("n_lines", ctypes.c_int64),
+        ("max_len", ctypes.c_int64),
+        ("names_bytes", ctypes.c_int64),
+    ]
+
+
+def _bind(lib):
+    lib.ma_mt_begin.restype = ctypes.c_void_p
+    lib.ma_mt_begin.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_char_p,
+                                ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_double, ctypes.c_int64,
+                                ctypes.c_int, ctypes.c_int64]
+    lib.ma_mt_next.restype = ctypes.c_int64
+    lib.ma_mt_next.argtypes = [ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_int32),
+                               ctypes.c_int64]
+    lib.ma_mt_info.argtypes = [ctypes.c_void_p, ctypes.POINTER(_MaMtInfo)]
+    lib.ma_mt_names.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.ma_mt_seq_len.argtypes = [ctypes.c_void_p,
+                                  ctypes.POINTER(ctypes.c_uint32)]
+    lib.ma_mt_rank.argtypes = [ctypes.c_void_p]
+    lib.ma_mt_rank_fetch.argtypes = [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_int64),
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.POINTER(ctypes.c_int64)]
+    lib.ma_mt_free.argtypes = [ctypes.c_void_p]
+
+
+class HitsMt:
+    """Handle over the loader state: read names and lengths, and the
+    lazily built exact radix permutation of the implied mirrored hit array
+    (hit.c:100/ksort.h) for the rare exact-rank order fallback."""
+
+    def __init__(self, lib, res, cap):
+        self._lib = lib
+        self._res = res
+        self.cap = cap
+        self._ranked = False
+        info = _MaMtInfo()
+        lib.ma_mt_info(res, ctypes.byref(info))
+        self.n_orig = int(info.n_orig)
+        self.n_mirror = int(info.n_mirror)
+        self.n_lines = int(info.n_lines)
+        self.max_len = int(info.max_len)
+        self._n_seq = int(info.n_seq)
+        self._names_bytes = int(info.names_bytes)
+
+    def build_rank(self):
+        """CPU-bound exact-permutation build."""
+        if not self._ranked:
+            self._lib.ma_mt_rank(self._res)
+            self._ranked = True
+
+    def arc_ranks(self, idx):
+        """Map kernel arc indices (j for q-side rows, cap+j for mirrors)
+        to positions in the reference's sorted mirrored hit array."""
+        self.build_rank()
+        idx = np.ascontiguousarray(idx, dtype=np.int64)
+        out = np.empty(idx.shape[0], dtype=np.int64)
+        self._lib.ma_mt_rank_fetch(
+            self._res, idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            idx.shape[0], self.cap,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return out
+
+    def seqdict(self):
+        blob = ctypes.create_string_buffer(max(self._names_bytes, 1))
+        self._lib.ma_mt_names(self._res, blob)
+        names = (blob.raw[:self._names_bytes].decode("latin-1")
+                 .split("\0")[:self._n_seq])
+        lens = np.empty(max(self._n_seq, 1), dtype=np.uint32)
+        self._lib.ma_mt_seq_len(
+            self._res, lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+        return SeqDict.from_arrays(names, lens[:self._n_seq].tolist())
+
+    def free(self):
+        if self._res:
+            self._lib.ma_mt_free(self._res)
+            self._res = None
+
+    def __del__(self):
+        self.free()
+
+
+def load_hits_mt(fn, min_span, min_match, *, bi_dir=True, min_iden=0.05,
+                 device=torch.device("cpu"), n_workers=2):
+    """Parse `fn` with the pipelined loader and upload the (7, n) int32
+    colmat of the unmirrored originals to `device`.  Returns
+    (colmat, SeqDict, HitsMt)."""
+    from .build import get_lib
+
+    lib = get_lib()
+    _bind(lib)
+    try:
+        fsz = os.path.getsize(fn) if fn != "-" else 0
+    except OSError:
+        fsz = 0
+    if fn.endswith(".gz"):
+        fsz *= 4
+    # PAF lines are ~70-90 B: small inputs ride quarter-size pieces
+    chunk = _CHUNK if fsz == 0 or fsz // 100 >= (1 << 22) else _CHUNK >> 2
+    res = lib.ma_mt_begin(fn.encode(), min_span, min_match, b"", 0,
+                          1 if bi_dir else 0, float(min_iden), chunk,
+                          n_workers, 0)
+    if not res:
+        raise FileNotFoundError(2, "could not open PAF file", fn)
+    pieces = []
+    try:
+        while True:
+            buf = np.empty((7, chunk), dtype=np.int32)
+            n = lib.ma_mt_next(
+                res, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                chunk)
+            pieces.append(buf[:, :n])
+            if n < chunk:
+                break
+        colmat = np.ascontiguousarray(np.concatenate(pieces, axis=1))
+        h = HitsMt(lib, res, cap=colmat.shape[1])
+    except BaseException:
+        lib.ma_mt_free(res)
+        raise
+    d = h.seqdict()
+    t = torch.from_numpy(colmat)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t, d, h

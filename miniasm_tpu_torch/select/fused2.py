@@ -1,0 +1,383 @@
+"""Dual-sided selection: Steps 2-3 + arc classification on the device.
+
+Port of miniasm_tpu/select/fused2.py (_select2_kernel, select_build2).
+The reference materializes a mirrored hit array (each PAF record pushed
+twice with query/target swapped, hit.c:92-98) and runs every pass over 2N
+records.  Here every original row carries its implied mirror as a second
+lane ("q-side" = the record, "m-side" = its mirror):
+
+  - the coverage sweeps (ma_hit_sub, hit.c:109-160) take 4 events per
+    original, sorted by torch.sort on an int64 key, then walked by the
+    `sweep` kernel (K2, csrc/select.cu);
+  - cutting (ma_hit_cut, hit.c:162-193), both hit2arc lanes and the filter
+    (hit.c:195-216) run fused per row in the `cut_hit2arc` kernel (K1);
+  - torch ops do the containment/used/palindrome marks, the arc compaction
+    and the stable arc ordering by the mirrored-hit key (qid<<32|qs).
+
+Every kernel has a plain PyTorch twin in this module; the wrapper runs the
+twin for CPU tensors and the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..cuda import F32, I32, I64, P, Kernel, ptr
+from ..core.hit2arc import hit2arc, MA_HT_QCONT, MA_HT_TCONT
+
+SKIP = 0x7FFFFFFF  # event key of a skipped event (the JAX program's BIG)
+
+# _cut_pass + both hit2arc lanes (core/hit2arc.py:28) + the filter masks
+# and dp values, inside _select2_kernel (fused2.py:305)
+K_CUT = Kernel(
+    "cut_hit2arc", "select.cu", "ma_cut_hit2arc",
+    [P, P, P, P, P, P, I64, I64, I32, I32, F32, I32, I32, P],
+    replaces="miniasm_tpu/select/fused2.py:254")
+# sweep_events (event sweep, first longest region per read), inside
+# _select2_kernel (fused2.py:305)
+K_SWEEP = Kernel(
+    "sweep", "select.cu", "ma_sweep", [P, I64, I64, I32, I32, P],
+    replaces="miniasm_tpu/select/fused2.py:131")
+
+# rows of the cut_hit2arc output
+CUT_ROWS_RELAXED = 6   # qs qe ts te lanes dp
+CUT_ROWS_FINAL = 15    # qs qe ts te lanes rq uq vq lq olq rm um vm lm olm
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> its uint32 value, held in int64."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 value held in int64 -> its int32 bit pattern."""
+    x = x & 0xFFFFFFFF
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def cut_hit2arc_plain(colmat, coords, lanes, tab, *, min_span, max_hang,
+                      int_frac, min_ovlp, final_pass):
+    """Plain PyTorch version of the cut_hit2arc kernel (see csrc/select.cu):
+    ma_hit_cut against the trim tables `tab` (3, T) [s, e, del], then both
+    hit2arc lanes, then (relaxed pass) the filter masks and dp values."""
+    qid, tid, flags = colmat[0], colmat[3], colmat[6]
+    T = tab.shape[1]
+    qi = qid.clamp(0, T - 1).long()
+    ti = tid.clamp(0, T - 1).long()
+    rq_s, rq_e, rq_d = tab[0][qi], tab[1][qi], tab[2][qi]
+    rt_s, rt_e, rt_d = tab[0][ti], tab[1][ti], tab[2][ti]
+    alive = (rq_d == 0) & (rt_d == 0)
+    rev = ((flags >> 1) & 1).to(torch.bool)
+    qs0, qe0, ts0, te0 = coords[0], coords[1], coords[2], coords[3]
+    w = torch.where
+    qs1 = w(rev, w(te0 < rt_e, qs0, qs0 + (te0 - rt_e)),
+            w(ts0 > rt_s, qs0, qs0 + (rt_s - ts0)))
+    qe1 = w(rev, w(ts0 > rt_s, qe0, qe0 - (rt_s - ts0)),
+            w(te0 < rt_e, qe0, qe0 - (te0 - rt_e)))
+    ts1 = w(rev, w(qe0 < rq_e, ts0, ts0 + (qe0 - rq_e)),
+            w(qs0 > rq_s, ts0, ts0 + (rq_s - qs0)))
+    te1 = w(rev, w(qs0 > rq_s, te0, te0 - (rq_s - qs0)),
+            w(qe0 < rq_e, te0, te0 - (qe0 - rq_e)))
+    # clamp + rebase (hit.c:181-184): the e-side min is UNSIGNED (the
+    # reference compares int qe against the uint32 ma_sub_t.e)
+    qs2 = torch.maximum(qs1, rq_s) - rq_s
+    ts2 = torch.maximum(ts1, rt_s) - rt_s
+    qe2 = _i32(torch.minimum(_u32(qe1), _u32(rq_e)) - _u32(rq_s))
+    te2 = _i32(torch.minimum(_u32(te1), _u32(rt_e)) - _u32(rt_s))
+    keep = alive & (qe2 - qs2 >= min_span) & (te2 - ts2 >= min_span)
+    slq, slt = rq_e - rq_s, rt_e - rt_s
+    vq = ((lanes & 1) != 0) & keep
+    vm = ((lanes & 2) != 0) & keep
+    cq = hit2arc(qid, qs2, qe2, tid, ts2, te2, rev, slq, slt,
+                 max_hang, int_frac, min_ovlp)
+    cm = hit2arc(tid, ts2, te2, qid, qs2, qe2, rev, slt, slq,
+                 max_hang, int_frac, min_ovlp)
+    rows = [qs2, qe2, ts2, te2]
+    i32 = torch.int32
+    if not final_pass:
+        def flt_keep(r):
+            return (r >= 0) | (r == MA_HT_QCONT) | (r == MA_HT_TCONT)
+
+        def flt_dp(r, sq, st):
+            return w(r >= 0, r, w(r == MA_HT_QCONT, sq, st))
+
+        fq = vq & flt_keep(cq["r"])
+        fm = vm & flt_keep(cm["r"])
+        bits = (vq.to(i32) | (vm.to(i32) << 1) | (fq.to(i32) << 2)
+                | (fm.to(i32) << 3))
+        dp = (w(fq, flt_dp(cq["r"], slq, slt), 0)
+              + w(fm, flt_dp(cm["r"], slt, slq), 0))
+        rows += [bits, dp]
+    else:
+        rows += [vq.to(i32) | (vm.to(i32) << 1)]
+        rows += [cq[k] for k in ("r", "u", "v", "l", "ol")]
+        rows += [cm[k] for k in ("r", "u", "v", "l", "ol")]
+    return torch.stack([x.to(i32) for x in rows])
+
+
+def cut_hit2arc(colmat, coords, lanes, tab, *, min_span, max_hang, int_frac,
+                min_ovlp, final_pass):
+    """K1.  colmat (7, n) int32 [qid qs qe tid ts te flags]; coords (4, n)
+    int32 current [qs qe ts te]; lanes (n,) uint8 (bit0 q-side valid,
+    bit1 m-side valid); tab (3, T) int32 trim tables [s, e, del].
+    Returns (6, n) int32 [qs qe ts te lanes dp] for the relaxed pass
+    (lanes: bit0/1 survive the cut, bit2/3 also the filter), or (15, n)
+    [qs qe ts te lanes, r u v l ol of the q-side, then of the m-side]
+    for the final pass."""
+    if colmat.device.type == "cpu":
+        return cut_hit2arc_plain(colmat, coords, lanes, tab,
+                                 min_span=min_span, max_hang=max_hang,
+                                 int_frac=int_frac, min_ovlp=min_ovlp,
+                                 final_pass=final_pass)
+    n = colmat.shape[1]
+    T = tab.shape[1]
+    if colmat.dtype != torch.int32 or coords.dtype != torch.int32 \
+            or tab.dtype != torch.int32 or lanes.dtype != torch.uint8:
+        raise TypeError("cut_hit2arc: int32 columns and uint8 lanes expected")
+    if coords.shape != (4, n) or lanes.shape != (n,) or tab.shape[0] != 3:
+        raise ValueError("cut_hit2arc: shape mismatch")
+    out = torch.empty((CUT_ROWS_FINAL if final_pass else CUT_ROWS_RELAXED,
+                       n), dtype=torch.int32, device=colmat.device)
+    if n:
+        K_CUT(ptr(colmat[0]), ptr(colmat[3]), ptr(colmat[6]), ptr(coords),
+              ptr(lanes), ptr(tab), T, n, int(min_span), int(max_hang),
+              float(np.float32(int_frac)), int(min_ovlp),
+              1 if final_pass else 0, ptr(out))
+    return out
+
+
+def sweep_plain(keys, T: int, min_dp: int, end_clip: int):
+    """Plain PyTorch version of the sweep kernel: per read, the FIRST
+    longest region of depth >= min_dp over its sorted events.  The depth
+    is one global cumsum (every valid side adds a (+1, -1) pair, so each
+    read's depth starts at 0), and crossings alternate start/end globally,
+    so an end crossing's start is the previous crossing."""
+    dev = keys.device
+    i64 = torch.int64
+    seg = keys >> 32
+    key = keys & 0xFFFFFFFF
+    valid = key != SKIP
+    is_end = (key & 1) == 1
+    pos = key >> 1
+    delta = torch.where(valid, torch.where(is_end, -1, 1), 0)
+    depth = torch.cumsum(delta, 0)
+    old = depth - delta
+    start_tr = valid & (old < min_dp) & (depth >= min_dp)
+    end_tr = valid & (old >= min_dp) & (depth < min_dp)
+    tr = start_tr | end_tr
+    ti = torch.nonzero(tr).flatten()
+    t_pos = pos[ti]
+    t_prev = torch.cat([torch.zeros(1, dtype=i64, device=dev), t_pos[:-1]])
+    t_seg = seg[ti].clamp(max=T)
+    length = torch.where(end_tr[ti], t_pos - t_prev, -1)
+    best = torch.full((T + 1,), -1, dtype=i64, device=dev).scatter_reduce(
+        0, t_seg, length, "amax")
+    big = ti.shape[0]
+    tie = (length == best[t_seg]) & (length > 0)
+    first = torch.full((T + 1,), big, dtype=i64, device=dev).scatter_reduce(
+        0, t_seg, torch.where(tie, torch.arange(big, device=dev), big),
+        "amin")
+    segc = seg.clamp(max=T)
+    n_ev = torch.zeros(T + 1, dtype=i64, device=dev).scatter_add(
+        0, segc, torch.ones_like(segc))
+    has_query = n_ev[:T] > 0
+    has_region = has_query & (best[:T] > 0)
+    fi = first[:T].clamp(max=max(big - 1, 0))
+    s = torch.where(has_region, t_prev[fi] - end_clip, 0) if big else \
+        torch.zeros(T, dtype=i64, device=dev)
+    e = torch.where(has_region, t_pos[fi] + end_clip, 0) if big else \
+        torch.zeros(T, dtype=i64, device=dev)
+    dele = has_query & ~has_region
+    return torch.stack([s, e, dele.to(i64),
+                        has_query.to(i64)]).to(torch.int32)
+
+
+def sweep(keys, T: int, min_dp: int, end_clip: int):
+    """K2.  keys: sorted int64 events seg<<32 | (pos*2+is_end), skipped
+    events keyed SKIP, padding rows in segment T.  Returns (4, T) int32
+    [s, e, del, has_query] per read."""
+    if keys.device.type == "cpu":
+        return sweep_plain(keys, T, min_dp, end_clip)
+    if keys.dtype != torch.int64 or keys.dim() != 1:
+        raise TypeError("sweep: 1-D int64 keys expected")
+    out = torch.empty((4, T), dtype=torch.int32, device=keys.device)
+    K_SWEEP(ptr(keys), keys.shape[0], T, int(min_dp), int(end_clip),
+            ptr(out))
+    return out
+
+
+def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):
+    """Coverage sweep over the 4 events per original (ma_hit_sub,
+    hit.c:109-160).  A read keeps its table entry (has_query) whenever any
+    of its rows' sides is valid, even when all its events are skipped
+    (self matches, identity failures): hit.c:115,152."""
+    qid, tid = colmat[0], colmat[3]
+    cqs, cqe, cts, cte = coords[0], coords[1], coords[2], coords[3]
+    okq = vq & not_self & iden
+    okm = vm & not_self & iden
+    esq = cqs + end_clip
+    eeq = cqe - end_clip
+    est = cts + end_clip
+    eet = cte - end_clip
+    okq = okq & (eeq > esq)
+    okm = okm & (eet > est)
+    segq = torch.where(vq, qid, T).to(torch.int64)
+    segm = torch.where(vm, tid, T).to(torch.int64)
+    seg = torch.cat([segq, segq, segm, segm])
+    key = torch.cat([
+        torch.where(okq, esq * 2, SKIP), torch.where(okq, eeq * 2 + 1, SKIP),
+        torch.where(okm, est * 2, SKIP), torch.where(okm, eet * 2 + 1, SKIP)])
+    keys = torch.sort((seg << 32) | (key.to(torch.int64) & 0xFFFFFFFF)).values
+    out = sweep(keys, T, min_dp, end_clip)
+    return out[:3], out[3] != 0
+
+
+def select_build2(colmat, d, opt, *, bi_dir: bool):
+    """Run Steps 2-3 on colmat's device.  Returns (arcs, md, counts):
+    arcs = numpy {u, v, l, ol, idx} in the stable hit-key order; md =
+    numpy {sub_s, sub_e, sub_del, cont, used, pal, tot_dp, tot_len};
+    counts = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc,
+    dup_hit]: counters 0-6 and 13 of the JAX program."""
+    import time as _time
+
+    from ..utils.timers import add_extra
+
+    t0 = _time.time()
+    dev = colmat.device
+    i32, i64 = torch.int32, torch.int64
+    n_seq = d.n_seq
+    T = n_seq + 2  # slot T-1 is never a real read
+    n = colmat.shape[1]
+    qid, tid, fl = colmat[0], colmat[3], colmat[6]
+    valid0 = (fl & 1) != 0
+    iden = ((fl >> 2) & 1) != 0
+    is_self = qid == tid
+    not_self = ~is_self
+    vq = valid0
+    vm = valid0 & not_self if bi_dir else torch.zeros_like(valid0)
+    coords = colmat[[1, 2, 4, 5]].contiguous()
+    oqs, ots = colmat[1], colmat[4]  # ORIGINAL starts: the hit sort keys
+
+    def lanes_of(a, b):
+        return (a.to(torch.uint8) | (b.to(torch.uint8) << 1)).contiguous()
+
+    # --- Step 2: crude sweep, end_clip=0 (main.c:122) + cut + relaxed
+    #     filter (main.c:125; hit.c:195-216) ---
+    tab1, _ = _sub_pass(colmat, coords, vq, vm, iden, not_self, T,
+                               opt.min_dp, 0)
+    s1, e1, d1 = tab1[0], tab1[1], tab1[2] != 0
+    out = cut_hit2arc(colmat, coords, lanes_of(vq, vm), tab1.contiguous(),
+                      min_span=opt.min_span,
+                      max_hang=int(opt.max_hang * 1.5), int_frac=0.5,
+                      min_ovlp=int(opt.min_ovlp * 0.5), final_pass=False)
+    coords = out[:4]
+    bits = out[4]
+    n_cut1 = (bits & 1).sum() + ((bits >> 1) & 1).sum()
+    vq = (bits & 4) != 0
+    vm = (bits & 8) != 0
+    n_flt = vq.sum() + vm.sum()
+    dpv = out[5].to(i64)
+    tot_dp = dpv.sum()
+
+    # --- Step 3: fine sweep, end_clip=min_span/2 (main.c:132) + cut; its
+    #     has_query table == "read kept a hit after the filter", the crude
+    #     coverage denominator set ---
+    tab2, has_flt = _sub_pass(colmat, coords, vq, vm, iden,
+                                     not_self, T, opt.min_dp,
+                                     opt.min_span // 2)
+    s2, e2, d2 = tab2[0], tab2[1], tab2[2] != 0
+    sl1 = (e1 - s1).to(i64)
+    tot_len = torch.where(has_flt, sl1, 0).sum()
+    out = cut_hit2arc(colmat, coords.contiguous(), lanes_of(vq, vm),
+                      tab2.contiguous(), min_span=opt.min_span,
+                      max_hang=opt.max_hang, int_frac=float(opt.int_frac),
+                      min_ovlp=opt.min_ovlp, final_pass=True)
+    bits = out[4]
+    vq = (bits & 1) != 0
+    vm = (bits & 2) != 0
+    n_cut2 = vq.sum() + vm.sum()
+    qs, qe, ts, te = out[0], out[1], out[2], out[3]
+    rq_raw, rm_raw = out[5], out[10]
+
+    # --- merge (ma_sub_merge, hit.c:218-223) ---
+    ms = s1 + s2
+    me = s1 + e2
+    mdel = d1 | d2
+
+    # --- containment / used / palindrome marks (hit.c:225-236,
+    #     asm.c:9-39): the qid slot collects used/contained/palindrome
+    #     bits, the tid slot used/contained bits ---
+    rq = torch.where(vq, rq_raw, 0)
+    rm = torch.where(vm, rm_raw, 0)
+    rev = ((fl >> 1) & 1) != 0
+    vqm = vq | vm
+    pal_rows = vq & (rq_raw >= 0) & is_self & (qs == ts) & (qe == te) & rev
+    qbits = (vqm.to(i32)
+             | (((rq == MA_HT_QCONT) | (rm == MA_HT_TCONT)).to(i32) << 1)
+             | (pal_rows.to(i32) << 2))
+    tbits = (vqm.to(i32)
+             | (((rq == MA_HT_TCONT) | (rm == MA_HT_QCONT)).to(i32) << 1))
+    dump = T - 1
+    qsl = qid.clamp(0, dump).long()
+    tsl = tid.clamp(0, dump).long()
+    tab = torch.zeros(T, dtype=i32, device=dev)
+    tab.scatter_reduce_(0, qsl, qbits, "amax")
+    tab.scatter_reduce_(0, tsl, tbits, "amax")
+    used = (tab & 1) != 0
+    cont = (tab & 2) != 0
+    pal = (tab & 4) != 0
+
+    # a read survives iff used, not sub-deleted, not contained
+    # (hit.c:237-251); arcs touching dropped reads are filtered here
+    read_alive = used & ~mdel & ~cont
+    aq = read_alive[qsl]
+    at = read_alive[tsl]
+    m_contained = (vq & aq & at).sum() + (vm & aq & at).sum()
+    arc_q = vq & (rq_raw >= 0) & not_self & aq & at
+    arc_m = vm & (rm_raw >= 0) & not_self & aq & at
+    idx = torch.nonzero(torch.cat([arc_q, arc_m])).flatten()
+    n_arc = idx.shape[0]
+    # order the arcs by their mirrored-hit key (qid<<32|qs of the side,
+    # ORIGINAL coordinates: the reference sorts hits before cutting,
+    # hit.c:100); ties keep row order (q-side rows, then m-side rows)
+    hkey = ((torch.cat([qid, tid]).to(i64)[idx] << 32)
+            | torch.cat([oqs, ots]).to(i64)[idx])
+    skey, perm = torch.sort(hkey, stable=True)
+    dup_hit = (skey[1:] == skey[:-1]).sum()
+    idx = idx[perm]
+    cols = {k: torch.cat([out[5 + j], out[10 + j]])[idx]
+            for j, k in ((1, "u"), (2, "v"), (3, "l"), (4, "ol"))}
+
+    counts_t = torch.stack([
+        _n_region(tab1), n_cut1, n_flt, _n_region(tab2), n_cut2,
+        m_contained, torch.tensor(n_arc, device=dev), dup_hit, tot_dp,
+        tot_len])
+    flags = (mdel.to(i32) | (cont.to(i32) << 1) | (used.to(i32) << 2)
+             | (pal.to(i32) << 3))
+    meta = torch.stack([ms, me, flags])[:, :n_seq]
+    add_extra("select.kernel_s", _time.time() - t0)
+    t0 = _time.time()
+    c = [int(x) for x in counts_t.cpu()]
+    c, (tot_dp, tot_len) = c[:8], c[8:]
+    meta = meta.cpu().numpy()
+    arcs = {k: v.cpu().numpy().astype(np.int32) for k, v in cols.items()}
+    arcs["idx"] = idx.cpu().numpy().astype(np.int64)
+    add_extra("select.fetch_s", _time.time() - t0)
+    flags = meta[2]
+    md = {
+        "sub_s": meta[0].astype(np.uint32),
+        "sub_e": meta[1].astype(np.uint32),
+        "sub_del": (flags & 1).astype(bool),
+        "cont": ((flags >> 1) & 1).astype(bool),
+        "used": ((flags >> 2) & 1).astype(bool),
+        "pal": ((flags >> 3) & 1).astype(bool),
+        "tot_dp": tot_dp,
+        "tot_len": tot_len,
+    }
+    return arcs, md, c
+
+
+def _n_region(tab):
+    """Reads with a depth >= min_dp region (the n_rem counter)."""
+    return (tab[0] != tab[1]).sum()

@@ -1,0 +1,116 @@
+"""The port's command line (miniasm_tpu_torch.cli) against the JAX
+package's on the same PAF: stdout must be byte-identical for -p ug, sg
+and bed.  Also: the port imports neither JAX nor the JAX package, asks
+for the card by default and raises without one, and refuses the flags it
+does not port yet."""
+
+import io
+import json
+import os
+import subprocess
+import sys
+from contextlib import redirect_stderr, redirect_stdout
+
+import pytest
+import torch
+
+from conftest import run_ours
+from miniasm_tpu_torch import cli as tcli
+from miniasm_tpu_torch.device import ENV
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_port(args, device="cpu"):
+    """The port's CLI in-process on `device`; returns (rc, stdout, stderr)."""
+    old = os.environ.get(ENV)
+    os.environ[ENV] = device
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with redirect_stdout(out), redirect_stderr(err):
+            rc = tcli.main(list(args))
+    finally:
+        if old is None:
+            os.environ.pop(ENV, None)
+        else:
+            os.environ[ENV] = old
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("fmt", ["ug", "sg", "bed"])
+@pytest.mark.parametrize("data", ["sim_small", "sim_noisy"])
+def test_cli_stdout_matches_jax(request, data, fmt):
+    paf = request.getfixturevalue(data)["paf"]
+    want = run_ours(["-p", fmt, paf])
+    rc, got, _ = run_port(["-p", fmt, paf])
+    assert rc == 0
+    assert got == want
+    assert got
+
+
+def test_gz_stdin_and_empty_inputs(sim_noisy, tmp_path):
+    """The loader reads gzip and stdin like the JAX package's; an empty
+    PAF prints what the JAX package prints."""
+    import gzip
+    import shutil
+
+    want = run_ours(["-p", "ug", sim_noisy["paf"]])
+    gz = str(tmp_path / "r.paf.gz")
+    with open(sim_noisy["paf"], "rb") as f, gzip.open(gz, "wb") as g:
+        shutil.copyfileobj(f, g)
+    assert run_port(["-p", "ug", gz])[1] == want
+    env = dict(os.environ, **{ENV: "cpu"})
+    with open(sim_noisy["paf"]) as f:
+        r = subprocess.run([sys.executable, "-m", "miniasm_tpu_torch.cli",
+                            "-p", "ug", "-"], stdin=f, cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout == want
+    empty = str(tmp_path / "empty.paf")
+    open(empty, "w").close()
+    assert run_port(["-p", "ug", empty])[:2] == (0, run_ours(["-p", "ug", empty]))
+
+
+def test_port_imports_no_jax(sim_small):
+    """A run of the port loads no module of JAX or of the JAX package
+    (exact names: miniasm_tpu_torch shares the prefix)."""
+    code = (
+        "import io, json, sys\n"
+        "from contextlib import redirect_stdout\n"
+        "from miniasm_tpu_torch import cli\n"
+        "with redirect_stdout(io.StringIO()):\n"
+        "    rc = cli.main(['-p', 'ug', %r])\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'miniasm_tpu.')))\n"
+        "print(json.dumps([rc, bad]))\n" % sim_small["paf"])
+    env = dict(os.environ, **{ENV: "cpu"})
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rc, bad = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rc == 0 and bad == []
+
+
+def test_cuda_requested_without_card_raises(sim_small, monkeypatch):
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.device import get_device
+    from miniasm_tpu_torch.pipeline import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(sim_small["paf"], Opt(), out=io.StringIO())
+    assert get_device("cpu").type == "cpu"
+    rc, out, err = run_port(["-p", "ug", sim_small["paf"]], device="cuda")
+    assert rc != 0 and out == "" and "no CUDA device" in err
+
+
+@pytest.mark.parametrize("args,flag", [(["-1"], "-1"), (["-2"], "-2"),
+                                       (["-S", "4"], "-S 4"), (["-R"], "-R"),
+                                       (["-f", "reads.fa"], "-f"),
+                                       (["-p", "paf"], "-p paf")])
+def test_unported_flags_are_refused(sim_small, args, flag):
+    rc, out, err = run_port(args + [sim_small["paf"]])
+    assert rc == 1 and out == ""
+    assert "not ported" in err and flag in err

@@ -1,0 +1,172 @@
+"""Card tests of the port's CUDA kernels (miniasm_tpu_torch/csrc): each
+kernel against its plain PyTorch twin on the same CUDA tensors, bit for
+bit, plus one small end-to-end run on the card against the CPU run.
+
+Marked `cuda`; they skip on a machine without a card.  The file imports
+no JAX, so it also runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from miniasm_tpu_torch.graph.asg import Graph, cleanup
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def random_graph(rng, n_seq=60, n_pairs=200):
+    """Random symmetric string graph in the port's Graph (compacted)."""
+    lens = rng.integers(3000, 20000, n_seq).astype(np.uint32)
+    us, ls, vs, ols = [], [], [], []
+    for _ in range(n_pairs):
+        a = int(rng.integers(0, 2 * n_seq))
+        b = int(rng.integers(0, 2 * n_seq))
+        if a >> 1 == b >> 1:
+            continue
+        la, lb = int(lens[a >> 1]), int(lens[b >> 1])
+        ol = int(rng.integers(500, min(la, lb)))
+        us += [a, b ^ 1]
+        ls += [la - ol, lb - ol]
+        vs += [b, a ^ 1]
+        ols += [ol, ol]
+    g = Graph(u=np.asarray(us, np.int32), l=np.asarray(ls, np.int32),
+              v=np.asarray(vs, np.int32), ol=np.asarray(ols, np.int32),
+              adel=np.zeros(len(us), bool), slen=lens,
+              sdel=rng.random(n_seq) < 0.05,
+              idx_start=np.zeros(2 * n_seq, np.int64),
+              idx_cnt=np.zeros(2 * n_seq, np.int32))
+    return cleanup(g)
+
+
+def cut_inputs(rng, n=50_000, T=500):
+    """Random select rows and trim tables for cut_hit2arc; about a tenth
+    of the rows push a projected end below zero, so the unsigned e-side
+    clamp matters."""
+    qid = rng.integers(0, T - 2, n)
+    tid = rng.integers(0, T - 2, n)
+    qs = rng.integers(0, 20000, n)
+    qe = qs + rng.integers(0, 20000, n)
+    ts = rng.integers(0, 20000, n)
+    te = ts + rng.integers(0, 20000, n)
+    flags = rng.integers(0, 8, n)
+    colmat = np.stack([qid, qs, qe, tid, ts, te, flags]).astype(np.int32)
+    s = rng.integers(0, 3000, T)
+    e = s + rng.integers(0, 30000, T)
+    tab = np.stack([s, e, rng.random(T) < 0.1]).astype(np.int32)
+    lanes = rng.integers(0, 4, n).astype(np.uint8)
+    return colmat, tab, lanes
+
+
+@pytest.mark.parametrize("final_pass", [False, True])
+def test_cut_hit2arc_kernel_matches_plain(dev, final_pass):
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, tab, lanes = cut_inputs(np.random.default_rng(1))
+    c = torch.from_numpy(colmat).to(dev)
+    args = (c, c[[1, 2, 4, 5]].contiguous(), torch.from_numpy(lanes).to(dev),
+            torch.from_numpy(tab).to(dev))
+    kw = dict(min_span=2000, max_hang=1000, int_frac=0.8, min_ovlp=2000,
+              final_pass=final_pass)
+    got = fused2.cut_hit2arc(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused2.cut_hit2arc_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("end_clip", [0, 1000])
+def test_sweep_kernel_matches_plain(dev, end_clip):
+    from miniasm_tpu_torch.select import fused2
+
+    rng = np.random.default_rng(2)
+    T, n = 400, 20_000
+    seg = rng.integers(0, T - 1, n)
+    a = rng.integers(0, 30000, n)
+    b = a + rng.integers(1, 5000, n)
+    ok = rng.random(n) < 0.9
+    key_s = np.where(ok, a * 2, fused2.SKIP)
+    key_e = np.where(ok, b * 2 + 1, fused2.SKIP)
+    seg2 = np.concatenate([seg, seg, np.full(50, T)]).astype(np.int64)
+    key = np.concatenate([key_s, key_e, np.full(50, fused2.SKIP)])
+    keys = torch.sort(torch.from_numpy((seg2 << 32) | key).to(dev)).values
+    got = fused2.sweep(keys, T, 3, end_clip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused2.sweep_plain(keys, T, 3, end_clip))
+
+
+@pytest.mark.parametrize("do_trans", [False, True])
+def test_trans_multi_kernel_matches_plain(dev, do_trans):
+    from miniasm_tpu_torch.graph import devclean
+
+    g = random_graph(np.random.default_rng(3), n_seq=300, n_pairs=3000)
+    c = devclean.build_arcs(g, dev)
+    args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"], 1000,
+            do_trans)
+    got = devclean.trans_multi(*args)
+    torch.cuda.synchronize()
+    want = devclean.trans_multi_plain(*args)
+    assert torch.equal(got, want)
+    assert int((want & 1).sum()) > 0 or not do_trans
+
+
+@pytest.mark.parametrize("K", [4, 64])
+def test_bubble_bfs_kernel_matches_plain(dev, K):
+    from miniasm_tpu_torch.graph import devbub
+
+    g = random_graph(np.random.default_rng(4), n_seq=200, n_pairs=500)
+    g.adel[::7] = True  # tombstones: the back-arc test still reads them
+    c = devbub._arc_cols(g, dev)
+    src = torch.from_numpy(np.flatnonzero(
+        c["live_out"].cpu().numpy() >= 2).astype(np.int32)).to(dev)
+    args = (c["first"], c["av"], c["al"], c["adel"], c["live_out"], src, K,
+            50000)
+    got = devbub.bubble_bfs(*args)
+    torch.cuda.synchronize()
+    want = devbub.bubble_bfs_plain(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("fmt", ["ug", "sg", "bed"])
+def test_run_on_card_matches_cpu(dev, tmp_path, fmt):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = str(tmp_path / "r.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    outs = {}
+    cuda.reset_launches()
+    for d in ("cpu", "cuda"):
+        buf = io.StringIO()
+        run(paf, Opt(), outfmt=fmt, out=buf, device=d)
+        outs[d] = buf.getvalue()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+    n = cuda.launch_counts()
+    assert n["cut_hit2arc"] == 2 and n["sweep"] == 2
+    assert (n["trans_multi"] > 0) == (fmt != "bed")
+
+
+def test_empty_input_on_card(dev, tmp_path):
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = str(tmp_path / "empty.paf")
+    open(paf, "w").close()
+    outs = []
+    for d in ("cpu", "cuda"):
+        buf = io.StringIO()
+        run(paf, Opt(), outfmt="ug", out=buf, device=d)
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1]

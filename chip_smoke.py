@@ -11,12 +11,15 @@ What it does, in order:
      random.Random(36)), so that tips, bubbles, internal cuts and
      bi-loops all fire;
   3. drives the port's main path on the card through its CLI (PAF -> GFA,
-     -p ug) on both inputs, then -p sg (noisy) and -p bed (clean) once;
+     -p ug) on both inputs, then -p sg (noisy) and -p bed (clean) once,
+     then the staged selection path (-1, -2, -S 4) at the same size in
+     five runs that reach -p ug, sg, bed and paf;
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
-     run requires (EXPECT): all four on the noisy runs;
+     run requires (EXPECT): K1-K4 on the noisy main-path runs, K2, K5
+     and K6 on the staged runs;
   4. holds each kernel against its plain PyTorch version on the card, on
-     the inputs the main path gave it (the largest call of each), bit for
+     the inputs the runs gave it (the largest call of each), bit for
      bit, and times both with CUDA events;
   5. runs the same commands with MINIASM_TPU_TORCH_DEVICE=cpu (the plain
      versions only) and requires byte-identical stdout.
@@ -54,17 +57,38 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # launches each run must show, counted in that run alone: a number is
 # exact, ">0" at least one, "any" not checked.  The clean set's perfect
 # overlaps leave no vertex with two live out-arcs, so it has no bubble
-# source and K4 is held on the noisy set, where every kernel must launch.
-_CLEAN = {"cut_hit2arc": 2, "sweep": 2, "trans_multi": ">0",
-          "bubble_bfs": "any"}
-_NOISY = {"cut_hit2arc": 2, "sweep": 2, "trans_multi": ">0",
-          "bubble_bfs": ">0"}
+# source and K4 is held on the noisy set, where every main-path kernel
+# must launch.  The main path never launches the staged kernels K5, K6.
+_MAIN = {"hit_cut": 0, "hit2arc": 0}
+_CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
+              bubble_bfs="any")
+_NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
+              bubble_bfs=">0")
+
+
+def _staged(sweep, hit_cut, hit2arc, graph):
+    # K2 per hit_sub pass, K5 per cut, K6 per filter, containment and
+    # graph build; the graph runs clean with K3 (and K4 where it finds a
+    # bubble source)
+    return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
+            "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
+            "bubble_bfs": "any" if graph else 0}
+
+
 EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "ecoli_ug_3": _CLEAN, "noisy_ug": _NOISY, "noisy_sg": _NOISY,
-          "ecoli_bed": {"cut_hit2arc": 2, "sweep": 2, "trans_multi": 0,
-                        "bubble_bfs": 0}}
-# the main path's run whose counts the kernels line reports
-RUN_OF_RECORD = "noisy_ug"
+          "ecoli_bed": dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=0,
+                            bubble_bfs=0),
+          "ecoli_s1_ug": _staged(1, 1, 2, True),
+          "noisy_s2_ug": _staged(1, 1, 2, True),
+          "noisy_s12_sg": _staged(0, 0, 1, True),
+          "ecoli_S4_bed": _staged(2, 2, 1, False),
+          "noisy_s1_paf": _staged(1, 1, 1, False)}
+# the run whose counts the kernels line reports for each kernel: the main
+# path's run in which K1-K4 all launch, and the staged -1 run for K5, K6
+RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
+                 "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
+                 "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug"}
 
 
 def _say(msg: str) -> None:
@@ -89,18 +113,24 @@ def _smi() -> str:
 # recording the kernels' inputs on the main path
 
 class Recorder:
-    """Wraps a module-level kernel wrapper so the main path's calls keep
-    a copy of the largest input each variant saw (key_fn names the
-    variant).  The wrapped call itself is unchanged."""
+    """Wraps a module-level kernel wrapper so the runs' calls keep a copy
+    of the largest input each variant saw (key_fn names the variant), and
+    the largest value of stat_fn (a number from the arguments) since the
+    last reset.  `kernel` names the kernel when the wrapper's name is not
+    its name.  The wrapped call itself is unchanged."""
 
-    def __init__(self, mod, name: str, key_fn):
+    def __init__(self, mod, name: str, key_fn, stat_fn=None, kernel=None):
         self.mod, self.name, self.key_fn = mod, name, key_fn
+        self.kernel = kernel or name
+        self.stat_fn, self.stat = stat_fn, 0
         self.orig = getattr(mod, name)
         self.calls: dict = {}
 
     def __enter__(self):
         def wrapped(*a, **k):
             size = sum(x.numel() for x in a if isinstance(x, torch.Tensor))
+            if self.stat_fn is not None:
+                self.stat = max(self.stat, self.stat_fn(a, k))
             key = self.key_fn(a, k)
             if key not in self.calls or self.calls[key][0] < size:
                 self.calls[key] = (size, tuple(
@@ -211,6 +241,15 @@ def _cost(name, args, kw, out):
         # row, plus the pairwise multi-arc compare of each row
         ops = int(deg[av.long()].sum()) * 2 + int((deg * deg).sum())
         return _nbytes(first, av, al, sdel_v) + _nbytes(out), ops
+    if name == "hit_cut":
+        cols, sub = args[0], args[1]
+        n = cols.shape[1]
+        # 7 hit rows in, 3 table words gathered per read, 4 rows + keep out
+        return 7 * 4 * n + _nbytes(sub) + _nbytes(*out), 40 * n
+    if name == "hit2arc":
+        cols, lens = args[0], args[1]
+        n = cols.shape[1]
+        return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -224,24 +263,27 @@ def _cost(name, args, kw, out):
     raise KeyError(name)
 
 
-def _kernel_phase(recs, launches, launches_clean):
-    """Kernel vs plain version on the recorded main-path inputs."""
+def _kernel_phase(recs, runs):
+    """Kernel vs plain version on the recorded inputs of the runs."""
     from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.core import hit2arc as h2a
     from miniasm_tpu_torch.graph import devbub, devclean
-    from miniasm_tpu_torch.select import fused2
+    from miniasm_tpu_torch.select import cut, fused2
 
     plain = {"cut_hit2arc": fused2.cut_hit2arc_plain,
              "sweep": fused2.sweep_plain,
              "trans_multi": devclean.trans_multi_plain,
-             "bubble_bfs": devbub.bubble_bfs_plain}
+             "bubble_bfs": devbub.bubble_bfs_plain,
+             "hit_cut": cut.hit_cut_plain,
+             "hit2arc": h2a.hit2arc_rows_plain}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
-            "bubble_bfs": 10}
+            "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
-        name = rec.name
+        name = rec.kernel
         if not rec.calls:
-            _fail("kernel %s: the main path recorded no call" % name)
+            _fail("kernel %s: the runs recorded no call" % name)
         K = by_name[name]
         tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
         err = 0.0
@@ -267,8 +309,10 @@ def _kernel_phase(recs, launches, launches_clean):
         t_ops = tot["ops"] / INT32_OPS_S * 1e3
         row = {"name": name, "route": "cuda",
                "source": "miniasm_tpu_torch/csrc/" + K.source,
-               "replaces": K.replaces, "launches": launches[name],
-               "launches_ecoli_ug": launches_clean[name],
+               "replaces": K.replaces,
+               "launches": runs[RUN_OF_RECORD[name]]["launches"][name],
+               "launches_run": RUN_OF_RECORD[name],
+               "launches_ecoli_ug": runs["ecoli_ug"]["launches"][name],
                "max_abs_err": err, "ms": tot["ms"],
                "plain_ms": tot["plain_ms"],
                "bound_ms": max(t_bytes, t_ops),
@@ -297,10 +341,11 @@ def main(argv=None) -> int:
               "a checkout of the repository")
     sys.path.insert(0, HERE)
     from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.core import hit2arc as h2a
     from miniasm_tpu_torch.eval.simulate import simulate, write_paf
     from miniasm_tpu_torch.graph import devbub, devclean
     from miniasm_tpu_torch.io.native.build import get_lib
-    from miniasm_tpu_torch.select import fused2
+    from miniasm_tpu_torch.select import cut, fused2
 
     report: dict = {}
     smi = _smi()
@@ -348,43 +393,61 @@ def main(argv=None) -> int:
     report["data"] = {"genome_bp": a.genome, "coverage": COVERAGE,
                       "reads": len(sim["names"]), "paf_lines": n_lines,
                       "noisy_lines": n_noisy}
+    staged = (("ecoli_s1_ug", ["-1", "-p", "ug", paf]),
+              ("noisy_s2_ug", ["-2", "-p", "ug", noisy]),
+              ("noisy_s12_sg", ["-1", "-2", "-p", "sg", noisy]),
+              ("ecoli_S4_bed", ["-S", "4", "-p", "bed", paf]),
+              ("noisy_s1_paf", ["-1", "-p", "paf", noisy]))
 
-    # --- 3. the main path on the card ---
+    # --- 3. the main path and the staged path on the card ---
+    # K3 keeps a row of arcs (3 int32 each) in shared memory
+    k3_row_limit = devclean._SMEM_MAX // 12
+    k3 = Recorder(devclean, "trans_multi", lambda a_, k: "all",
+                  stat_fn=lambda a_, k: a_[4])  # D: the largest row
     recs = [Recorder(fused2, "cut_hit2arc",
                      lambda a_, k: "final" if k["final_pass"] else "relaxed"),
             Recorder(fused2, "sweep",
                      lambda a_, k: "fine" if a_[3] else "crude"),
-            Recorder(devclean, "trans_multi", lambda a_, k: "all"),
-            Recorder(devbub, "bubble_bfs", lambda a_, k: "all")]
+            k3,
+            Recorder(devbub, "bubble_bfs", lambda a_, k: "all"),
+            Recorder(cut, "hit_cut", lambda a_, k: "all"),
+            Recorder(h2a, "hit2arc_rows",
+                     lambda a_, k: "relaxed" if a_[3] == 0.5 else "final",
+                     kernel="hit2arc")]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
             st.enter_context(r)
         # a cold run (first use of every CUDA library), three warm runs of
-        # the clean set for the spread, the noisy set, then -p sg and bed
+        # the clean set for the spread, the noisy set, -p sg and bed; then
+        # the staged path: -1 (pass 2 + containment), -2 (pass 1), -1 -2
+        # (no selection: the graph of every read), -S 4 (both passes, no
+        # containment) and -1 -p paf
         for tag, args in (("ecoli_ug_cold", ["-p", "ug", paf]),
                           ("ecoli_ug", ["-p", "ug", paf]),
                           ("ecoli_ug_2", ["-p", "ug", paf]),
                           ("ecoli_ug_3", ["-p", "ug", paf]),
                           ("noisy_ug", ["-p", "ug", noisy]),
                           ("noisy_sg", ["-p", "sg", noisy]),
-                          ("ecoli_bed", ["-p", "bed", paf])):
+                          ("ecoli_bed", ["-p", "bed", paf])) + staged:
+            k3.stat = 0
             out, dt, stages, launches = _cli(args, "cuda")
             runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
-                         "launches": launches}
-            if args[1] == "ug":
+                         "launches": launches, "k3_max_row": k3.stat}
+            if args[args.index("-p") + 1] == "ug":
                 runs[tag]["gfa"] = _gfa_summary(out)
-            _say("[card] %s: %.3f s, %d bytes, %s; launches %s; "
-                 "stages %s" % (tag, dt, len(out),
-                                json.dumps(runs[tag].get("gfa")),
-                                json.dumps(launches), json.dumps(stages)))
+            _say("[card] %s: %.3f s, %d bytes, %s; launches %s; K3 largest "
+                 "row %d (limit %d); stages %s"
+                 % (tag, dt, len(out), json.dumps(runs[tag].get("gfa")),
+                    json.dumps(launches), k3.stat, k3_row_limit,
+                    json.dumps(stages)))
             _check_launches(tag, launches)
             if not out:
                 _fail("%s printed nothing" % tag)
     for tag in ("ecoli_ug", "ecoli_ug_2", "ecoli_ug_3"):
         if runs[tag]["out"] != runs["ecoli_ug_cold"]["out"]:
             _fail("two card runs on one input differ")
-    for tag in ("ecoli_ug", "noisy_ug"):
+    for tag in ("ecoli_ug", "noisy_ug", "ecoli_s1_ug", "noisy_s2_ug"):
         if runs[tag]["gfa"]["unitigs"] == 0:
             _fail("%s: no unitig in the output" % tag)
     longest = runs["ecoli_ug"]["gfa"]["longest_bp"]
@@ -393,14 +456,13 @@ def main(argv=None) -> int:
               % (longest, a.genome))
 
     # --- 4. kernels against their plain versions ---
-    rows = _kernel_phase(recs, runs[RUN_OF_RECORD]["launches"],
-                         runs["ecoli_ug"]["launches"])
+    rows = _kernel_phase(recs, runs)
 
     # --- 5. the same commands on the CPU ---
     for tag, args in (("ecoli_ug", ["-p", "ug", paf]),
                       ("noisy_ug", ["-p", "ug", noisy]),
                       ("noisy_sg", ["-p", "sg", noisy]),
-                      ("ecoli_bed", ["-p", "bed", paf])):
+                      ("ecoli_bed", ["-p", "bed", paf])) + staged:
         out, dt, _, _ = _cli(args, "cpu")
         same = out == runs[tag]["out"]
         _say("[cpu] %s: %.3f s, stdout %s the card's"

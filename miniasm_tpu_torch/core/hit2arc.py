@@ -11,14 +11,20 @@ Algorithm 5 of the paper) over hit columns.  Return code per hit:
 
 Integer columns are int32 and wrap like the reference's 32-bit arithmetic;
 the int_frac test is one float32 multiply and compare (miniasm.h:94), with
-no promotion to float64.  The select kernel (csrc/select.cu) computes the
-same function per row; this is its plain version.
+no promotion to float64.  The select kernel K1 (csrc/select.cu) computes
+the same function per row; `hit2arc` is its plain version.
+
+`hit2arc_rows` is K6 (csrc/staged.cu), the same function over the staged
+path's (9, n) hit matrix with the read lengths gathered from a table;
+`hit2arc_rows_plain` is its plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..cuda import F32, I32, I64, P, Kernel, ptr
 
 MA_HT_INT = -1
 MA_HT_QCONT = -2
@@ -71,3 +77,41 @@ def hit2arc(qid, qs, qe, tid, ts, te, rev, ql, tl,
     v = (tid << 1) | v_dir
     ol = ql - l
     return {"r": r, "u": u, "v": v, "l": l, "ol": ol}
+
+
+# the hit2arc program (miniasm_tpu/core/hit2arc.py:28) as the staged path
+# calls it: select/filter.py:29, select/contained.py:30, graph/asg.py:174
+K_HIT2ARC = Kernel(
+    "hit2arc", "staged.cu", "ma_hit2arc", [P, I64, P, I64, I32, F32, I32, P],
+    replaces="miniasm_tpu/core/hit2arc.py:28")
+
+
+def hit2arc_rows_plain(cols, lens, max_hang: int, int_frac: float,
+                       min_ovlp: int) -> torch.Tensor:
+    """Plain PyTorch version of the hit2arc kernel: `hit2arc` over the hit
+    matrix with ql, tl gathered from `lens` (indices clamped like XLA's)."""
+    T = lens.shape[0]
+    qid, tid = cols[0], cols[3]
+    c = hit2arc(qid, cols[1], cols[2], tid, cols[4], cols[5], cols[8] != 0,
+                lens[qid.clamp(0, T - 1).long()],
+                lens[tid.clamp(0, T - 1).long()],
+                max_hang, int_frac, min_ovlp)
+    return torch.stack([c[k] for k in ("r", "u", "v", "l", "ol")])
+
+
+def hit2arc_rows(cols, lens, max_hang: int, int_frac: float,
+                 min_ovlp: int) -> torch.Tensor:
+    """K6.  cols (9, n) int32 hits [qid qs qe tid ts te ml bl rev]; lens
+    (T,) int32 per-read lengths.  Returns (5, n) int32 [r u v l ol]."""
+    if cols.device.type == "cpu":
+        return hit2arc_rows_plain(cols, lens, max_hang, int_frac, min_ovlp)
+    n, T = cols.shape[1], lens.shape[0]
+    if cols.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError("hit2arc_rows: int32 hits and lengths expected")
+    if cols.shape[0] != 9 or lens.dim() != 1 or (n and T == 0):
+        raise ValueError("hit2arc_rows: shape mismatch")
+    out = torch.empty((5, n), dtype=torch.int32, device=cols.device)
+    if n:
+        K_HIT2ARC(ptr(cols), n, ptr(lens), T, int(max_hang),
+                  float(np.float32(int_frac)), int(min_ovlp), ptr(out))
+    return out

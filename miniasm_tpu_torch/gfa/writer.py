@@ -4,10 +4,14 @@
                   asm.c:77-116) — note the non-standard a-lines (golden
                   path) and x-lines (unitig summary);
   - sg_print    : string-graph L-lines (ma_sg_print, asm.c:41-55);
-  - print_subs  : BED of trimmed intervals (main.c:13-19).
+  - print_subs  : BED of trimmed intervals (main.c:13-19);
+  - print_hits  : filtered PAF re-based to trimmed coordinates
+                  (main.c:21-30).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def _utg_name(i: int, circ: bool) -> str:
@@ -77,3 +81,19 @@ def print_subs(d, sub_s, sub_e, out) -> None:
     for i in range(d.n_seq):
         if not dels[i] and int(sub_s[i]) != int(sub_e[i]):
             out.write("%s\t%d\t%d\n" % (d.names[i], int(sub_s[i]), int(sub_e[i])))
+
+
+def print_hits(hits, d, sub_s, sub_e, out) -> None:
+    """-p paf of the staged path: `hits` (core.hits.Hits, any device) in
+    hit order; sub_s/sub_e host uint32 trim tables."""
+    from ..core.hits import COLS
+
+    h = hits.numpy()
+    ss, se = np.asarray(sub_s).tolist(), np.asarray(sub_e).tolist()
+    names, w = d.names, out.write
+    for q, qs, qe, t, ts, te, ml, bl, rev in zip(
+            *(h[k].tolist() for k in COLS)):
+        rqs, rqe, rts, rte = ss[q], se[q], ss[t], se[t]
+        w("%s:%d-%d\t%d\t%d\t%d\t%c\t%s:%d-%d\t%d\t%d\t%d\t%d\t%d\t255\n"
+          % (names[q], rqs + 1, rqe, rqe - rqs, qs, qe, "+-"[rev],
+             names[t], rts + 1, rte, rte - rts, ts, te, ml, bl))

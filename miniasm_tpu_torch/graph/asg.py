@@ -161,3 +161,47 @@ def graph_from_arcs(d, sub_s, sub_e, sub_del, cont, used, pal, arcs,
     g = cleanup(g)
     log("sg_gen", "read %d arcs", g.n_arc)
     return g, sub_s, sub_e, sub_del2
+
+
+def graph_from_hits(opt, lens, dels, sub, hits) -> Graph:
+    """Build the string graph from the staged path's surviving hits
+    (reference ma_sg_gen, asm.c:9-39): hit2arc with final parameters (the
+    K6 kernel); arcs appended in hit order; query-contained reads and exact
+    reverse self-palindromes (PacBio chimera artifact, asm.c:27-30) delete
+    their read.  `sub` is the (3, n_seq) [s, e, del] trim table on the
+    hits' device, or None when no selection pass ran: the read lengths are
+    then the raw `lens`."""
+    import torch
+
+    from ..core import hit2arc as h2a
+
+    n_seq = len(lens)
+    if sub is not None:
+        s, e, sd = sub.cpu().numpy()
+        slen = (e.view(np.uint32).astype(np.int64)
+                - s.view(np.uint32).astype(np.int64)).astype(np.uint32)
+        sdel = (sd != 0) | np.asarray(dels, dtype=bool)
+    else:
+        slen = np.asarray(lens, dtype=np.uint32)
+        sdel = np.asarray(dels, dtype=bool).copy()
+
+    c = hits.cols
+    lt = torch.from_numpy(slen.view(np.int32)).to(c.device)
+    arc = h2a.hit2arc_rows(c, lt, opt.max_hang, opt.int_frac, opt.min_ovlp)
+    r = arc[0]
+    is_self = c[0] == c[3]
+    arc_rows = (r >= 0) & ~is_self
+    # self reverse-palindrome artifact (asm.c:27-30) and query contained
+    # at final params (asm.c:34)
+    pal = ((r >= 0) & is_self & (c[1] == c[4]) & (c[2] == c[5])
+           & (c[8] != 0))
+    sdel[c[0][pal | (r == h2a.MA_HT_QCONT)].cpu().numpy()] = True
+    u, v, l, ol = arc[1:][:, arc_rows].cpu().numpy()
+
+    g = Graph(u=u, l=l, v=v, ol=ol, adel=np.zeros(len(u), dtype=bool),
+              slen=slen, sdel=sdel,
+              idx_start=np.zeros(2 * n_seq, dtype=np.int64),
+              idx_cnt=np.zeros(2 * n_seq, dtype=np.int32))
+    g = cleanup(g)
+    log("sg_gen", "read %d arcs", g.n_arc)
+    return g

@@ -1,9 +1,13 @@
-"""ctypes wrapper for the pipelined native PAF loader (pafmt.cpp).
+"""ctypes wrappers for the native PAF loaders.
 
-Reader and parser threads tokenize, filter and intern in C++ while the
-caller pulls (7, piece) int32 column pieces [qid qs qe tid ts te flags]
-(flags bit0=valid bit1=rev bit2=iden_ok).  The pieces are concatenated on
-the host into one exact-size colmat and uploaded with one pinned copy."""
+pafmt.cpp (main path): reader and parser threads tokenize, filter and
+intern in C++ while the caller pulls (7, piece) int32 column pieces
+[qid qs qe tid ts te flags] (flags bit0=valid bit1=rev bit2=iden_ok).  The
+pieces are concatenated on the host into one exact-size colmat and
+uploaded with one pinned copy.
+
+pafread.cpp (staged path): one single-threaded pass to the filtered
+records' SoA columns on the host (`load_paf_native`)."""
 
 from __future__ import annotations
 
@@ -150,3 +154,61 @@ def load_hits_mt(fn, min_span, min_match, *, bi_dir=True, min_iden=0.05,
     if device.type == "cuda":
         t = t.pin_memory().to(device, non_blocking=True)
     return t, d, h
+
+
+class _MaPafLoad(ctypes.Structure):
+    _fields_ = [
+        ("n_rec", ctypes.c_int64),
+        ("n_seq", ctypes.c_int64),
+        ("n_lines", ctypes.c_int64),
+        ("names_bytes", ctypes.c_int64),
+        ("qid", ctypes.POINTER(ctypes.c_int32)),
+        ("qs", ctypes.POINTER(ctypes.c_uint32)),
+        ("qe", ctypes.POINTER(ctypes.c_uint32)),
+        ("tid", ctypes.POINTER(ctypes.c_int32)),
+        ("ts", ctypes.POINTER(ctypes.c_uint32)),
+        ("te", ctypes.POINTER(ctypes.c_uint32)),
+        ("ml", ctypes.POINTER(ctypes.c_uint32)),
+        ("bl", ctypes.POINTER(ctypes.c_uint32)),
+        ("rev", ctypes.POINTER(ctypes.c_uint8)),
+        ("seq_len", ctypes.POINTER(ctypes.c_uint32)),
+        ("names", ctypes.POINTER(ctypes.c_char)),
+    ]
+
+
+def _arr(ptr, n, dtype):
+    if n == 0:
+        return np.zeros(0, dtype=dtype)
+    return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
+
+
+def load_paf_native(fn, min_span, min_match):
+    """Load, filter and intern `fn` with ma_paf_load (pafread.cpp) into a
+    PafLoad of host columns."""
+    from ..paf import PafLoad
+    from .build import get_lib
+
+    lib = get_lib()
+    lib.ma_paf_load.restype = ctypes.POINTER(_MaPafLoad)
+    lib.ma_paf_load.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_char_p,
+                                ctypes.c_int64]
+    lib.ma_paf_free.argtypes = [ctypes.POINTER(_MaPafLoad)]
+    res = lib.ma_paf_load(fn.encode(), min_span, min_match, b"", 0)
+    if not res:
+        raise FileNotFoundError(2, "could not open PAF file", fn)
+    try:
+        r = res.contents
+        n = int(r.n_rec)
+        ns = int(r.n_seq)
+        names_blob = ctypes.string_at(r.names, int(r.names_bytes))
+        names = names_blob.decode("latin-1").split("\0")[:ns]
+        d = SeqDict.from_arrays(names, _arr(r.seq_len, ns, np.uint32).tolist())
+        return PafLoad(
+            qid=_arr(r.qid, n, np.int32), qs=_arr(r.qs, n, np.uint32),
+            qe=_arr(r.qe, n, np.uint32), tid=_arr(r.tid, n, np.int32),
+            ts=_arr(r.ts, n, np.uint32), te=_arr(r.te, n, np.uint32),
+            ml=_arr(r.ml, n, np.uint32), bl=_arr(r.bl, n, np.uint32),
+            rev=_arr(r.rev, n, np.uint8), d=d, n_lines=int(r.n_lines))
+    finally:
+        lib.ma_paf_free(res)

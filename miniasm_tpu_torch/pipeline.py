@@ -1,6 +1,6 @@
 """End-to-end pipeline driver (reference main.c:32-211), PAF -> GFA.
 
-Port of the main path of miniasm_tpu/pipeline.py (_run_fast_v2 and the
+Port of miniasm_tpu/pipeline.py.  The main path (_run_fast_v2 and the
 hybrid branch of _emit):
 
   1. PAF load (host C++ loader) + one upload        [host -> device]
@@ -11,9 +11,16 @@ hybrid branch of _emit):
                                                        host ordered commit]
   5. unitigs + GFA                                    [host]
 
-Outputs -p ug|sg|bed.  The other flags of the JAX package (-1, -2, -S
-below 5, -R, -f, -p paf, snapshot restore) are not ported yet and raise
-NotImplementedError.
+The staged path (-1, -2, -S below 5; pipeline.py:96-151 and the staged
+part of _emit) runs the reference's own control flow pass by pass over a
+device-resident hit matrix (core/hits.py): load + mirror + exact sort on
+the host, one upload, then sub / cut / filter / sub / cut / merge /
+containment on the device (K2 sweep, K5 hit_cut, K6 hit2arc), the graph
+built from the surviving hits, and the same cleaning and output.
+
+Outputs -p ug|sg|bed, and -p paf on the staged path.  The other flags of
+the JAX package (-R, -f, the main path's -p paf, snapshot restore) are
+not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 from .config import Opt
 from .device import get_device
-from .gfa.writer import print_subs, sg_print, ug_print
+from .gfa.writer import print_hits, print_subs, sg_print, ug_print
 from .graph.asg import graph_from_arcs
 from .unitig.unitig import ug_gen
 from .utils import timers
@@ -48,26 +55,20 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         bi_dir: bool = True, no_cont: bool = False, out=None,
         device: str | torch.device | None = None):
     """Assemble `paf_fn` and write -p `outfmt` to `out` (default stdout).
-    Runs on `device`: `cuda` unless the caller asks for `cpu`."""
+    Runs on `device`: `cuda` unless the caller asks for `cpu`.  -1, -2 or
+    a stage below 5 take the staged path, as in the JAX package
+    (pipeline.py:58-61)."""
     out = out or sys.stdout
-    if no_first:
-        _not_ported("-1 (skip 1-pass selection)")
-    if no_second:
-        _not_ported("-2 (skip 2-pass selection)")
-    if stage < 5:
-        _not_ported("-S %d (stages below 5)" % stage)
+    staged = no_first or no_second or stage < 5
     if no_cont:
         _not_ported("-R (contained-read prefilter)")
     if fn_reads:
         _not_ported("-f (read sequences)")
-    if outfmt == "paf":
-        _not_ported("-p paf")
-    if outfmt not in ("ug", "sg", "bed"):
+    if outfmt == "paf" and not staged:
+        _not_ported("-p paf without -1, -2 or -S below 5")
+    if outfmt not in ("ug", "sg", "bed", "paf"):
         raise ValueError("unknown output format %r" % outfmt)
     dev = get_device(device)
-
-    from .io.native.pafload import load_hits_mt
-    from .select.fused2 import select_build2
 
     t0 = time.time()
     LAST_TIMING.clear()
@@ -78,6 +79,17 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         LAST_TIMING[name] = time.time() - t0
+
+    if staged:
+        return _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second,
+                           bi_dir, out, dev, tick)
+    return _run_main(paf_fn, opt, outfmt, stage, bi_dir, out, dev, tick)
+
+
+def _run_main(paf_fn, opt, outfmt, stage, bi_dir, out, dev, tick):
+    """The main path: Steps 2-3 fused on the device (select/fused2.py)."""
+    from .io.native.pafload import load_hits_mt
+    from .select.fused2 import select_build2
 
     sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
     colmat, d, h3 = load_hits_mt(
@@ -142,10 +154,16 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         d, md["sub_s"], md["sub_e"], md["sub_del"], md["cont"],
         md["used"], md["pal"], arcs, m_hits=m_cont)
     tick("graph_build")
+    sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
+    return _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out,
+                            dev, tick)
 
+
+def _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out, dev,
+                     tick):
+    """Steps 4.1-5 of both paths: the hybrid clean, then -p ug or sg."""
     from .graph.hybrid import clean_graph
 
-    sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
     g = clean_graph(g, opt, stage, device=dev)
     tick("clean")
     if outfmt == "ug":
@@ -158,3 +176,89 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
     sg_print(g, d, sub_s, sub_e, out)
     tick("print")
     return g
+
+
+def _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second, bi_dir,
+                out, dev, tick):
+    """The staged path (JAX pipeline.py:96-151 and the staged part of
+    _emit, pipeline.py:346-398): each pass of Steps 2-3 on its own, gated
+    by -1, -2 and -S.  The trim tables are (3, n_seq) int32 [s, e, del] on
+    the device, None until a selection pass runs."""
+    from .core.hits import build_hits
+    from .graph.asg import graph_from_hits
+    from .io.paf import load_paf
+    from .select.contained import hit_contained
+    from .select.cut import apply_cut
+    from .select.filter import flt_coverage, hit_flt
+    from .select.subregion import hit_sub, log_sub
+
+    sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
+    load = load_paf(paf_fn, opt.min_span, opt.min_match)
+    d = load.d
+    hits = build_hits(load, bi_dir=bi_dir, device=dev)
+    del load
+    tick("load+upload")
+
+    sub = None
+    if not no_first:
+        sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read "
+                         "selection <===\n")
+        if stage >= 2:
+            sub = hit_sub(hits, d.n_seq, opt.min_dp, opt.min_iden, 0)
+            log_sub(sub)
+            hits = apply_cut(hits, sub, opt.min_span)
+            log("hit_cut", "%d hits remain after cut", hits.n)
+        if stage >= 3:
+            keep, dp = hit_flt(hits, sub, int(opt.max_hang * 1.5),
+                               int(opt.min_ovlp * 0.5))
+            dp_sum = int(dp.to(torch.int64).sum())
+            hits = hits.take(keep)
+            log("hit_flt", "%d hits remain after filtering; crude coverage "
+                "after filtering: %.2f", hits.n,
+                flt_coverage(hits.qid, dp_sum, sub))
+    if not no_second:
+        sys.stderr.write("[M::main] ===> Step 3: 2-pass (fine) read "
+                         "selection <===\n")
+        if stage >= 4:
+            sub2 = hit_sub(hits, d.n_seq, opt.min_dp, opt.min_iden,
+                           opt.min_span // 2)
+            log_sub(sub2)
+            hits = apply_cut(hits, sub2, opt.min_span)
+            log("hit_cut", "%d hits remain after cut", hits.n)
+            if not no_first:
+                # compose the pass-2 intervals into the pass-1 frame in
+                # wrapping (uint32) arithmetic (ma_sub_merge, hit.c:218-223)
+                sub = torch.stack([sub[0] + sub2[0], sub[0] + sub2[1],
+                                   sub[2] | sub2[2]])
+            else:
+                sub = sub2
+        if stage >= 5:
+            hits, sub = hit_contained(opt, d, sub, hits)
+    tick("select")
+
+    if outfmt in ("bed", "paf") and sub is None:
+        # the flag combination never ran a selection pass (-1 with -S<4,
+        # or -1 -2): the reference dereferences a NULL sub table here
+        # (main.c print_subs/print_hits); the JAX package warns instead
+        sys.stderr.write("[W::main] no selection pass ran (-1/-2/-S); "
+                         "nothing to print for -p %s\n" % outfmt)
+        return None
+    sub_s = sub_e = None
+    if sub is not None:
+        s, e = sub[:2].cpu().numpy()
+        sub_s, sub_e = s.view(np.uint32), e.view(np.uint32)
+    if outfmt == "bed":
+        print_subs(d, sub_s, sub_e, out)
+        tick("print")
+        return None
+    if outfmt == "paf":
+        print_hits(hits, d, sub_s, sub_e, out)
+        tick("print")
+        return None
+
+    sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
+    g = graph_from_hits(opt, d.lens_array(), d.del_array(), sub, hits)
+    del hits
+    tick("graph_build")
+    return _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out,
+                            dev, tick)

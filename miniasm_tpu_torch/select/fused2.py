@@ -25,6 +25,8 @@ import torch
 
 from ..cuda import F32, I32, I64, P, Kernel, ptr
 from ..core.hit2arc import hit2arc, MA_HT_QCONT, MA_HT_TCONT
+from ..utils.u32 import as_i32, as_u32
+from .cut import cut_project
 
 SKIP = 0x7FFFFFFF  # event key of a skipped event (the JAX program's BIG)
 
@@ -45,17 +47,6 @@ CUT_ROWS_RELAXED = 6   # qs qe ts te lanes dp
 CUT_ROWS_FINAL = 15    # qs qe ts te lanes rq uq vq lq olq rm um vm lm olm
 
 
-def _u32(x: torch.Tensor) -> torch.Tensor:
-    """int32 bit pattern -> its uint32 value, held in int64."""
-    return x.to(torch.int64) & 0xFFFFFFFF
-
-
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    """uint32 value held in int64 -> its int32 bit pattern."""
-    x = x & 0xFFFFFFFF
-    return (x - ((x >> 31) << 32)).to(torch.int32)
-
-
 def cut_hit2arc_plain(colmat, coords, lanes, tab, *, min_span, max_hang,
                       int_frac, min_ovlp, final_pass):
     """Plain PyTorch version of the cut_hit2arc kernel (see csrc/select.cu):
@@ -69,22 +60,15 @@ def cut_hit2arc_plain(colmat, coords, lanes, tab, *, min_span, max_hang,
     rt_s, rt_e, rt_d = tab[0][ti], tab[1][ti], tab[2][ti]
     alive = (rq_d == 0) & (rt_d == 0)
     rev = ((flags >> 1) & 1).to(torch.bool)
-    qs0, qe0, ts0, te0 = coords[0], coords[1], coords[2], coords[3]
+    qs1, qe1, ts1, te1 = cut_project(coords[0], coords[1], coords[2],
+                                     coords[3], rev, rq_s, rq_e, rt_s, rt_e)
     w = torch.where
-    qs1 = w(rev, w(te0 < rt_e, qs0, qs0 + (te0 - rt_e)),
-            w(ts0 > rt_s, qs0, qs0 + (rt_s - ts0)))
-    qe1 = w(rev, w(ts0 > rt_s, qe0, qe0 - (rt_s - ts0)),
-            w(te0 < rt_e, qe0, qe0 - (te0 - rt_e)))
-    ts1 = w(rev, w(qe0 < rq_e, ts0, ts0 + (qe0 - rq_e)),
-            w(qs0 > rq_s, ts0, ts0 + (rq_s - qs0)))
-    te1 = w(rev, w(qs0 > rq_s, te0, te0 - (rq_s - qs0)),
-            w(qe0 < rq_e, te0, te0 - (qe0 - rq_e)))
     # clamp + rebase (hit.c:181-184): the e-side min is UNSIGNED (the
     # reference compares int qe against the uint32 ma_sub_t.e)
     qs2 = torch.maximum(qs1, rq_s) - rq_s
     ts2 = torch.maximum(ts1, rt_s) - rt_s
-    qe2 = _i32(torch.minimum(_u32(qe1), _u32(rq_e)) - _u32(rq_s))
-    te2 = _i32(torch.minimum(_u32(te1), _u32(rt_e)) - _u32(rt_s))
+    qe2 = as_i32(torch.minimum(as_u32(qe1), as_u32(rq_e)) - as_u32(rq_s))
+    te2 = as_i32(torch.minimum(as_u32(te1), as_u32(rt_e)) - as_u32(rt_s))
     keep = alive & (qe2 - qs2 >= min_span) & (te2 - ts2 >= min_span)
     slq, slt = rq_e - rq_s, rt_e - rt_s
     vq = ((lanes & 1) != 0) & keep

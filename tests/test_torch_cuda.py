@@ -104,6 +104,54 @@ def test_sweep_kernel_matches_plain(dev, end_clip):
     assert torch.equal(got, fused2.sweep_plain(keys, T, 3, end_clip))
 
 
+def staged_inputs(rng, n=50_000, T=500):
+    """Random staged hits (9, n) and trim tables (3, T): coordinates that
+    straddle the trim ends, a few starts above 2**31 (projections that
+    wrap below zero), deleted reads, every hit2arc class."""
+    qid = rng.integers(0, T, n)
+    tid = rng.integers(0, T, n)
+    qs = rng.integers(0, 9000, n)
+    qs[rng.random(n) < 0.02] = (1 << 32) - rng.integers(1, 3000)
+    qe = qs + rng.integers(0, 9000, n)
+    ts = rng.integers(0, 9000, n)
+    te = ts + rng.integers(0, 9000, n)
+    z = np.zeros(n, np.int64)
+    cols = np.stack([qid, qs, qe, tid, ts, te, z, z,
+                     rng.integers(0, 2, n)]).astype(np.uint32).view(np.int32)
+    s = rng.integers(0, 6000, T)
+    e = s + rng.integers(0, 12000, T)
+    sub = np.stack([s, e, rng.random(T) < 0.1]).astype(np.int32)
+    return cols, sub
+
+
+def test_hit_cut_kernel_matches_plain(dev):
+    from miniasm_tpu_torch.select import cut
+
+    cols, sub = staged_inputs(np.random.default_rng(5))
+    args = (torch.from_numpy(cols).to(dev), torch.from_numpy(sub).to(dev),
+            2000)
+    got = cut.hit_cut(*args)
+    torch.cuda.synchronize()
+    want = cut.hit_cut_plain(*args)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert want[1].any() and not want[1].all()
+
+
+@pytest.mark.parametrize("int_frac", [0.5, 0.8])
+def test_hit2arc_kernel_matches_plain(dev, int_frac):
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    cols, sub = staged_inputs(np.random.default_rng(6))
+    lens = torch.from_numpy(sub[1] - sub[0]).to(dev)
+    args = (torch.from_numpy(cols).to(dev), lens, 1000, int_frac, 2000)
+    got = h2a.hit2arc_rows(*args)
+    torch.cuda.synchronize()
+    want = h2a.hit2arc_rows_plain(*args)
+    assert torch.equal(got, want)
+    assert len(set(want[0].clamp(min=-5, max=0).tolist())) == 5
+
+
 @pytest.mark.parametrize("do_trans", [False, True])
 def test_trans_multi_kernel_matches_plain(dev, do_trans):
     from miniasm_tpu_torch.graph import devclean
@@ -158,15 +206,42 @@ def test_run_on_card_matches_cpu(dev, tmp_path, fmt):
     assert (n["trans_multi"] > 0) == (fmt != "bed")
 
 
+@pytest.mark.parametrize("args", [["-1"], ["-2", "-p", "sg"],
+                                  ["-1", "-2"], ["-S", "4", "-p", "bed"],
+                                  ["-1", "-p", "paf"]],
+                         ids=lambda a: "".join(a))
+def test_staged_run_on_card_matches_cpu(dev, tmp_path, args):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = str(tmp_path / "r.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    kw = {"no_first": "-1" in args, "no_second": "-2" in args,
+          "stage": int(args[args.index("-S") + 1]) if "-S" in args else 100,
+          "outfmt": args[args.index("-p") + 1] if "-p" in args else "ug"}
+    outs = {}
+    cuda.reset_launches()
+    for d in ("cpu", "cuda"):
+        buf = io.StringIO()
+        run(paf, Opt(), out=buf, device=d, **kw)
+        outs[d] = buf.getvalue()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+    n = cuda.launch_counts()
+    assert n["cut_hit2arc"] == 0 and n["hit2arc"] > 0
+
+
 def test_empty_input_on_card(dev, tmp_path):
     from miniasm_tpu_torch.config import Opt
     from miniasm_tpu_torch.pipeline import run
 
     paf = str(tmp_path / "empty.paf")
     open(paf, "w").close()
-    outs = []
-    for d in ("cpu", "cuda"):
-        buf = io.StringIO()
-        run(paf, Opt(), outfmt="ug", out=buf, device=d)
-        outs.append(buf.getvalue())
-    assert outs[0] == outs[1]
+    for kw in ({}, {"no_first": True}):  # the main and the staged path
+        outs = []
+        for d in ("cpu", "cuda"):
+            buf = io.StringIO()
+            run(paf, Opt(), outfmt="ug", out=buf, device=d, **kw)
+            outs.append(buf.getvalue())
+        assert outs[0] == outs[1]

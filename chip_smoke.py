@@ -7,20 +7,22 @@ What it does, in order:
      (one nvcc per source, all started together);
   2. simulates an E. coli-scale read set with the port's simulator
      (4.6 Mb genome, 40x, seed 11, reads of 8000 +- 2000 bp: 911,422 PAF
-     lines) and its noisy variant (half of the PAF lines dropped,
-     random.Random(36)), so that tips, bubbles, internal cuts and
-     bi-loops all fire;
+     lines, and the reads FASTA for -f) and its noisy variant (half of
+     the PAF lines dropped, random.Random(36)), so that tips, bubbles,
+     internal cuts and bi-loops all fire;
   3. drives the port's main path on the card through its CLI (PAF -> GFA,
      -p ug) on both inputs, then -p sg (noisy) and -p bed (clean) once,
      then the staged selection path (-1, -2, -S 4) at the same size in
-     five runs that reach -p ug, sg, bed and paf;
+     five runs that reach -p ug, sg, bed and paf, then the oracle clean
+     modes (MINIASM_TPU_CLEAN=native -p ug, =py -p sg, each byte-equal to
+     its hybrid run) and -f and -R on both paths;
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
      run requires (EXPECT): K1-K4 on the noisy main-path runs, K2, K5
-     and K6 on the staged runs;
+     and K6 on the staged runs, K3, K7 and K8 on the oracle runs;
   4. holds each kernel against its plain PyTorch version on the card, on
-     the inputs the runs gave it (the largest call of each), bit for
-     bit, and times both with CUDA events;
+     the inputs the runs gave it (the largest call of each variant on
+     each path), bit for bit, and times both with CUDA events;
   5. runs the same commands with MINIASM_TPU_TORCH_DEVICE=cpu (the plain
      versions only) and requires byte-identical stdout.
 
@@ -58,8 +60,9 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # exact, ">0" at least one, "any" not checked.  The clean set's perfect
 # overlaps leave no vertex with two live out-arcs, so it has no bubble
 # source and K4 is held on the noisy set, where every main-path kernel
-# must launch.  The main path never launches the staged kernels K5, K6.
-_MAIN = {"hit_cut": 0, "hit2arc": 0}
+# must launch.  The main path never launches the staged kernels K5, K6,
+# and only the oracle clean modes launch K7 and K8.
+_MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -72,7 +75,16 @@ def _staged(sweep, hit_cut, hit2arc, graph):
     # bubble source)
     return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
             "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
-            "bubble_bfs": "any" if graph else 0}
+            "bubble_bfs": "any" if graph else 0, "key_member": 0,
+            "dup_mark": 0}
+
+
+def _oracle(symm_calls):
+    # the main path's select, then del_trans (one K3 launch) and one K8
+    # and one K7 launch per symm: after del_trans, and in py mode after
+    # each del_short that drops arcs; the oracles never run K4
+    return dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=1, bubble_bfs=0,
+                key_member=symm_calls, dup_mark=symm_calls)
 
 
 EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
@@ -83,12 +95,37 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "noisy_s2_ug": _staged(1, 1, 2, True),
           "noisy_s12_sg": _staged(0, 0, 1, True),
           "ecoli_S4_bed": _staged(2, 2, 1, False),
-          "noisy_s1_paf": _staged(1, 1, 1, False)}
+          "noisy_s1_paf": _staged(1, 1, 1, False),
+          "noisy_native_ug": _oracle(1),
+          "noisy_py_sg": _oracle(">0"),
+          "ecoli_f_ug": dict(_CLEAN, trans_multi=1),
+          "noisy_R_ug": dict(_NOISY),
+          "noisy_s1_R_f_ug": _staged(1, 1, 2, True)}
+# the exact counts of the E. coli sets where the count depends on the
+# data: the hybrid cleaner's K3 detects, the py oracle's symm calls; a
+# smaller --genome holds them to ">0" only
+AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
+            ("noisy_py_sg", "dup_mark"): 5,
+            ("noisy_R_ug", "trans_multi"): 19,
+            ("noisy_s1_R_f_ug", "trans_multi"): 19}
 # the run whose counts the kernels line reports for each kernel: the main
-# path's run in which K1-K4 all launch, and the staged -1 run for K5, K6
+# path's run in which K1-K4 all launch, the staged -1 run for K5, K6, and
+# the py oracle run for K7, K8
 RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
-                 "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug"}
+                 "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug",
+                 "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg"}
+# the path whose calls each kernel's row times; a kernel reused on another
+# path gets a sub-row of its own there, with the launches of a run that
+# makes those calls: K2 in the staged hit_sub (crude and fine, both of
+# which -S 4 runs), K3 in the oracles' del_trans
+ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
+            "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "staged",
+            "key_member": "oracle", "dup_mark": "oracle"}
+REUSE = {"sweep": ("hit_sub", "staged", "ecoli_S4_bed"),
+         "trans_multi": ("del_trans", "oracle", "noisy_native_ug")}
+# the path of the run being driven; the recorders key each call by it
+PATH = {"now": "main"}
 
 
 def _say(msg: str) -> None:
@@ -145,22 +182,27 @@ class Recorder:
         setattr(self.mod, self.name, self.orig)
 
 
-def _cli(args, device: str) -> tuple[str, float, dict, dict]:
-    """One CLI run with stdout captured, its launch counts set to 0 just
-    before it and read just after it; returns (stdout, seconds, stage
-    timing, launches)."""
+def _cli(args, device: str, clean: str = "hybrid"
+         ) -> tuple[str, float, dict, dict]:
+    """One CLI run with stdout captured and MINIASM_TPU_CLEAN=`clean`, its
+    launch counts set to 0 just before it and read just after it; returns
+    (stdout, seconds, stage timing, launches)."""
     from miniasm_tpu_torch import cli, cuda, pipeline
     from miniasm_tpu_torch.device import ENV
     from miniasm_tpu_torch.utils import timers
 
     os.environ[ENV] = device
+    os.environ["MINIASM_TPU_CLEAN"] = clean
     buf = io.StringIO()
     cuda.reset_launches()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(list(args))
-    if device == "cuda":
-        torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(args))
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("MINIASM_TPU_CLEAN")
     dt = time.time() - t0
     launches = cuda.launch_counts()
     if rc != 0:
@@ -186,6 +228,15 @@ def _gfa_summary(gfa: str) -> dict:
     return {"unitigs": len(lens), "total_bp": sum(lens),
             "longest_bp": max(lens) if lens else 0,
             "bytes": len(gfa.encode())}
+
+
+def _check_sequences(tag: str, gfa: str) -> None:
+    """-f: every S line carries a sequence of its LN:i: length, not '*'."""
+    s = [x.split("\t") for x in gfa.splitlines() if x.startswith("S\t")]
+    bad = [x[1] for x in s if x[2] == "*" or len(x[2]) != int(x[3][5:])]
+    if not s or bad:
+        _fail("%s: %d S lines, %d without their sequence (%s)"
+              % (tag, len(s), len(bad), ", ".join(bad[:5])))
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +301,15 @@ def _cost(name, args, kw, out):
         cols, lens = args[0], args[1]
         n = cols.shape[1]
         return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
+    if name == "key_member":
+        hay, needles = args[0], args[1]
+        probes = max(int(hay.numel()).bit_length(), 1)
+        # one binary search per needle: a compare and a halving per probe
+        return (_nbytes(hay, needles) + _nbytes(out),
+                2 * probes * needles.numel())
+    if name == "dup_mark":
+        key, perm = args
+        return _nbytes(key, perm) + _nbytes(out), 2 * key.numel()
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -263,62 +323,111 @@ def _cost(name, args, kw, out):
     raise KeyError(name)
 
 
+def _measure(name, fn, plain, args, kw, reps):
+    """Kernel vs plain version on one recorded call: bit-equal, both timed,
+    the call's bytes and operations; K7 also beside torch.isin, the one
+    PyTorch call that computes its function when every needle is live."""
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    err = _max_abs_err(got, want)
+    b, o = _cost(name, args, kw, got)
+    m = {"err": err, "ms": _time_ms(lambda: fn(*args, **kw), reps),
+         "plain_ms": _time_ms(lambda: plain(*args, **kw), 2),
+         "bytes": b, "ops": o, "library_ms": None,
+         "shapes": [list(x.shape) for x in args if hasattr(x, "shape")]}
+    if name == "key_member" and args[2] >= args[1].numel():
+        if not torch.equal(torch.isin(args[1], args[0]), got):
+            _fail("key_member disagrees with torch.isin")
+        m["library_ms"] = _time_ms(lambda: torch.isin(args[1], args[0]),
+                                   reps)
+    return m
+
+
+def _sum(parts) -> dict:
+    """Times, bound and library time of a set of measured calls."""
+    ms = sum(p["ms"] for p in parts)
+    t_bytes = sum(p["bytes"] for p in parts) / HBM_BYTES_S * 1e3
+    t_ops = sum(p["ops"] for p in parts) / INT32_OPS_S * 1e3
+    lib = [p["library_ms"] for p in parts]
+    return {"ms": ms, "plain_ms": sum(p["plain_ms"] for p in parts),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None if None in lib else sum(lib)}
+
+
+def _seeded_dup_input(n: int):
+    """K8's input on seeded keys with many duplicates (the E. coli graphs
+    have none): the stable sort of n keys drawn from n // 3 values."""
+    import numpy as np
+
+    key = np.random.default_rng(SEED).integers(0, max(n // 3, 1), n)
+    return torch.sort(torch.from_numpy(key).cuda(), stable=True)
+
+
 def _kernel_phase(recs, runs):
-    """Kernel vs plain version on the recorded inputs of the runs."""
+    """Kernel vs plain version on the recorded inputs of the runs.  Each
+    kernel's row times the calls of its own path (ROW_PATH); a kernel
+    reused on another path gets a sub-row there (REUSE)."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.core import hit2arc as h2a
-    from miniasm_tpu_torch.graph import devbub, devclean
+    from miniasm_tpu_torch.graph import clean, devbub, devclean
     from miniasm_tpu_torch.select import cut, fused2
+    from miniasm_tpu_torch.utils import arrays
 
     plain = {"cut_hit2arc": fused2.cut_hit2arc_plain,
              "sweep": fused2.sweep_plain,
              "trans_multi": devclean.trans_multi_plain,
              "bubble_bfs": devbub.bubble_bfs_plain,
              "hit_cut": cut.hit_cut_plain,
-             "hit2arc": h2a.hit2arc_rows_plain}
+             "hit2arc": h2a.hit2arc_rows_plain,
+             "key_member": arrays.key_member_plain,
+             "dup_mark": clean.dup_mark_plain}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
-            "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50}
+            "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
+            "key_member": 50, "dup_mark": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
         name = rec.kernel
-        if not rec.calls:
-            _fail("kernel %s: the runs recorded no call" % name)
-        K = by_name[name]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
-        err = 0.0
-        shapes = {}
-        for key, (_size, args, kw) in sorted(rec.calls.items(),
+        calls = dict(rec.calls)
+        if name == "dup_mark" and calls:
+            n = max(c[1][0].numel() for c in calls.values())
+            calls[("seeded", "dups")] = (0, _seeded_dup_input(n), {})
+        measured = {}
+        for key, (_size, args, kw) in sorted(calls.items(),
                                              key=lambda x: str(x[0])):
-            got = rec.orig(*args, **kw)
-            torch.cuda.synchronize()
-            want = plain[name](*args, **kw)
-            e = _max_abs_err(got, want)
-            if e != 0.0:
+            m = _measure(name, rec.orig, plain[name], args, kw, reps[name])
+            if m["err"] != 0.0:
                 _fail("kernel %s[%s] disagrees with its plain version "
-                      "(max abs err %r)" % (name, key, e))
-            err = max(err, e)
-            tot["ms"] += _time_ms(lambda: rec.orig(*args, **kw), reps[name])
-            tot["plain_ms"] += _time_ms(lambda: plain[name](*args, **kw), 2)
-            b, o = _cost(name, args, kw, got)
-            tot["bytes"] += b
-            tot["ops"] += o
-            shapes[str(key)] = [list(x.shape) for x in args
-                                if hasattr(x, "shape")]
-        t_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
-        t_ops = tot["ops"] / INT32_OPS_S * 1e3
+                      "(max abs err %r)" % (name, key, m["err"]))
+            if key[0] == "seeded" and not rec.orig(*args).any():
+                _fail("dup_mark: the seeded input has no duplicate")
+            measured[key] = m
+        own = [m for k, m in measured.items() if k[0] == ROW_PATH[name]]
+        if not own:
+            _fail("kernel %s: the %s runs recorded no call"
+                  % (name, ROW_PATH[name]))
+        K = by_name[name]
         row = {"name": name, "route": "cuda",
                "source": "miniasm_tpu_torch/csrc/" + K.source,
                "replaces": K.replaces,
                "launches": runs[RUN_OF_RECORD[name]]["launches"][name],
                "launches_run": RUN_OF_RECORD[name],
                "launches_ecoli_ug": runs["ecoli_ug"]["launches"][name],
-               "max_abs_err": err, "ms": tot["ms"],
-               "plain_ms": tot["plain_ms"],
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": None, "calls_timed": len(rec.calls),
-               "shapes": shapes}
+               "max_abs_err": max(m["err"] for m in measured.values())}
+        row.update(_sum(own))
+        row["calls_timed"] = len(own)
+        if name in REUSE:
+            sub, path, run = REUSE[name]
+            parts = [m for k, m in measured.items() if k[0] == path]
+            if not parts:
+                _fail("kernel %s: the %s runs recorded no call"
+                      % (name, path))
+            row[sub] = dict(_sum(parts), launches=runs[run]["launches"][name],
+                            launches_run=run, calls_timed=len(parts))
+        row["shapes"] = {"/".join(k): m["shapes"]
+                         for k, m in measured.items()}
         _say("kernel " + json.dumps(row))
         rows.append(row)
     return rows
@@ -342,11 +451,16 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.core import hit2arc as h2a
-    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
-    from miniasm_tpu_torch.graph import devbub, devclean
+    from miniasm_tpu_torch.eval.simulate import simulate, write_fasta, \
+        write_paf
+    from miniasm_tpu_torch.graph import clean, devbub, devclean
     from miniasm_tpu_torch.io.native.build import get_lib
     from miniasm_tpu_torch.select import cut, fused2
+    from miniasm_tpu_torch.utils import arrays
 
+    if a.genome == ECOLI_BP:
+        for (tag, name), want in AT_ECOLI.items():
+            EXPECT[tag][name] = want
     report: dict = {}
     smi = _smi()
     _say(smi)
@@ -377,9 +491,11 @@ def main(argv=None) -> int:
     os.makedirs(ddir, exist_ok=True)
     paf = os.path.join(ddir, "ecoli_%d.paf" % a.genome)
     noisy = os.path.join(ddir, "ecoli_%d_noisy.paf" % a.genome)
+    fa = os.path.join(ddir, "ecoli_%d.fa" % a.genome)
     sim = simulate(genome_len=a.genome, coverage=COVERAGE,
                    mean_read=MEAN_READ, sd_read=SD_READ, seed=SEED)
     n_lines = write_paf(sim, paf)
+    write_fasta(sim, fa)
     rng = random.Random(36)
     n_noisy = 0
     with open(paf) as f, open(noisy, "w") as g:
@@ -387,53 +503,76 @@ def main(argv=None) -> int:
             if rng.random() > 0.50:
                 g.write(line)
                 n_noisy += 1
-    _say("[data] %d reads, %d PAF lines (%.1f MB), noisy %d lines, %.2f s"
+    _say("[data] %d reads, %d PAF lines (%.1f MB), noisy %d lines, reads "
+         "FASTA %.1f MB, %.2f s"
          % (len(sim["names"]), n_lines, os.path.getsize(paf) / 1e6,
-            n_noisy, time.time() - t0))
+            n_noisy, os.path.getsize(fa) / 1e6, time.time() - t0))
     report["data"] = {"genome_bp": a.genome, "coverage": COVERAGE,
                       "reads": len(sim["names"]), "paf_lines": n_lines,
-                      "noisy_lines": n_noisy}
-    staged = (("ecoli_s1_ug", ["-1", "-p", "ug", paf]),
-              ("noisy_s2_ug", ["-2", "-p", "ug", noisy]),
-              ("noisy_s12_sg", ["-1", "-2", "-p", "sg", noisy]),
-              ("ecoli_S4_bed", ["-S", "4", "-p", "bed", paf]),
-              ("noisy_s1_paf", ["-1", "-p", "paf", noisy]))
+                      "noisy_lines": n_noisy,
+                      "fasta_bytes": os.path.getsize(fa)}
+    # (tag, arguments, MINIASM_TPU_CLEAN, path): a cold run (first use of
+    # every CUDA library), three warm runs of the clean set for the
+    # spread, the noisy set, -p sg and bed; the staged path: -1 (pass 2 +
+    # containment), -2 (pass 1), -1 -2 (no selection: the graph of every
+    # read), -S 4 (both passes, no containment) and -1 -p paf; the oracle
+    # clean modes; -f and -R on the main and the staged path
+    plan = [("ecoli_ug_cold", ["-p", "ug", paf], "hybrid", "main"),
+            ("ecoli_ug", ["-p", "ug", paf], "hybrid", "main"),
+            ("ecoli_ug_2", ["-p", "ug", paf], "hybrid", "main"),
+            ("ecoli_ug_3", ["-p", "ug", paf], "hybrid", "main"),
+            ("noisy_ug", ["-p", "ug", noisy], "hybrid", "main"),
+            ("noisy_sg", ["-p", "sg", noisy], "hybrid", "main"),
+            ("ecoli_bed", ["-p", "bed", paf], "hybrid", "main"),
+            ("ecoli_s1_ug", ["-1", "-p", "ug", paf], "hybrid", "staged"),
+            ("noisy_s2_ug", ["-2", "-p", "ug", noisy], "hybrid", "staged"),
+            ("noisy_s12_sg", ["-1", "-2", "-p", "sg", noisy], "hybrid",
+             "staged"),
+            ("ecoli_S4_bed", ["-S", "4", "-p", "bed", paf], "hybrid",
+             "staged"),
+            ("noisy_s1_paf", ["-1", "-p", "paf", noisy], "hybrid", "staged"),
+            ("noisy_native_ug", ["-p", "ug", noisy], "native", "oracle"),
+            ("noisy_py_sg", ["-p", "sg", noisy], "py", "oracle"),
+            ("ecoli_f_ug", ["-f", fa, "-p", "ug", paf], "hybrid", "flags"),
+            ("noisy_R_ug", ["-R", "-p", "ug", noisy], "hybrid", "flags"),
+            ("noisy_s1_R_f_ug", ["-1", "-R", "-f", fa, "-p", "ug", noisy],
+             "hybrid", "flags")]
+    # an oracle run prints the bytes of the hybrid run it stands beside
+    same_as = {"noisy_native_ug": "noisy_ug", "noisy_py_sg": "noisy_sg"}
 
-    # --- 3. the main path and the staged path on the card ---
+    # --- 3. every run on the card ---
     # K3 keeps a row of arcs (3 int32 each) in shared memory
     k3_row_limit = devclean._SMEM_MAX // 12
-    k3 = Recorder(devclean, "trans_multi", lambda a_, k: "all",
+
+    def on_path(variant):
+        # record each call under the path of the run that made it
+        return lambda a_, k: (PATH["now"], variant(a_, k))
+
+    k3 = Recorder(devclean, "trans_multi", on_path(lambda a_, k: "all"),
                   stat_fn=lambda a_, k: a_[4])  # D: the largest row
-    recs = [Recorder(fused2, "cut_hit2arc",
-                     lambda a_, k: "final" if k["final_pass"] else "relaxed"),
-            Recorder(fused2, "sweep",
-                     lambda a_, k: "fine" if a_[3] else "crude"),
+    recs = [Recorder(fused2, "cut_hit2arc", on_path(
+                lambda a_, k: "final" if k["final_pass"] else "relaxed")),
+            Recorder(fused2, "sweep", on_path(
+                lambda a_, k: "fine" if a_[3] else "crude")),
             k3,
-            Recorder(devbub, "bubble_bfs", lambda a_, k: "all"),
-            Recorder(cut, "hit_cut", lambda a_, k: "all"),
-            Recorder(h2a, "hit2arc_rows",
-                     lambda a_, k: "relaxed" if a_[3] == 0.5 else "final",
-                     kernel="hit2arc")]
+            Recorder(devbub, "bubble_bfs", on_path(lambda a_, k: "all")),
+            Recorder(cut, "hit_cut", on_path(lambda a_, k: "all")),
+            Recorder(h2a, "hit2arc_rows", on_path(
+                lambda a_, k: "relaxed" if a_[3] == 0.5 else "final"),
+                kernel="hit2arc"),
+            Recorder(arrays, "key_member", on_path(lambda a_, k: "all")),
+            Recorder(clean, "dup_mark", on_path(lambda a_, k: "all"))]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
             st.enter_context(r)
-        # a cold run (first use of every CUDA library), three warm runs of
-        # the clean set for the spread, the noisy set, -p sg and bed; then
-        # the staged path: -1 (pass 2 + containment), -2 (pass 1), -1 -2
-        # (no selection: the graph of every read), -S 4 (both passes, no
-        # containment) and -1 -p paf
-        for tag, args in (("ecoli_ug_cold", ["-p", "ug", paf]),
-                          ("ecoli_ug", ["-p", "ug", paf]),
-                          ("ecoli_ug_2", ["-p", "ug", paf]),
-                          ("ecoli_ug_3", ["-p", "ug", paf]),
-                          ("noisy_ug", ["-p", "ug", noisy]),
-                          ("noisy_sg", ["-p", "sg", noisy]),
-                          ("ecoli_bed", ["-p", "bed", paf])) + staged:
+        for tag, args, mode, path in plan:
             k3.stat = 0
-            out, dt, stages, launches = _cli(args, "cuda")
+            PATH["now"] = path
+            out, dt, stages, launches = _cli(args, "cuda", mode)
             runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
-                         "launches": launches, "k3_max_row": k3.stat}
+                         "launches": launches, "k3_max_row": k3.stat,
+                         "clean": mode, "path": path}
             if args[args.index("-p") + 1] == "ug":
                 runs[tag]["gfa"] = _gfa_summary(out)
             _say("[card] %s: %.3f s, %d bytes, %s; launches %s; K3 largest "
@@ -444,9 +583,14 @@ def main(argv=None) -> int:
             _check_launches(tag, launches)
             if not out:
                 _fail("%s printed nothing" % tag)
+            if "-f" in args:
+                _check_sequences(tag, out)
     for tag in ("ecoli_ug", "ecoli_ug_2", "ecoli_ug_3"):
         if runs[tag]["out"] != runs["ecoli_ug_cold"]["out"]:
             _fail("two card runs on one input differ")
+    for tag, ref in same_as.items():
+        if runs[tag]["out"] != runs[ref]["out"]:
+            _fail("%s printed other bytes than %s" % (tag, ref))
     for tag in ("ecoli_ug", "noisy_ug", "ecoli_s1_ug", "noisy_s2_ug"):
         if runs[tag]["gfa"]["unitigs"] == 0:
             _fail("%s: no unitig in the output" % tag)
@@ -459,11 +603,10 @@ def main(argv=None) -> int:
     rows = _kernel_phase(recs, runs)
 
     # --- 5. the same commands on the CPU ---
-    for tag, args in (("ecoli_ug", ["-p", "ug", paf]),
-                      ("noisy_ug", ["-p", "ug", noisy]),
-                      ("noisy_sg", ["-p", "sg", noisy]),
-                      ("ecoli_bed", ["-p", "bed", paf])) + staged:
-        out, dt, _, _ = _cli(args, "cpu")
+    for tag, args, mode, _path in plan:
+        if tag in ("ecoli_ug_cold", "ecoli_ug_2", "ecoli_ug_3"):
+            continue
+        out, dt, _, _ = _cli(args, "cpu", mode)
         same = out == runs[tag]["out"]
         _say("[cpu] %s: %.3f s, stdout %s the card's"
              % (tag, dt, "identical to" if same else "DIFFERS from"))
@@ -481,9 +624,9 @@ def main(argv=None) -> int:
             json.dump(report, f, indent=1)
     _say(smi)
     _say(json.dumps({"kernels": rows}))
+    # the run used one card, whatever the machine holds
     _say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

@@ -4,9 +4,10 @@ The getopt surface of miniasm_tpu/cli.py: the same flags and coupling
 rules (-o defaults to -s, main.c:74; -r parses "max[,min]", main.c:68-72;
 -n stores rounds-1, main.c:60).  Runs on the GPU; set
 MINIASM_TPU_TORCH_DEVICE=cpu to run on the CPU.  -1, -2 and -S below 5
-take the staged selection path (which also prints -p paf).  The flags
-whose code paths are not ported yet (-R, -f, and -p paf without -1, -2
-or -S below 5) exit with an error that names them.
+take the staged selection path (which also prints -p paf).
+MINIASM_TPU_CLEAN=native|py swaps the hybrid cleaner for an oracle, as in
+the JAX package.  -p paf without -1, -2 or -S below 5 is not ported yet
+and exits with an error that names it.
 
     python -m miniasm_tpu_torch.cli in.paf > out.gfa
 """
@@ -52,6 +53,9 @@ Options:
     -V          print version number
 Environment:
     %s=cpu   run on the CPU (default: the GPU)
+    MINIASM_TPU_CLEAN=STR          graph cleaner: hybrid, native (C++
+                                   sequential oracle) or py (Python
+                                   sequential oracle) [hybrid]
 """ % ENV
 
 

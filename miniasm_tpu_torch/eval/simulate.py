@@ -1,10 +1,10 @@
 """Synthetic long-read overlap simulator.
 
-The port's copy of miniasm_tpu/eval/simulate.py, PAF side only: long-read
-intervals on a random genome with per-read orientations, and the
-all-vs-all PAF a perfect overlapper would produce.  The same seed gives the
-same PAF bytes as the JAX package's simulator.  chip_smoke.py makes its
-data with it, so the smoke run needs no download and no JAX.
+The port's copy of miniasm_tpu/eval/simulate.py: long-read intervals on a
+random genome with per-read orientations, the all-vs-all PAF a perfect
+overlapper would produce, and the reads FASTA.  The same seed gives the
+same PAF and FASTA bytes as the JAX package's simulator.  chip_smoke.py
+makes its data with it, so the smoke run needs no download and no JAX.
 
 Coordinates follow the PAF convention exactly: query/target starts are on
 the read's forward strand; strand '-' when the two reads come from opposite
@@ -15,10 +15,15 @@ from __future__ import annotations
 
 import numpy as np
 
+
+def revcomp(s: str) -> str:
+    return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
 def simulate(genome_len=200_000, coverage=20.0, mean_read=8000, sd_read=2000,
              min_read=1000, seed=42, circular=False, min_ovlp_emit=100,
              name_prefix="read"):
-    """Returns dict with: names, gs, ge, ori, lens, order."""
+    """Returns dict with: names, gs, ge, ori, lens, genome (str), order."""
     rng = np.random.default_rng(seed)
     n_reads = int(genome_len * coverage / mean_read)
     lens = np.maximum(min_read, rng.normal(mean_read, sd_read, n_reads).astype(np.int64))
@@ -28,11 +33,18 @@ def simulate(genome_len=200_000, coverage=20.0, mean_read=8000, sd_read=2000,
         lens = np.minimum(lens, genome_len)
         starts = rng.integers(0, genome_len - lens + 1, n_reads)
     ori = rng.integers(0, 2, n_reads).astype(np.int8)
+    # drawn after every other draw, so the PAF does not depend on it
+    genome = rng.integers(0, 4, genome_len, dtype=np.int8)
+    if genome_len <= 500_000_000:
+        lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+        gseq = lut[genome.astype(np.uint8)].tobytes().decode("ascii")
+    else:
+        gseq = None
     order = np.argsort(starts, kind="stable")
     names = ["%s%06d" % (name_prefix, i) for i in range(n_reads)]
     return {
         "names": names, "gs": starts, "ge": starts + lens, "ori": ori,
-        "lens": lens, "order": order,
+        "lens": lens, "genome": gseq, "order": order,
         "circular": circular, "genome_len": genome_len,
         "min_ovlp_emit": min_ovlp_emit,
     }
@@ -143,3 +155,18 @@ def write_paf(sim, path) -> int:
                 for q, ql, qs, qe, r, t, tl, ts, te, ml in rows))
             f.write("\n")
     return cnt
+
+
+def write_fasta(sim, path) -> None:
+    g = sim["genome"]
+    assert g is not None, "genome too large to materialize"
+    with open(path, "w") as f:
+        for name, s, e, o in zip(sim["names"], sim["gs"], sim["ge"], sim["ori"]):
+            s, e = int(s), int(e)
+            if e > len(g):  # circular wrap
+                seq = g[s:] + g[:e - len(g)]
+            else:
+                seq = g[s:e]
+            if o:
+                seq = revcomp(seq)
+            f.write(">%s\n%s\n" % (name, seq))

@@ -1,3 +1,4 @@
-"""Host C++ runtime: the pipelined PAF loader and the exact radix argsort.
+"""Host C++ runtime: the PAF loaders, the exact radix argsort, the -f and
+-R streams (fastx.cpp) and the native graph finalizer (finalize.cpp).
 
 Compiled on demand from the sources in this directory (see build.py)."""

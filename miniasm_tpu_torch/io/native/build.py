@@ -1,7 +1,8 @@
 """On-demand builder for the host C++ loader.
 
-Compiles every .cpp in this directory (the pipelined PAF loader and the
-exact radix argsort it links) into one shared object with g++ (-O3, zlib).
+Compiles every .cpp in this directory (the PAF loaders, the exact radix
+argsort they and the finalizer link, the FASTA/-R streams and the native
+graph finalizer) into one shared object with g++ (-O3, zlib).
 The result is cached next to the sources and rebuilt when a source is
 newer.  A failed build raises: the port has no fallback path."""
 

@@ -112,11 +112,19 @@ class HitsMt:
         self.free()
 
 
-def load_hits_mt(fn, min_span, min_match, *, bi_dir=True, min_iden=0.05,
-                 device=torch.device("cpu"), n_workers=2):
+def _excl_blob(excl) -> bytes:
+    """The NUL-separated names of an exclusion SeqDict (-R), as the C++
+    loaders take them."""
+    if excl is None or not excl.n_seq:
+        return b""
+    return b"\0".join(n.encode() for n in excl.names) + b"\0"
+
+
+def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
+                 min_iden=0.05, device=torch.device("cpu"), n_workers=2):
     """Parse `fn` with the pipelined loader and upload the (7, n) int32
-    colmat of the unmirrored originals to `device`.  Returns
-    (colmat, SeqDict, HitsMt)."""
+    colmat of the unmirrored originals to `device`; lines naming a read of
+    `excl` are dropped.  Returns (colmat, SeqDict, HitsMt)."""
     from .build import get_lib
 
     lib = get_lib()
@@ -129,7 +137,8 @@ def load_hits_mt(fn, min_span, min_match, *, bi_dir=True, min_iden=0.05,
         fsz *= 4
     # PAF lines are ~70-90 B: small inputs ride quarter-size pieces
     chunk = _CHUNK if fsz == 0 or fsz // 100 >= (1 << 22) else _CHUNK >> 2
-    res = lib.ma_mt_begin(fn.encode(), min_span, min_match, b"", 0,
+    blob = _excl_blob(excl)
+    res = lib.ma_mt_begin(fn.encode(), min_span, min_match, blob, len(blob),
                           1 if bi_dir else 0, float(min_iden), chunk,
                           n_workers, 0)
     if not res:
@@ -182,9 +191,9 @@ def _arr(ptr, n, dtype):
     return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
 
 
-def load_paf_native(fn, min_span, min_match):
+def load_paf_native(fn, min_span, min_match, excl=None):
     """Load, filter and intern `fn` with ma_paf_load (pafread.cpp) into a
-    PafLoad of host columns."""
+    PafLoad of host columns; lines naming a read of `excl` are dropped."""
     from ..paf import PafLoad
     from .build import get_lib
 
@@ -194,7 +203,8 @@ def load_paf_native(fn, min_span, min_match):
                                 ctypes.c_int64, ctypes.c_char_p,
                                 ctypes.c_int64]
     lib.ma_paf_free.argtypes = [ctypes.POINTER(_MaPafLoad)]
-    res = lib.ma_paf_load(fn.encode(), min_span, min_match, b"", 0)
+    blob = _excl_blob(excl)
+    res = lib.ma_paf_load(fn.encode(), min_span, min_match, blob, len(blob))
     if not res:
         raise FileNotFoundError(2, "could not open PAF file", fn)
     try:

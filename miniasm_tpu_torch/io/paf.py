@@ -10,9 +10,10 @@ hit.c:70-107 filter+intern), kept exactly:
     drops the line BEFORE interning (hit.c:85) -- so id order is the
     first-appearance order of names on *surviving* lines, qn before tn
     (hit.c:88-90).  This order is load-bearing for output parity.
+  - optional exclusion set by name (hit.c:86, used by -R).
 
-The parse is the native C++ tokenizer (io/native/pafread.cpp); a failed
-build raises.
+The parse is the native C++ tokenizer (io/native/pafread.cpp), and the -R
+prefilter is its C++ pass (io/native/fastx.cpp); a failed build raises.
 """
 
 from __future__ import annotations
@@ -45,9 +46,52 @@ class PafLoad:
         return len(self.qid)
 
 
-def load_paf(fn: str, min_span: int, min_match: int) -> PafLoad:
+def load_paf(fn: str, min_span: int, min_match: int,
+             excl: SeqDict | None = None) -> PafLoad:
     """Load + filter + intern a PAF file (reference ma_hit_read's read loop,
-    hit.c:82-99, minus the hit mirroring, which core/hits.py does)."""
+    hit.c:82-99, minus the hit mirroring, which core/hits.py does); lines
+    naming a read of `excl` are dropped."""
     from .native.pafload import load_paf_native
 
-    return load_paf_native(fn, min_span, min_match)
+    return load_paf_native(fn, min_span, min_match, excl=excl)
+
+
+def no_cont_prefilter(fn: str, min_span: int, min_match: int,
+                      max_hang: int, int_frac: float) -> SeqDict:
+    """Step 0 (-R): one streaming pass recording clearly-contained reads in
+    an exclusion dict (reference ma_hit_no_cont, hit.c:38-68), in C++
+    (io/native/fastx.cpp ma_no_cont)."""
+    import ctypes
+
+    from ..utils.timers import log
+    from .native.build import get_lib
+
+    class _MaNoCont(ctypes.Structure):
+        _fields_ = [("n", ctypes.c_int64), ("names_bytes", ctypes.c_int64),
+                    ("names", ctypes.POINTER(ctypes.c_char)),
+                    ("lens", ctypes.POINTER(ctypes.c_uint32))]
+
+    lib = get_lib()
+    lib.ma_no_cont.restype = ctypes.POINTER(_MaNoCont)
+    lib.ma_no_cont.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_double]
+    lib.ma_no_cont_free.argtypes = [ctypes.POINTER(_MaNoCont)]
+    res = lib.ma_no_cont(fn.encode(), min_span, min_match, max_hang,
+                         float(int_frac))
+    if not res:
+        raise FileNotFoundError(2, "could not open PAF file", fn)
+    try:
+        r = res.contents
+        n = int(r.n)
+        d = SeqDict()
+        if n:
+            blob = ctypes.string_at(r.names, int(r.names_bytes))
+            names = blob.decode("latin-1").split("\0")[:n]
+            lens = np.ctypeslib.as_array(r.lens, shape=(n,)).copy()
+            for nm, ln in zip(names, lens):
+                d.put(nm, int(ln))
+    finally:
+        lib.ma_no_cont_free(res)
+    log("no_cont", "dropped %d contained reads", d.n_seq)
+    return d

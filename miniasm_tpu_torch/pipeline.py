@@ -3,13 +3,14 @@
 Port of miniasm_tpu/pipeline.py.  The main path (_run_fast_v2 and the
 hybrid branch of _emit):
 
+  0. -R: contained-read prefilter                     [host stream]
   1. PAF load (host C++ loader) + one upload        [host -> device]
   2-3. crude + fine read selection, containment,
        arc classification and ordering               [device kernels]
   order: the reference's arc insertion order          [host]
   4. string-graph build + cleaning                    [device detection +
                                                        host ordered commit]
-  5. unitigs + GFA                                    [host]
+  5. unitigs (+ -f sequences) + GFA                   [host]
 
 The staged path (-1, -2, -S below 5; pipeline.py:96-151 and the staged
 part of _emit) runs the reference's own control flow pass by pass over a
@@ -18,13 +19,20 @@ the host, one upload, then sub / cut / filter / sub / cut / merge /
 containment on the device (K2 sweep, K5 hit_cut, K6 hit2arc), the graph
 built from the surviving hits, and the same cleaning and output.
 
-Outputs -p ug|sg|bed, and -p paf on the staged path.  The other flags of
-the JAX package (-R, -f, the main path's -p paf, snapshot restore) are
-not ported yet and raise NotImplementedError.
+Step 4 of both paths is the hybrid cleaner unless MINIASM_TPU_CLEAN names
+an oracle: `native` (transitive reduction on the device, then the C++
+sequential passes, graph/finalize_native.py) or any other value but
+`hybrid` (the same reduction, then the Python sequential passes,
+graph/seqclean.py), as in the JAX package's _emit (pipeline.py:372-462).
+
+Outputs -p ug|sg|bed, and -p paf on the staged path; -f and -R on both.
+The main path's -p paf and the snapshot restore of the JAX package are
+not ported yet: -p paf there raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -60,10 +68,6 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
     (pipeline.py:58-61)."""
     out = out or sys.stdout
     staged = no_first or no_second or stage < 5
-    if no_cont:
-        _not_ported("-R (contained-read prefilter)")
-    if fn_reads:
-        _not_ported("-f (read sequences)")
     if outfmt == "paf" and not staged:
         _not_ported("-p paf without -1, -2 or -S below 5")
     if outfmt not in ("ug", "sg", "bed", "paf"):
@@ -80,21 +84,33 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
             torch.cuda.synchronize(dev)
         LAST_TIMING[name] = time.time() - t0
 
+    excl = None
+    if no_cont:
+        from .io.paf import no_cont_prefilter
+
+        sys.stderr.write("[M::main] ===> Step 0: removing contained reads "
+                         "<===\n")
+        excl = no_cont_prefilter(paf_fn, opt.min_span, opt.min_match,
+                                 opt.max_hang, opt.int_frac)
+        tick("no_cont")
+    emit = dict(opt=opt, stage=stage, outfmt=outfmt, fn_reads=fn_reads,
+                out=out, dev=dev, tick=tick)
     if staged:
-        return _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second,
-                           bi_dir, out, dev, tick)
-    return _run_main(paf_fn, opt, outfmt, stage, bi_dir, out, dev, tick)
+        return _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit)
+    return _run_main(paf_fn, excl, bi_dir, emit)
 
 
-def _run_main(paf_fn, opt, outfmt, stage, bi_dir, out, dev, tick):
+def _run_main(paf_fn, excl, bi_dir, emit):
     """The main path: Steps 2-3 fused on the device (select/fused2.py)."""
     from .io.native.pafload import load_hits_mt
     from .select.fused2 import select_build2
 
+    opt, outfmt, out, tick = (emit[k] for k in ("opt", "outfmt", "out",
+                                                "tick"))
     sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
     colmat, d, h3 = load_hits_mt(
-        paf_fn, opt.min_span, opt.min_match, bi_dir=bi_dir,
-        min_iden=float(opt.min_iden), device=dev)
+        paf_fn, opt.min_span, opt.min_match, excl=excl, bi_dir=bi_dir,
+        min_iden=float(opt.min_iden), device=emit["dev"])
     tick("load+upload")
     log("hit_read", "read %d hits; stored %d hits and %d sequences (%d bp)",
         h3.n_lines, h3.n_mirror, d.n_seq,
@@ -155,31 +171,101 @@ def _run_main(paf_fn, opt, outfmt, stage, bi_dir, out, dev, tick):
         md["used"], md["pal"], arcs, m_hits=m_cont)
     tick("graph_build")
     sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
-    return _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out,
-                            dev, tick)
+    return _clean_and_print(g, d, sub_s, sub_e, **emit)
 
 
-def _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out, dev,
-                     tick):
-    """Steps 4.1-5 of both paths: the hybrid clean, then -p ug or sg."""
-    from .graph.hybrid import clean_graph
+def _clean_and_print(g, d, sub_s, sub_e, *, opt, stage, outfmt, fn_reads,
+                     out, dev, tick):
+    """Steps 4.1-5 of both paths: the clean MINIASM_TPU_CLEAN names
+    (hybrid by default), then -p ug (with -f sequences) or sg."""
+    mode = os.environ.get("MINIASM_TPU_CLEAN", "hybrid")
+    ug = None
+    if mode == "hybrid":
+        # production path: every pass detected on the device, the
+        # order-dependent candidates committed on the host in reference
+        # scan order (graph/hybrid.py)
+        from .graph.hybrid import clean_graph
 
-    g = clean_graph(g, opt, stage, device=dev)
+        g = clean_graph(g, opt, stage, device=dev)
+    else:
+        from .graph.clean import del_trans
+
+        if stage >= 6:
+            sys.stderr.write("[M::main] ===> Step 4.1: transitive reduction "
+                             "<===\n")
+            g = del_trans(g, opt.gap_fuzz, device=dev)
+        if mode == "native":
+            # the host C++ sequential oracle (graph/finalize_native.py)
+            from .graph.finalize_native import finalize_native
+
+            sys.stderr.write("[M::main] ===> Steps 4.2-4.5: graph cleaning "
+                             "(native) <===\n")
+            g, ug = finalize_native(g, opt, stage, do_ug=(outfmt == "ug"))
+        else:
+            g = _clean_py(g, opt, stage, dev)
     tick("clean")
-    if outfmt == "ug":
-        sys.stderr.write("[M::main] ===> Step 5: generating unitigs <===\n")
-        ug = ug_gen(g)
-        tick("unitig")
-        ug_print(ug, d, sub_s, sub_e, out)
+    if outfmt != "ug":
+        sg_print(g, d, sub_s, sub_e, out)
         tick("print")
-        return ug
-    sg_print(g, d, sub_s, sub_e, out)
+        return g
+    sys.stderr.write("[M::main] ===> Step 5: generating unitigs <===\n")
+    if ug is None:
+        ug = ug_gen(g)
+    tick("unitig")
+    if fn_reads:
+        from .unitig.seq import ug_seq
+
+        ug_seq(ug, d, sub_s, sub_e, fn_reads)
+        tick("seq")
+    ug_print(ug, d, sub_s, sub_e, out)
     tick("print")
+    return ug
+
+
+def _clean_py(g, opt, stage, dev):
+    """Steps 4.2-4.5 of MINIASM_TPU_CLEAN=py: the sequential Python oracle
+    (graph/seqclean.py transliterates the reference passes), stage-gated
+    like main.c:160-188; symm's masks are computed on `dev`."""
+    from .graph.clean import del_short
+    from .graph.seqclean import cut_biloop, cut_internal, cut_tip, pop_bubble
+
+    def tip_bubble(g):
+        g, _ = cut_tip(g, opt.max_ext)
+        g, _ = pop_bubble(g, opt.bub_dist, dev)
+        return g
+
+    if stage >= 7:
+        sys.stderr.write("[M::main] ===> Step 4.2: initial tip cutting and "
+                         "bubble popping <===\n")
+        g = tip_bubble(g)
+    if stage >= 9:
+        sys.stderr.write("[M::main] ===> Step 4.3: cutting short overlaps "
+                         "(%d rounds in total) <===\n" % (opt.n_rounds + 1))
+        fmin = np.float32(opt.min_ovlp_drop_ratio)
+        fmax = np.float32(opt.max_ovlp_drop_ratio)
+        for i in range(opt.n_rounds + 1):
+            # float32 arithmetic chain, matching the reference's float
+            # ma_opt_t members (main.c:168)
+            r = fmin + (fmax - fmin) / np.float32(opt.n_rounds) * np.float32(i)
+            g, n_short = del_short(g, r, dev)
+            if n_short:
+                g = tip_bubble(g)
+    if stage >= 10:
+        sys.stderr.write("[M::main] ===> Step 4.4: removing short internal "
+                         "sequences and bi-loops <===\n")
+        g, _ = cut_internal(g, 1)
+        g, _ = cut_biloop(g, opt.max_ext)
+        g = tip_bubble(g)
+    if stage >= 11:
+        sys.stderr.write("[M::main] ===> Step 4.5: aggressively cutting "
+                         "short overlaps <===\n")
+        g, n_short = del_short(g, opt.final_ovlp_drop_ratio, dev)
+        if n_short:
+            g = tip_bubble(g)
     return g
 
 
-def _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second, bi_dir,
-                out, dev, tick):
+def _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit):
     """The staged path (JAX pipeline.py:96-151 and the staged part of
     _emit, pipeline.py:346-398): each pass of Steps 2-3 on its own, gated
     by -1, -2 and -S.  The trim tables are (3, n_seq) int32 [s, e, del] on
@@ -192,8 +278,10 @@ def _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second, bi_dir,
     from .select.filter import flt_coverage, hit_flt
     from .select.subregion import hit_sub, log_sub
 
+    opt, stage, outfmt, out, dev, tick = (
+        emit[k] for k in ("opt", "stage", "outfmt", "out", "dev", "tick"))
     sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
-    load = load_paf(paf_fn, opt.min_span, opt.min_match)
+    load = load_paf(paf_fn, opt.min_span, opt.min_match, excl=excl)
     d = load.d
     hits = build_hits(load, bi_dir=bi_dir, device=dev)
     del load
@@ -260,5 +348,4 @@ def _run_staged(paf_fn, opt, outfmt, stage, no_first, no_second, bi_dir,
     g = graph_from_hits(opt, d.lens_array(), d.del_array(), sub, hits)
     del hits
     tick("graph_build")
-    return _clean_and_print(g, d, sub_s, sub_e, opt, stage, outfmt, out,
-                            dev, tick)
+    return _clean_and_print(g, d, sub_s, sub_e, **emit)

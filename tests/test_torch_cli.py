@@ -1,9 +1,10 @@
 """The port's command line (miniasm_tpu_torch.cli) against the JAX
 package's on the same PAF: stdout must be byte-identical for -p ug, sg
-and bed (the staged flags are in test_torch_staged_cli.py).  Also: the
-port imports neither JAX nor the JAX package, asks for the card by
-default and raises without one, and refuses the flags it does not port
-yet."""
+and bed (the staged flags are in test_torch_staged_cli.py, -f and -R in
+test_torch_flags.py, the oracle clean modes in test_torch_oracle.py).
+Also: the port imports neither JAX nor the JAX package, asks for the card
+by default and raises without one, and refuses the main path's -p paf,
+which it does not port yet."""
 
 import io
 import json
@@ -72,21 +73,25 @@ def test_gz_stdin_and_empty_inputs(sim_noisy, tmp_path):
 
 
 def test_port_imports_no_jax(sim_small):
-    """A main-path run and a staged (-1) run of the port load no module of
-    JAX or of the JAX package (exact names: miniasm_tpu_torch shares the
-    prefix)."""
+    """A main-path run, a staged (-1) run, both oracle clean modes and -f
+    -R load no module of JAX or of the JAX package (exact names:
+    miniasm_tpu_torch shares the prefix)."""
+    paf, fa = sim_small["paf"], sim_small["fasta"]
     code = (
-        "import io, json, sys\n"
+        "import io, json, os, sys\n"
         "from contextlib import redirect_stdout\n"
         "from miniasm_tpu_torch import cli\n"
         "with redirect_stdout(io.StringIO()):\n"
         "    rc = cli.main(['-p', 'ug', %r])\n"
         "    rc |= cli.main(['-1', '-p', 'ug', %r])\n"
+        "    rc |= cli.main(['-R', '-f', %r, %r])\n"
+        "    for mode in ('native', 'py'):\n"
+        "        os.environ['MINIASM_TPU_CLEAN'] = mode\n"
+        "        rc |= cli.main(['-p', 'ug', %r])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'miniasm_tpu.')))\n"
-        "print(json.dumps([rc, bad]))\n" % (sim_small["paf"],
-                                              sim_small["paf"]))
+        "print(json.dumps([rc, bad]))\n" % (paf, paf, fa, paf, paf))
     env = dict(os.environ, **{ENV: "cpu"})
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -110,9 +115,7 @@ def test_cuda_requested_without_card_raises(sim_small, monkeypatch):
     assert rc != 0 and out == "" and "no CUDA device" in err
 
 
-@pytest.mark.parametrize("args,flag", [(["-R"], "-R"),
-                                       (["-f", "reads.fa"], "-f"),
-                                       (["-p", "paf"], "-p paf")])
+@pytest.mark.parametrize("args,flag", [(["-p", "paf"], "-p paf")])
 def test_unported_flags_are_refused(sim_small, args, flag):
     rc, out, err = run_port(args + [sim_small["paf"]])
     assert rc == 1 and out == ""

@@ -232,6 +232,96 @@ def test_staged_run_on_card_matches_cpu(dev, tmp_path, args):
     assert n["cut_hit2arc"] == 0 and n["hit2arc"] > 0
 
 
+def _member_inputs(case, rng):
+    """(sorted hay, needles, needle_n) int64 keys for K7."""
+    if case == "empty_hay":
+        return np.zeros(0, np.int64), rng.integers(0, 9, 100), 100
+    if case == "empty_needles":
+        return np.sort(rng.integers(0, 9, 100)), np.zeros(0, np.int64), 0
+    if case == "one":
+        return np.array([7]), np.array([7]), 1
+    if case == "all_dups":
+        return np.full(5000, 42), rng.integers(40, 45, 8000), 6000
+    if case == "sentinel":
+        # the packed all-INT32_MAX tuple of masked hay rows and needles
+        smax = ((2**31 - 1) << 32) | (2**31 - 1)
+        hay = np.sort(np.concatenate([rng.integers(-2**62, 2**62, 3000),
+                                      np.full(40, smax)]))
+        q = np.concatenate([hay[rng.integers(0, hay.size, 2000)],
+                            rng.integers(-2**62, 2**62, 2000),
+                            np.full(30, smax)])
+        return hay, q, q.size - 10
+    hay = np.sort(rng.integers(-2**40, 2**40, 200_000))
+    q = np.concatenate([hay[rng.integers(0, hay.size, 100_000)],
+                        rng.integers(-2**40, 2**40, 100_000)])
+    return hay, rng.permutation(q), 150_000
+
+
+@pytest.mark.parametrize("case", ["empty_hay", "empty_needles", "one",
+                                  "all_dups", "sentinel", "random"])
+def test_key_member_kernel_matches_plain(dev, case):
+    from miniasm_tpu_torch.utils import arrays
+
+    hay, q, qn = _member_inputs(case, np.random.default_rng(7))
+    args = (torch.from_numpy(np.asarray(hay, np.int64)).to(dev),
+            torch.from_numpy(np.asarray(q, np.int64)).to(dev), qn)
+    got = arrays.key_member(*args)
+    torch.cuda.synchronize()
+    want = arrays.key_member_plain(*args)
+    assert torch.equal(got, want)
+    if case in ("sentinel", "random"):
+        assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("case", ["empty", "one", "all_dups", "random"])
+def test_dup_mark_kernel_matches_plain(dev, case):
+    from miniasm_tpu_torch.graph import clean
+
+    rng = np.random.default_rng(8)
+    n = {"empty": 0, "one": 1, "all_dups": 10_000, "random": 300_000}[case]
+    key = (np.full(n, 5) if case == "all_dups"
+           else rng.integers(0, max(n // 3, 1), n))
+    skey, perm = torch.sort(torch.from_numpy(key.astype(np.int64)).to(dev),
+                            stable=True)
+    got = clean.dup_mark(skey, perm)
+    torch.cuda.synchronize()
+    want = clean.dup_mark_plain(skey, perm)
+    assert torch.equal(got, want)
+    assert int(want.sum()) == n - len(set(key.tolist()))
+
+
+@pytest.mark.parametrize("mode,args", [
+    ("native", ["-p", "ug"]), ("py", ["-p", "sg"]),
+    ("hybrid", ["-R", "-f", "FA"]), ("py", ["-1", "-R", "-f", "FA"])],
+    ids=lambda x: x if isinstance(x, str) else "".join(x))
+def test_oracle_and_flags_on_card_match_cpu(dev, tmp_path, monkeypatch,
+                                            mode, args):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval.simulate import simulate, write_fasta, \
+        write_paf
+    from miniasm_tpu_torch.pipeline import run
+
+    paf, fa = str(tmp_path / "r.paf"), str(tmp_path / "r.fa")
+    sim = simulate(genome_len=200_000, coverage=20.0, seed=7)
+    write_paf(sim, paf)
+    write_fasta(sim, fa)
+    monkeypatch.setenv("MINIASM_TPU_CLEAN", mode)
+    kw = {"no_first": "-1" in args, "no_cont": "-R" in args,
+          "fn_reads": fa if "-f" in args else None,
+          "outfmt": args[args.index("-p") + 1] if "-p" in args else "ug"}
+    outs = {}
+    cuda.reset_launches()
+    for d in ("cpu", "cuda"):
+        buf = io.StringIO()
+        run(paf, Opt(), out=buf, device=d, **kw)
+        outs[d] = buf.getvalue()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+    n = cuda.launch_counts()
+    oracle = mode != "hybrid"
+    assert (n["key_member"] > 0) == oracle and (n["dup_mark"] > 0) == oracle
+
+
 def test_empty_input_on_card(dev, tmp_path):
     from miniasm_tpu_torch.config import Opt
     from miniasm_tpu_torch.pipeline import run

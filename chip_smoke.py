@@ -15,11 +15,16 @@ What it does, in order:
      then the staged selection path (-1, -2, -S 4) at the same size in
      five runs that reach -p ug, sg, bed and paf, then the oracle clean
      modes (MINIASM_TPU_CLEAN=native -p ug, =py -p sg, each byte-equal to
-     its hybrid run) and -f and -R on both paths;
+     its hybrid run) and -f and -R on both paths, then the main path's
+     -p paf on both inputs, -p ug twice with MINIASM_TPU_SNAPSHOT (the
+     second run restores and prints the first's bytes), and the loader's
+     format switches: the clean PAF shuffled (random.Random(36); every
+     piece rides the 4-row layout) and with one 90 kb overlap appended
+     (the stream ends in the 7-row layout);
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
-     run requires (EXPECT): K1-K4 on the noisy main-path runs, K2, K5
-     and K6 on the staged runs, K3, K7 and K8 on the oracle runs;
+     run requires (EXPECT): K1-K4, K9 and K10 on the noisy main-path runs,
+     K2, K5 and K6 on the staged runs, K3, K7 and K8 on the oracle runs;
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events;
@@ -45,6 +50,7 @@ import io
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -62,11 +68,16 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # source and K4 is held on the noisy set, where every main-path kernel
 # must launch.  The main path never launches the staged kernels K5, K6,
 # and only the oracle clean modes launch K7 and K8.
-_MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0}
+# The loader launches K9 once per FMT3 piece and K10 once per FMT3 or
+# 4-row piece ("=decode3": as many as K9); the staged path's loader is
+# another (pafread.cpp) and launches neither.
+_MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
+         "decode3": ">0", "unpack4": "=decode3"}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs=">0")
+_PAF = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=0, bubble_bfs=0)
 
 
 def _staged(sweep, hit_cut, hit2arc, graph):
@@ -76,7 +87,7 @@ def _staged(sweep, hit_cut, hit2arc, graph):
     return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
             "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
-            "dup_mark": 0}
+            "dup_mark": 0, "decode3": 0, "unpack4": 0}
 
 
 def _oracle(symm_calls):
@@ -100,28 +111,48 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "noisy_py_sg": _oracle(">0"),
           "ecoli_f_ug": dict(_CLEAN, trans_multi=1),
           "noisy_R_ug": dict(_NOISY),
-          "noisy_s1_R_f_ug": _staged(1, 1, 2, True)}
+          "noisy_s1_R_f_ug": _staged(1, 1, 2, True),
+          "ecoli_paf": _PAF, "noisy_paf": _PAF,
+          "ecoli_snap_ug": _CLEAN,
+          # the restore skips Steps 1-3: no loader or select kernel
+          "ecoli_snap_ug_restore": dict(_CLEAN, cut_hit2arc=0, sweep=0,
+                                        decode3=0, unpack4=0),
+          # the sideband overflows in the first piece: no FMT3 piece
+          "shuffled_ug": dict(_CLEAN, decode3=0, unpack4=">0"),
+          # below E. coli size the switch can come in the first piece
+          "long_ug": dict(_CLEAN, decode3="any")}
+EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
-# data: the hybrid cleaner's K3 detects, the py oracle's symm calls; a
-# smaller --genome holds them to ">0" only
+# data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
+# loader's pieces of 131,072 records (the clean set's 691,396 filtered
+# records in 6 pieces, the noisy set's about 345,700 in 3; the long set's
+# last piece switches to 7 rows, leaving 5 FMT3 pieces; the shuffled
+# set's first 16,384 records fill the sideband and the rest ride 6 4-row
+# pieces); a smaller --genome holds them to ">0" only
 AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
             ("noisy_py_sg", "dup_mark"): 5,
             ("noisy_R_ug", "trans_multi"): 19,
-            ("noisy_s1_R_f_ug", "trans_multi"): 19}
+            ("noisy_s1_R_f_ug", "trans_multi"): 19,
+            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5}
+for _tag, _want in EXPECT.items():
+    if _want["decode3"] == ">0" and _tag != "noisy_R_ug":
+        AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
 # the run whose counts the kernels line reports for each kernel: the main
-# path's run in which K1-K4 all launch, the staged -1 run for K5, K6, and
-# the py oracle run for K7, K8
+# path's run in which K1-K4 all launch, the staged -1 run for K5, K6, the
+# py oracle run for K7, K8, and the clean set's warm run for K9, K10
 RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
                  "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug",
-                 "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg"}
+                 "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
+                 "decode3": "ecoli_ug", "unpack4": "ecoli_ug"}
 # the path whose calls each kernel's row times; a kernel reused on another
 # path gets a sub-row of its own there, with the launches of a run that
 # makes those calls: K2 in the staged hit_sub (crude and fine, both of
 # which -S 4 runs), K3 in the oracles' del_trans
 ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
             "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "staged",
-            "key_member": "oracle", "dup_mark": "oracle"}
+            "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
+            "unpack4": "main"}
 REUSE = {"sweep": ("hit_sub", "staged", "ecoli_S4_bed"),
          "trans_multi": ("del_trans", "oracle", "noisy_native_ug")}
 # the path of the run being driven; the recorders key each call by it
@@ -151,21 +182,25 @@ def _smi() -> str:
 
 class Recorder:
     """Wraps a module-level kernel wrapper so the runs' calls keep a copy
-    of the largest input each variant saw (key_fn names the variant), and
-    the largest value of stat_fn (a number from the arguments) since the
-    last reset.  `kernel` names the kernel when the wrapper's name is not
-    its name.  The wrapped call itself is unchanged."""
+    of the largest input each variant saw (key_fn names the variant;
+    size_fn measures an input, by default its tensors' elements), and the
+    largest value of stat_fn (a number from the arguments) since the last
+    reset.  `kernel` names the kernel when the wrapper's name is not its
+    name.  The wrapped call itself is unchanged."""
 
-    def __init__(self, mod, name: str, key_fn, stat_fn=None, kernel=None):
+    def __init__(self, mod, name: str, key_fn, stat_fn=None, kernel=None,
+                 size_fn=None):
         self.mod, self.name, self.key_fn = mod, name, key_fn
         self.kernel = kernel or name
         self.stat_fn, self.stat = stat_fn, 0
+        self.size_fn = size_fn or (lambda a, k: sum(
+            x.numel() for x in a if isinstance(x, torch.Tensor)))
         self.orig = getattr(mod, name)
         self.calls: dict = {}
 
     def __enter__(self):
         def wrapped(*a, **k):
-            size = sum(x.numel() for x in a if isinstance(x, torch.Tensor))
+            size = self.size_fn(a, k)
             if self.stat_fn is not None:
                 self.stat = max(self.stat, self.stat_fn(a, k))
             key = self.key_fn(a, k)
@@ -182,34 +217,39 @@ class Recorder:
         setattr(self.mod, self.name, self.orig)
 
 
-def _cli(args, device: str, clean: str = "hybrid"
-         ) -> tuple[str, float, dict, dict]:
-    """One CLI run with stdout captured and MINIASM_TPU_CLEAN=`clean`, its
-    launch counts set to 0 just before it and read just after it; returns
-    (stdout, seconds, stage timing, launches)."""
+def _cli(args, device: str, clean: str = "hybrid", snapshot=None
+         ) -> tuple[str, str, float, dict, dict]:
+    """One CLI run with stdout and stderr captured, MINIASM_TPU_CLEAN=
+    `clean` and MINIASM_TPU_SNAPSHOT=`snapshot` (when given), its launch
+    counts set to 0 just before it and read just after it; returns
+    (stdout, stderr, seconds, stage timing, launches)."""
     from miniasm_tpu_torch import cli, cuda, pipeline
     from miniasm_tpu_torch.device import ENV
     from miniasm_tpu_torch.utils import timers
 
     os.environ[ENV] = device
     os.environ["MINIASM_TPU_CLEAN"] = clean
-    buf = io.StringIO()
+    if snapshot:
+        os.environ["MINIASM_TPU_SNAPSHOT"] = snapshot
+    buf, err = io.StringIO(), io.StringIO()
     cuda.reset_launches()
     t0 = time.time()
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = cli.main(list(args))
         if device == "cuda":
             torch.cuda.synchronize()
     finally:
         os.environ.pop("MINIASM_TPU_CLEAN")
+        os.environ.pop("MINIASM_TPU_SNAPSHOT", None)
     dt = time.time() - t0
     launches = cuda.launch_counts()
     if rc != 0:
+        sys.stderr.write(err.getvalue()[-3000:])
         _fail("cli %s on %s exited %d" % (" ".join(args), device, rc))
     stages = dict(pipeline.LAST_TIMING)
     stages.update({"extra." + k: v for k, v in timers.EXTRA.items()})
-    return buf.getvalue(), dt, stages, launches
+    return buf.getvalue(), err.getvalue(), dt, stages, launches
 
 
 def _check_launches(tag: str, launches: dict) -> None:
@@ -217,6 +257,8 @@ def _check_launches(tag: str, launches: dict) -> None:
         got = launches[name]
         if want == "any":
             continue
+        if isinstance(want, str) and want.startswith("="):
+            want = launches[want[1:]]
         if (got <= 0) if want == ">0" else (got != want):
             _fail("%s: kernel %s launched %d times, this run needs %s"
                   % (tag, name, got, want))
@@ -310,6 +352,17 @@ def _cost(name, args, kw, out):
     if name == "dup_mark":
         key, perm = args
         return _nbytes(key, perm) + _nbytes(out), 2 * key.numel()
+    if name == "decode3":
+        flat = args[0]
+        n = out.shape[1]
+        # per record: a binary search over the n/8 run starts (a compare
+        # and a halving per probe), the nibble shift and mask, the or
+        probes = max(n // 8, 1).bit_length()
+        return _nbytes(flat) + _nbytes(out), n * (2 * probes + 6)
+    if name == "unpack4":
+        n = out.shape[1]
+        # 4 words in, 7 out; shifts and masks
+        return 4 * 4 * n + _nbytes(out), 8 * n
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -372,10 +425,13 @@ def _kernel_phase(recs, runs):
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.core import hit2arc as h2a
     from miniasm_tpu_torch.graph import clean, devbub, devclean
+    from miniasm_tpu_torch.io.native import pafload
     from miniasm_tpu_torch.select import cut, fused2
     from miniasm_tpu_torch.utils import arrays
 
-    plain = {"cut_hit2arc": fused2.cut_hit2arc_plain,
+    plain = {"decode3": pafload.decode3_plain,
+             "unpack4": lambda p, n: pafload.unpack4_plain(p[:, :n]),
+             "cut_hit2arc": fused2.cut_hit2arc_plain,
              "sweep": fused2.sweep_plain,
              "trans_multi": devclean.trans_multi_plain,
              "bubble_bfs": devbub.bubble_bfs_plain,
@@ -385,7 +441,7 @@ def _kernel_phase(recs, runs):
              "dup_mark": clean.dup_mark_plain}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
             "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
-            "key_member": 50, "dup_mark": 50}
+            "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
@@ -397,6 +453,9 @@ def _kernel_phase(recs, runs):
         measured = {}
         for key, (_size, args, kw) in sorted(calls.items(),
                                              key=lambda x: str(x[0])):
+            if name == "unpack4":
+                # (piece, n): the kernel into a new (7, n) colmat
+                args = args[:2]
             m = _measure(name, rec.orig, plain[name], args, kw, reps[name])
             if m["err"] != 0.0:
                 _fail("kernel %s[%s] disagrees with its plain version "
@@ -454,6 +513,7 @@ def main(argv=None) -> int:
     from miniasm_tpu_torch.eval.simulate import simulate, write_fasta, \
         write_paf
     from miniasm_tpu_torch.graph import clean, devbub, devclean
+    from miniasm_tpu_torch.io.native import pafload
     from miniasm_tpu_torch.io.native.build import get_lib
     from miniasm_tpu_torch.select import cut, fused2
     from miniasm_tpu_torch.utils import arrays
@@ -503,8 +563,27 @@ def main(argv=None) -> int:
             if rng.random() > 0.50:
                 g.write(line)
                 n_noisy += 1
+    # the loader's format switches: the clean PAF's lines shuffled, as a
+    # PAF sorted by target or merged from several runs comes (no query
+    # runs), and with one overlap of two 90 kb reads appended, as an
+    # ultra-long read gives (coordinates beyond 16 bits at the end)
+    shuffled = os.path.join(ddir, "ecoli_%d_shuffled.paf" % a.genome)
+    longp = os.path.join(ddir, "ecoli_%d_long.paf" % a.genome)
+    with open(paf) as f:
+        lines = f.readlines()
+    with open(longp, "w") as g:
+        g.writelines(lines)
+        g.write("ultralong_a\t90000\t10\t89000\t+\tultralong_b\t90000\t"
+                "1000\t89990\t85000\t88990\t255\n")
+    random.Random(36).shuffle(lines)
+    with open(shuffled, "w") as g:
+        g.writelines(lines)
+    del lines
+    snap = {d: os.path.join(ddir, "snapshot_" + d) for d in ("cuda", "cpu")}
+    for d in snap.values():
+        shutil.rmtree(d, ignore_errors=True)
     _say("[data] %d reads, %d PAF lines (%.1f MB), noisy %d lines, reads "
-         "FASTA %.1f MB, %.2f s"
+         "FASTA %.1f MB, shuffled and long PAFs, %.2f s"
          % (len(sim["names"]), n_lines, os.path.getsize(paf) / 1e6,
             n_noisy, os.path.getsize(fa) / 1e6, time.time() - t0))
     report["data"] = {"genome_bp": a.genome, "coverage": COVERAGE,
@@ -516,7 +595,9 @@ def main(argv=None) -> int:
     # spread, the noisy set, -p sg and bed; the staged path: -1 (pass 2 +
     # containment), -2 (pass 1), -1 -2 (no selection: the graph of every
     # read), -S 4 (both passes, no containment) and -1 -p paf; the oracle
-    # clean modes; -f and -R on the main and the staged path
+    # clean modes; -f and -R on the main and the staged path; the main
+    # path's -p paf, a snapshot written and restored, and the loader's
+    # 4-row and 7-row switches
     plan = [("ecoli_ug_cold", ["-p", "ug", paf], "hybrid", "main"),
             ("ecoli_ug", ["-p", "ug", paf], "hybrid", "main"),
             ("ecoli_ug_2", ["-p", "ug", paf], "hybrid", "main"),
@@ -536,9 +617,29 @@ def main(argv=None) -> int:
             ("ecoli_f_ug", ["-f", fa, "-p", "ug", paf], "hybrid", "flags"),
             ("noisy_R_ug", ["-R", "-p", "ug", noisy], "hybrid", "flags"),
             ("noisy_s1_R_f_ug", ["-1", "-R", "-f", fa, "-p", "ug", noisy],
-             "hybrid", "flags")]
-    # an oracle run prints the bytes of the hybrid run it stands beside
-    same_as = {"noisy_native_ug": "noisy_ug", "noisy_py_sg": "noisy_sg"}
+             "hybrid", "flags"),
+            ("ecoli_paf", ["-p", "paf", paf], "hybrid", "paf"),
+            ("noisy_paf", ["-p", "paf", noisy], "hybrid", "paf"),
+            ("ecoli_snap_ug", ["-p", "ug", paf], "hybrid", "snapshot"),
+            ("ecoli_snap_ug_restore", ["-p", "ug", paf], "hybrid",
+             "snapshot"),
+            ("shuffled_ug", ["-p", "ug", shuffled], "hybrid", "loader"),
+            ("long_ug", ["-p", "ug", longp], "hybrid", "loader")]
+    # an oracle run prints the bytes of the hybrid run it stands beside,
+    # and so do the snapshot runs
+    same_as = {"noisy_native_ug": "noisy_ug", "noisy_py_sg": "noisy_sg",
+               "ecoli_snap_ug": "ecoli_ug",
+               "ecoli_snap_ug_restore": "ecoli_ug"}
+
+    def snapshot_of(tag, device):
+        return snap[device] if tag.startswith("ecoli_snap") else None
+
+    def check_restore(tag, err):
+        # the first snapshot run writes, the second restores
+        restored = "Steps 1-3 restored from snapshot" in err
+        if restored != tag.endswith("_restore"):
+            _fail("%s: %s" % (tag, "restored" if restored
+                               else "did not restore"))
 
     # --- 3. every run on the card ---
     # K3 keeps a row of arcs (3 int32 each) in shared memory
@@ -561,7 +662,11 @@ def main(argv=None) -> int:
                 lambda a_, k: "relaxed" if a_[3] == 0.5 else "final"),
                 kernel="hit2arc"),
             Recorder(arrays, "key_member", on_path(lambda a_, k: "all")),
-            Recorder(clean, "dup_mark", on_path(lambda a_, k: "all"))]
+            Recorder(clean, "dup_mark", on_path(lambda a_, k: "all")),
+            Recorder(pafload, "decode3", on_path(lambda a_, k: "all")),
+            # the largest piece: the most columns unpacked
+            Recorder(pafload, "unpack4", on_path(lambda a_, k: "all"),
+                     size_fn=lambda a_, k: a_[1])]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
@@ -569,7 +674,10 @@ def main(argv=None) -> int:
         for tag, args, mode, path in plan:
             k3.stat = 0
             PATH["now"] = path
-            out, dt, stages, launches = _cli(args, "cuda", mode)
+            out, err, dt, stages, launches = _cli(
+                args, "cuda", mode, snapshot_of(tag, "cuda"))
+            if path == "snapshot":
+                check_restore(tag, err)
             runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
                          "launches": launches, "k3_max_row": k3.stat,
                          "clean": mode, "path": path}
@@ -591,7 +699,8 @@ def main(argv=None) -> int:
     for tag, ref in same_as.items():
         if runs[tag]["out"] != runs[ref]["out"]:
             _fail("%s printed other bytes than %s" % (tag, ref))
-    for tag in ("ecoli_ug", "noisy_ug", "ecoli_s1_ug", "noisy_s2_ug"):
+    for tag in ("ecoli_ug", "noisy_ug", "ecoli_s1_ug", "noisy_s2_ug",
+                "shuffled_ug", "long_ug"):
         if runs[tag]["gfa"]["unitigs"] == 0:
             _fail("%s: no unitig in the output" % tag)
     longest = runs["ecoli_ug"]["gfa"]["longest_bp"]
@@ -603,10 +712,12 @@ def main(argv=None) -> int:
     rows = _kernel_phase(recs, runs)
 
     # --- 5. the same commands on the CPU ---
-    for tag, args, mode, _path in plan:
+    for tag, args, mode, path in plan:
         if tag in ("ecoli_ug_cold", "ecoli_ug_2", "ecoli_ug_3"):
             continue
-        out, dt, _, _ = _cli(args, "cpu", mode)
+        out, err, dt, _, _ = _cli(args, "cpu", mode, snapshot_of(tag, "cpu"))
+        if path == "snapshot":
+            check_restore(tag, err)
         same = out == runs[tag]["out"]
         _say("[cpu] %s: %.3f s, stdout %s the card's"
              % (tag, dt, "identical to" if same else "DIFFERS from"))

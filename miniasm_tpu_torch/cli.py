@@ -4,10 +4,9 @@ The getopt surface of miniasm_tpu/cli.py: the same flags and coupling
 rules (-o defaults to -s, main.c:74; -r parses "max[,min]", main.c:68-72;
 -n stores rounds-1, main.c:60).  Runs on the GPU; set
 MINIASM_TPU_TORCH_DEVICE=cpu to run on the CPU.  -1, -2 and -S below 5
-take the staged selection path (which also prints -p paf).
-MINIASM_TPU_CLEAN=native|py swaps the hybrid cleaner for an oracle, as in
-the JAX package.  -p paf without -1, -2 or -S below 5 is not ported yet
-and exits with an error that names it.
+take the staged selection path.  MINIASM_TPU_CLEAN=native|py swaps the
+hybrid cleaner for an oracle, and MINIASM_TPU_SNAPSHOT=DIR saves and
+restores the Step 3/4 boundary state, as in the JAX package.
 
     python -m miniasm_tpu_torch.cli in.paf > out.gfa
 """
@@ -56,6 +55,9 @@ Environment:
     MINIASM_TPU_CLEAN=STR          graph cleaner: hybrid, native (C++
                                    sequential oracle) or py (Python
                                    sequential oracle) [hybrid]
+    MINIASM_TPU_SNAPSHOT=DIR       save the state after Step 3 in DIR, and
+                                   restore it on a later run with the same
+                                   input and options (not with -R)
 """ % ENV
 
 
@@ -139,15 +141,15 @@ def main(argv=None) -> int:
     liftrlimit()
     from .pipeline import run
 
+    # an environment variable, as in the JAX package: the getopt string
+    # is the reference's
+    snapshot_dir = os.environ.get("MINIASM_TPU_SNAPSHOT")
     try:
         run(args[0], opt, outfmt=outfmt, fn_reads=fn_reads, stage=stage,
             no_first=no_first, no_second=no_second, bi_dir=bi_dir,
-            no_cont=no_cont, device=device)
+            no_cont=no_cont, device=device, snapshot_dir=snapshot_dir)
     except FileNotFoundError as e:
         sys.stderr.write("[E::main] could not open file %s\n" % e.filename)
-        return 1
-    except NotImplementedError as e:
-        sys.stderr.write("ERROR: %s\n" % e)
         return 1
     sys.stderr.write("[M::main] Version: %s\n" % VERSION)
     sys.stderr.write("[M::main] CMD: miniasm-tpu-torch %s\n" % " ".join(argv))

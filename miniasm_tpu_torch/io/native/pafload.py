@@ -1,10 +1,30 @@
-"""ctypes wrappers for the native PAF loaders.
+"""ctypes wrappers for the native PAF loaders, and the device side of the
+main path's streamed loader (CUDA kernels K9 decode3 and K10 unpack4,
+csrc/loader.cu).
 
 pafmt.cpp (main path): reader and parser threads tokenize, filter and
-intern in C++ while the caller pulls (7, piece) int32 column pieces
-[qid qs qe tid ts te flags] (flags bit0=valid bit1=rev bit2=iden_ok).  The
-pieces are concatenated on the host into one exact-size colmat and
-uploaded with one pinned copy.
+intern in C++ while the caller pulls pieces of globalized records into a
+small ring of pinned staging buffers, filled in place.  Each filled
+piece is copied to the card on a side stream and decoded there at once
+while the parser fills the next; at stream end every piece is placed
+into the exact-size (7, n) int32 colmat [qid qs qe tid ts te flags]
+(flags bit0=valid bit1=rev bit2=iden_ok) that the select step takes.
+The piece format follows the JAX loader's ladder (pafload.py:597-699):
+
+  FMT3  13.5 B a record: 3 coordinate rows [tid, qs<<16|qe, ts<<16|te],
+        flag nibbles and a qid run-length sideband; K9 decodes it to the
+        4-row layout.  Used while the stream stays query-grouped with
+        16-bit coordinates and 28-bit ids.
+  4-row [qid|flags<<28, tid, qs<<16|qe, ts<<16|te]; K10 unpacks it into
+        the colmat.  After a sideband overflow (an ungrouped stream), or
+        from the start under MINIASM_TPU_FMT3=0 (a test hook).
+  7-row the colmat's own layout, copied into its slice.  After a
+        coordinate or id overflow.
+
+At a switch the parser's filled prefix is cut to its real records and
+converted on the host (_fmt3_to_cols), so colmat columns stay aligned
+with the C++ g_* arrays that arc_ranks and print_paf address.  On the
+CPU the same ladder runs through the kernels' plain versions.
 
 pafread.cpp (staged path): one single-threaded pass to the filtered
 records' SoA columns on the host (`load_paf_native`)."""
@@ -17,9 +37,98 @@ import os
 import numpy as np
 import torch
 
+from ...cuda import I64, P, Kernel, ptr
+from ...utils.u32 import as_i32
 from ..seqdict import SeqDict
 
 _CHUNK = 1 << 19  # records per piece for large inputs
+_RING = 3  # pinned staging buffers the parser fills in turn
+
+# _decode3_body (pafload.py:267), run per piece by _decode3_jit (l.249)
+# and over the stream by _decode3_concat_jit (l.292)
+K_DECODE3 = Kernel("decode3", "loader.cu", "ma_decode3", [P, I64, P],
+                   replaces="miniasm_tpu/io/native/pafload.py:267")
+# _unpack4_jit (pafload.py:344) with the piece concatenation of
+# _concat_jit (l.239)
+K_UNPACK4 = Kernel("unpack4", "loader.cu", "ma_unpack4",
+                   [P, I64, I64, P, I64, I64],
+                   replaces="miniasm_tpu/io/native/pafload.py:344")
+
+
+def fmt3_records(words: int) -> int:
+    """Records of a flat FMT3 piece of `words` int32 words (3n + 3n/8)."""
+    return words * 8 // 27
+
+
+def decode3_plain(flat):
+    """Plain PyTorch version of K9: one flat FMT3 piece -> (4, n) int32
+    [qid|flags<<28, tid, qs<<16|qe, ts<<16|te].  A record's qid is the qid
+    of the last run start at or before it, 0 before the first; the run
+    starts' valid prefix is ascending and their tail is -1."""
+    n = fmt3_records(flat.shape[0])
+    m = n // 8
+    dev = flat.device
+    rows = flat[:3 * n].view(3, n)
+    fw = flat[3 * n:3 * n + m].to(torch.int64) & 0xFFFFFFFF
+    shifts = 4 * torch.arange(8, dtype=torch.int64, device=dev)
+    nib = ((fw[:, None] >> shifts[None, :]) & 0xF).reshape(n)
+    bp = flat[3 * n + m:3 * n + 2 * m]
+    bq = flat[3 * n + 2 * m:3 * n + 3 * m]
+    k = int((bp >= 0).sum())
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    j = torch.searchsorted(bp[:k].contiguous(), idx, right=True)
+    qid = torch.where(j > 0, bq[(j - 1).clamp(min=0)], 0).to(torch.int64)
+    w0 = as_i32((qid & 0xFFFFFFFF) | (nib << 28))
+    return torch.stack([w0, rows[0], rows[1], rows[2]])
+
+
+def decode3(flat):
+    """K9.  flat: one FMT3 piece, (3n + 3n/8,) int32 with n a multiple of
+    16.  Returns (4, n) int32; a CPU tensor runs decode3_plain."""
+    if flat.device.type == "cpu":
+        return decode3_plain(flat)
+    n = fmt3_records(flat.shape[0])
+    if flat.dtype != torch.int32 or flat.dim() != 1 or n % 16 \
+            or flat.shape[0] != 3 * n + 3 * (n // 8):
+        raise ValueError("decode3: a flat int32 FMT3 piece expected")
+    out = torch.empty((4, n), dtype=torch.int32, device=flat.device)
+    if n:
+        K_DECODE3(ptr(flat), n, ptr(out))
+    return out
+
+
+def unpack4_plain(packed):
+    """Plain PyTorch version of K10: (4, n) packed -> (7, n) int32
+    [qid qs qe tid ts te flags]."""
+    w0 = packed[0].to(torch.int64) & 0xFFFFFFFF
+    qsqe = packed[2].to(torch.int64) & 0xFFFFFFFF
+    tste = packed[3].to(torch.int64) & 0xFFFFFFFF
+    i32 = torch.int32
+    return torch.stack([(w0 & 0x0FFFFFFF).to(i32), (qsqe >> 16).to(i32),
+                        (qsqe & 0xFFFF).to(i32), packed[1],
+                        (tste >> 16).to(i32), (tste & 0xFFFF).to(i32),
+                        (w0 >> 28).to(i32)])
+
+
+def unpack4(packed, n=None, out=None, col=0):
+    """K10.  Unpacks the first n (default all) columns of the (4, m)
+    packed piece into out[:, col:col + n] of the (7, N) int32 colmat `out`
+    (default a new (7, n) tensor) and returns `out`.  A CPU tensor runs
+    unpack4_plain."""
+    m = packed.shape[1]
+    n = m if n is None else n
+    if out is None:
+        out = torch.empty((7, n), dtype=torch.int32, device=packed.device)
+    if packed.device.type == "cpu":
+        out[:, col:col + n] = unpack4_plain(packed[:, :n])
+        return out
+    if packed.dtype != torch.int32 or out.dtype != torch.int32 \
+            or packed.shape[0] != 4 or out.shape[0] != 7 \
+            or not 0 <= n <= m or not 0 <= col <= out.shape[1] - n:
+        raise ValueError("unpack4: (4, m) and (7, N) int32 tensors expected")
+    if n:
+        K_UNPACK4(ptr(packed), m, n, ptr(out), out.shape[1], col)
+    return out
 
 
 class _MaMtInfo(ctypes.Structure):
@@ -34,16 +143,20 @@ class _MaMtInfo(ctypes.Structure):
 
 
 def _bind(lib):
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.ma_mt_begin.restype = ctypes.c_void_p
     lib.ma_mt_begin.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_char_p,
                                 ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_double, ctypes.c_int64,
                                 ctypes.c_int, ctypes.c_int64]
-    lib.ma_mt_next.restype = ctypes.c_int64
-    lib.ma_mt_next.argtypes = [ctypes.c_void_p,
-                               ctypes.POINTER(ctypes.c_int32),
-                               ctypes.c_int64]
+    for f in (lib.ma_mt_next, lib.ma_mt_next4, lib.ma_mt_next3):
+        f.restype = ctypes.c_int64
+        f.argtypes = [ctypes.c_void_p, i32p, ctypes.c_int64]
+    for f in (lib.ma_mt_pack_failed, lib.ma_mt_rle_failed):
+        f.restype = ctypes.c_int
+        f.argtypes = [ctypes.c_void_p]
     lib.ma_mt_info.argtypes = [ctypes.c_void_p, ctypes.POINTER(_MaMtInfo)]
     lib.ma_mt_names.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     lib.ma_mt_seq_len.argtypes = [ctypes.c_void_p,
@@ -53,13 +166,20 @@ def _bind(lib):
                                      ctypes.POINTER(ctypes.c_int64),
                                      ctypes.c_int64, ctypes.c_int64,
                                      ctypes.POINTER(ctypes.c_int64)]
+    lib.ma_mt_retain_full.argtypes = [ctypes.c_void_p]
+    lib.ma_mt_print_paf.restype = ctypes.c_int64
+    lib.ma_mt_print_paf.argtypes = [ctypes.c_void_p, i32p, i32p, u8p, i32p,
+                                    i32p, u8p, u8p, ctypes.c_int64,
+                                    ctypes.c_int64, ctypes.c_int64,
+                                    ctypes.c_int]
     lib.ma_mt_free.argtypes = [ctypes.c_void_p]
 
 
 class HitsMt:
-    """Handle over the loader state: read names and lengths, and the
-    lazily built exact radix permutation of the implied mirrored hit array
-    (hit.c:100/ksort.h) for the rare exact-rank order fallback."""
+    """Handle over the loader state: read names and lengths, the lazily
+    built exact radix permutation of the implied mirrored hit array
+    (hit.c:100/ksort.h) for the rare exact-rank order fallback, and the
+    -p paf replay over the retained records."""
 
     def __init__(self, lib, res, cap):
         self._lib = lib
@@ -93,6 +213,29 @@ class HitsMt:
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
         return out
 
+    def print_paf(self, sub1, sub2, alive, min_span, max_hang_flt,
+                  min_ovlp_flt, fd):
+        """-p paf on the main path: replay the cut and filter passes over
+        the retained records in the exact sorted mirrored order and write
+        the print_hits (main.c:21-30) lines of the survivors to fd.
+        sub1/sub2 are the per-read (s, e, del) tables of the two passes
+        (select_build2 with paf_tables=True); the loader must have been
+        opened with retain_full=True.  Returns the lines printed, or -1
+        when a write failed."""
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        s1, e1, d1 = (np.ascontiguousarray(x, t) for x, t in
+                      zip(sub1, (np.int32, np.int32, np.uint8)))
+        s2, e2, d2 = (np.ascontiguousarray(x, t) for x, t in
+                      zip(sub2, (np.int32, np.int32, np.uint8)))
+        al = np.ascontiguousarray(alive, np.uint8)
+        return int(self._lib.ma_mt_print_paf(
+            self._res, s1.ctypes.data_as(i32p), e1.ctypes.data_as(i32p),
+            d1.ctypes.data_as(u8p), s2.ctypes.data_as(i32p),
+            e2.ctypes.data_as(i32p), d2.ctypes.data_as(u8p),
+            al.ctypes.data_as(u8p), int(min_span), int(max_hang_flt),
+            int(min_ovlp_flt), int(fd)))
+
     def seqdict(self):
         blob = ctypes.create_string_buffer(max(self._names_bytes, 1))
         self._lib.ma_mt_names(self._res, blob)
@@ -120,11 +263,110 @@ def _excl_blob(excl) -> bytes:
     return b"\0".join(n.encode() for n in excl.names) + b"\0"
 
 
+def _fmt3_to_cols(buf, sz, n, rows):
+    """Host conversion of the first n records of a flat FMT3 piece of
+    capacity sz (numpy int32 words) to a (rows, n) piece: 4 = the packed
+    layout, 7 = the colmat's.  Runs at a format switch only."""
+    r = buf[:3 * sz].reshape(3, sz)[:, :n]
+    nw = buf[3 * sz:3 * sz + sz // 8].astype(np.uint32)
+    idx = np.arange(n)
+    nib = ((nw[idx >> 3] >> (4 * (idx & 7)).astype(np.uint32))
+           & 0xF).astype(np.uint32)
+    bp = buf[3 * sz + sz // 8: 3 * sz + 2 * (sz // 8)]
+    bq = buf[3 * sz + 2 * (sz // 8): 3 * sz + 3 * (sz // 8)]
+    k = bp[bp >= 0]
+    v = bq[:len(k)]
+    j = np.searchsorted(k, idx, side="right") - 1
+    qid = v[j] if len(k) else np.zeros(n, np.int32)
+    if rows == 4:
+        w0 = qid.astype(np.uint32) | (nib << 28)
+        return np.stack([w0.astype(np.int32), r[0], r[1], r[2]])
+    qsqe = r[1].astype(np.uint32)
+    tste = r[2].astype(np.uint32)
+    return np.stack([qid.astype(np.int32),
+                     (qsqe >> 16).astype(np.int32),
+                     (qsqe & 0xFFFF).astype(np.int32),
+                     r[0],
+                     (tste >> 16).astype(np.int32),
+                     (tste & 0xFFFF).astype(np.int32),
+                     nib.astype(np.int32)])
+
+
+class _Uploader:
+    """Host pieces to `dev`.  On a card: a ring of pinned staging buffers
+    the parser fills in place; each filled piece is copied on a side
+    stream and an FMT3 piece decoded there at once (K9), and a buffer is
+    refilled only after its copy has finished.  On the CPU: a fresh
+    buffer per piece and the plain decode."""
+
+    def __init__(self, dev, words):
+        self.dev = dev
+        self.cuda = dev.type == "cuda"
+        self.words = words
+        self.pieces = []  # (device tensor (4 or 7, m), real records)
+        if self.cuda:
+            self.side = torch.cuda.Stream(dev)
+            self.ring = [torch.empty(words, dtype=torch.int32,
+                                     pin_memory=True) for _ in range(_RING)]
+            self.done = [None] * _RING
+        self.turn = 0
+
+    def buffer(self):
+        """The next staging buffer, free to fill."""
+        if not self.cuda:
+            return torch.empty(self.words, dtype=torch.int32)
+        i = self.turn % _RING
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        return self.ring[i]
+
+    def push(self, host, n, fmt3=False):
+        """Send a filled piece: `host` is the flat FMT3 words (fmt3) or a
+        (rows, m) int32 tensor with n real records."""
+        if not self.cuda:
+            self.pieces.append((decode3(host) if fmt3 else host, n))
+            return
+        with torch.cuda.stream(self.side):
+            d = torch.empty(host.shape, dtype=torch.int32, device=self.dev)
+            d.copy_(host, non_blocking=True)
+            if host.data_ptr() == self.ring[self.turn % _RING].data_ptr():
+                ev = torch.cuda.Event()
+                ev.record(self.side)
+                self.done[self.turn % _RING] = ev
+                self.turn += 1
+            if fmt3:
+                d = decode3(d)
+        self.pieces.append((d, n))
+
+    def colmat(self):
+        """The exact-size (7, n) colmat of every piece, on the caller's
+        stream."""
+        if self.cuda:
+            main = torch.cuda.current_stream(self.dev)
+            main.wait_stream(self.side)
+            for d, _n in self.pieces:
+                d.record_stream(main)
+        total = sum(n for _d, n in self.pieces)
+        out = torch.empty((7, total), dtype=torch.int32, device=self.dev)
+        col = 0
+        for d, n in self.pieces:
+            if d.shape[0] == 4:
+                unpack4(d, n, out, col)
+            else:
+                out[:, col:col + n].copy_(d[:, :n])
+            col += n
+        self.pieces = []
+        return out
+
+
 def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
-                 min_iden=0.05, device=torch.device("cpu"), n_workers=2):
-    """Parse `fn` with the pipelined loader and upload the (7, n) int32
-    colmat of the unmirrored originals to `device`; lines naming a read of
-    `excl` are dropped.  Returns (colmat, SeqDict, HitsMt)."""
+                 min_iden=0.05, device=torch.device("cpu"), n_workers=2,
+                 retain_full=False):
+    """Parse `fn` with the pipelined loader and build the (7, n) int32
+    colmat of the unmirrored originals on `device` through the format
+    ladder above; lines naming a read of `excl` are dropped.  With
+    retain_full the C++ state keeps every column for HitsMt.print_paf.
+    Returns (colmat, SeqDict, HitsMt)."""
     from .build import get_lib
 
     lib = get_lib()
@@ -136,33 +378,56 @@ def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
     if fn.endswith(".gz"):
         fsz *= 4
     # PAF lines are ~70-90 B: small inputs ride quarter-size pieces
-    chunk = _CHUNK if fsz == 0 or fsz // 100 >= (1 << 22) else _CHUNK >> 2
+    sz = _CHUNK if fsz == 0 or fsz // 100 >= (1 << 22) else _CHUNK >> 2
     blob = _excl_blob(excl)
     res = lib.ma_mt_begin(fn.encode(), min_span, min_match, blob, len(blob),
-                          1 if bi_dir else 0, float(min_iden), chunk,
+                          1 if bi_dir else 0, float(min_iden), sz,
                           n_workers, 0)
     if not res:
         raise FileNotFoundError(2, "could not open PAF file", fn)
-    pieces = []
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f3_words = 3 * sz + 3 * (sz // 8)
     try:
+        if retain_full:
+            lib.ma_mt_retain_full(res)
+        up = _Uploader(torch.device(device), 7 * sz)
+        fmt = 4 if os.environ.get("MINIASM_TPU_FMT3") == "0" else 3
         while True:
-            buf = np.empty((7, chunk), dtype=np.int32)
-            n = lib.ma_mt_next(
-                res, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-                chunk)
-            pieces.append(buf[:, :n])
-            if n < chunk:
+            buf = up.buffer()
+            p = ctypes.cast(buf.data_ptr(), i32p)
+            if fmt == 3:
+                n = lib.ma_mt_next3(res, p, sz)
+                pf = bool(lib.ma_mt_pack_failed(res))
+                if pf or lib.ma_mt_rle_failed(res):
+                    # cut the filled prefix to its real records and
+                    # convert it on the host to the next format
+                    fmt = 7 if pf else 4
+                    if n:
+                        cols = _fmt3_to_cols(buf.numpy(), sz, n, fmt)
+                        up.push(torch.from_numpy(cols), n)
+                    continue
+                if n:
+                    up.push(buf[:f3_words], n, fmt3=True)
+            else:
+                fn_next = lib.ma_mt_next4 if fmt == 4 else lib.ma_mt_next
+                n = fn_next(res, p, sz)
+                switched = fmt == 4 and bool(lib.ma_mt_pack_failed(res))
+                if n:
+                    up.push(buf[:fmt * sz].view(fmt, sz), n)
+                if switched:
+                    fmt = 7
+                    continue
+            if n < sz:
                 break
-        colmat = np.ascontiguousarray(np.concatenate(pieces, axis=1))
+        colmat = up.colmat()
         h = HitsMt(lib, res, cap=colmat.shape[1])
     except BaseException:
         lib.ma_mt_free(res)
         raise
-    d = h.seqdict()
-    t = torch.from_numpy(colmat)
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return t, d, h
+    if h.n_orig != h.cap:
+        raise RuntimeError("loader: %d records in the colmat, %d parsed"
+                           % (h.cap, h.n_orig))
+    return colmat, h.seqdict(), h
 
 
 class _MaPafLoad(ctypes.Structure):

@@ -1,14 +1,15 @@
 // Pipelined multi-threaded PAF loader: the port's copy of the JAX
-// package's io/native/pafmt.cpp, reduced to the 7-row host column path.
+// package's io/native/pafmt.cpp.
 //
 //   reader thread:  gzread 8 MB blocks, snapped to newline boundaries
 //   parser workers: tokenize + span/match filter + CHUNK-LOCAL name
 //                   interning (small cache-resident dicts), out of order
 //   consumer (the ctypes caller, GIL released): globalizes chunks IN
 //                   ORDER — resolves the 10-field bl-carry across chunk
-//                   boundaries, maps local -> global ids, fills (7, piece)
-//                   int32 column pieces that the caller concatenates and
-//                   uploads to the device in one copy
+//                   boundaries, maps local -> global ids, and fills the
+//                   caller's piece buffer (the flat FMT3 layout, the
+//                   4-row packed or the 7-row column layout) in place,
+//                   while the workers parse ahead
 //
 // Chunk-local interning keeps the hot dict small; the sequential
 // globalization pass costs one hash op per (chunk, distinct name), which
@@ -26,12 +27,15 @@
 //     (the reference reuses the caller's struct across paf_read calls) —
 //     across chunk AND thread boundaries here, resolved at globalization;
 //   - records failing qe-qs/te-ts < min_span or ml < min_match are
-//     dropped BEFORE interning; the optional exclusion set drops by
+//     dropped BEFORE interning; the optional exclusion set (-R) drops by
 //     name before interning;
 //   - read length is recorded at a name's first surviving appearance.
 
+#include <unistd.h>
 #include <zlib.h>
 
+#include <cerrno>
+#include <charconv>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
@@ -233,6 +237,10 @@ struct MtState {
     // retained global columns for the exact-rank build
     std::vector<int32_t> g_qid, g_tid;
     std::vector<uint32_t> g_qs, g_ts;
+    // full-record retention (-p paf replay): qe/te/ml/bl/rev too
+    bool retain_full = false;
+    std::vector<uint32_t> g_qe, g_te, g_ml, g_bl;
+    std::vector<uint8_t> g_rev;
     // pending: partially-consumed chunk
     Chunk* cur = nullptr;
     int64_t cur_off = 0;
@@ -240,6 +248,8 @@ struct MtState {
 
     int64_t* rank = nullptr;
     std::string names_blob;
+    bool pack_fail = false;  // a record didn't fit the 4-row packed piece
+    bool rle_fail = false;   // a piece overflowed the FMT3 qid-RLE sideband
 
     ~MtState() {
         for (auto& kv : done) delete kv.second;
@@ -543,17 +553,45 @@ MtState* ma_mt_begin(const char* fn, int64_t min_span, int64_t min_match,
     return st;
 }
 
-// Fill out (7, want) int32 with the next piece of globalized records
-// [qid qs qe tid ts te flags] (flags bit0=valid bit1=rev bit2=iden_ok);
-// zero-pads the tail.  Returns the number of real records in the piece
-// (0 = end of stream).  `want` <= 0 falls back to the chunk_recs passed at
-// begin.
-int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
+}  // extern "C" (reopened after the template below)
+
+namespace {
+
+// Shared piece-emission core.  FMT=7 emits the classic
+// [qid qs qe tid ts te flags] columns; FMT=4 emits the packed
+// [qid|flags<<28, tid, qs<<16|qe, ts<<16|te] columns (16 B a record
+// instead of 28), which the device unpacks (unpack4, csrc/loader.cu).
+// A record can ride the packed format only when its coordinates fit 16
+// bits and its global ids fit 28 bits; on the first record that does
+// not, the piece is cut short and st->pack_fail is set — the caller
+// switches to FMT=7 pieces for the rest of the stream (already-emitted
+// packed pieces stay valid).
+template <int FMT>
+int64_t mt_next_impl(MtState* st, int32_t* out, int64_t want) {
     const int64_t C = want > 0 ? want : st->chunk_recs;
     int64_t filled = 0;
     int32_t* R[7];
-    for (int r2 = 0; r2 < 7; ++r2) R[r2] = out + r2 * C;
+    for (int r2 = 0; r2 < (FMT == 3 ? 3 : FMT); ++r2) R[r2] = out + r2 * C;
+    // FMT=3 sideband layout after the 3 coordinate rows (C must be a
+    // multiple of 16): flag nibbles (C/8 words), qid-run boundary
+    // positions (C/8 words, -1 padded), boundary qids (C/8 words) —
+    // the C/8 boundary capacity tolerates query runs >= 8 records
+    // (low-coverage minimap streams run ~16/query)
+    uint32_t* nibw = nullptr;
+    int32_t* bpos = nullptr;
+    int32_t* bqid = nullptr;
+    int64_t nb = 0, bcap = 0;
+    int32_t last_q = -1;
+    if (FMT == 3) {
+        nibw = reinterpret_cast<uint32_t*>(out + 3 * C);
+        bpos = out + 3 * C + C / 8;
+        bqid = bpos + C / 8;
+        bcap = C / 8;
+        std::memset(nibw, 0, (C / 8) * 4);
+    }
     while (filled < C) {
+        if (FMT == 4 && st->pack_fail) break;
+        if (FMT == 3 && (st->pack_fail || st->rle_fail)) break;
         if (!st->cur) {
             std::vector<int32_t> gmap;
             Chunk* ck = take_chunk(st, gmap);
@@ -567,12 +605,62 @@ int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
         int64_t take = avail < C - filled ? avail : C - filled;
         const auto& gm = st->cur_gmap;
         const int64_t o = st->cur_off;
-        // columnar: plain memcpy for coordinates, tight vectorizable
-        // transforms for the id remap and flags
-        std::memcpy(R[1] + filled, ck->qs.data() + o, take * 4);
-        std::memcpy(R[2] + filled, ck->qe.data() + o, take * 4);
-        std::memcpy(R[4] + filled, ck->ts.data() + o, take * 4);
-        std::memcpy(R[5] + filled, ck->te.data() + o, take * 4);
+        if (FMT == 4) {
+            if (static_cast<int64_t>(st->gnames.size()) >= (1LL << 28)) {
+                st->pack_fail = true;
+                break;
+            }
+            // all four coordinates must fit 16 bits: malformed lines can
+            // carry qs > qe (the reference keeps them with full 32-bit
+            // coordinates — the unsigned span wrap passes the filter), so
+            // checking the ends alone could truncate a start coordinate
+            int64_t good = 0;
+            while (good < take && ck->qs[o + good] <= 65535u &&
+                   ck->qe[o + good] <= 65535u &&
+                   ck->ts[o + good] <= 65535u && ck->te[o + good] <= 65535u)
+                ++good;
+            if (good < take) {
+                st->pack_fail = true;
+                take = good;
+            }
+        }
+        if (FMT == 3) {
+            if (static_cast<int64_t>(st->gnames.size()) >= (1LL << 28)) {
+                st->pack_fail = true;
+                break;
+            }
+            // pre-scan: coordinates must fit 16 bits AND the piece's
+            // qid-run boundary count must fit the RLE sideband
+            int64_t good = 0;
+            int32_t lq = last_q;
+            int64_t nb2 = nb;
+            while (good < take) {
+                if (ck->qs[o + good] > 65535u || ck->qe[o + good] > 65535u ||
+                    ck->ts[o + good] > 65535u || ck->te[o + good] > 65535u) {
+                    st->pack_fail = true;
+                    break;
+                }
+                int32_t gq = gm[ck->qid[o + good]];
+                if (gq != lq) {
+                    if (nb2 == bcap) {
+                        st->rle_fail = true;
+                        break;
+                    }
+                    ++nb2;
+                    lq = gq;
+                }
+                ++good;
+            }
+            take = good;
+        }
+        if (FMT == 7) {
+            // columnar: plain memcpy for coordinates, tight vectorizable
+            // transforms for the id remap and flags
+            std::memcpy(R[1] + filled, ck->qs.data() + o, take * 4);
+            std::memcpy(R[2] + filled, ck->qe.data() + o, take * 4);
+            std::memcpy(R[4] + filled, ck->ts.data() + o, take * 4);
+            std::memcpy(R[5] + filled, ck->te.data() + o, take * 4);
+        }
         size_t gn = st->g_qid.size();
         st->g_qid.resize(gn + take);
         st->g_tid.resize(gn + take);
@@ -580,6 +668,18 @@ int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
         st->g_ts.resize(gn + take);
         std::memcpy(st->g_qs.data() + gn, ck->qs.data() + o, take * 4);
         std::memcpy(st->g_ts.data() + gn, ck->ts.data() + o, take * 4);
+        if (st->retain_full) {
+            st->g_qe.resize(gn + take);
+            st->g_te.resize(gn + take);
+            st->g_ml.resize(gn + take);
+            st->g_bl.resize(gn + take);
+            st->g_rev.resize(gn + take);
+            std::memcpy(st->g_qe.data() + gn, ck->qe.data() + o, take * 4);
+            std::memcpy(st->g_te.data() + gn, ck->te.data() + o, take * 4);
+            std::memcpy(st->g_ml.data() + gn, ck->ml.data() + o, take * 4);
+            std::memcpy(st->g_bl.data() + gn, ck->bl.data() + o, take * 4);
+            std::memcpy(st->g_rev.data() + gn, ck->rev.data() + o, take);
+        }
         int64_t mirrors = 0;
         for (int64_t k = 0; k < take; ++k) {
             int32_t gq = gm[ck->qid[o + k]];
@@ -587,8 +687,28 @@ int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
             st->g_qid[gn + k] = gq;
             st->g_tid[gn + k] = gt;
             mirrors += gq != gt;
-            R[0][filled + k] = gq;
-            R[3][filled + k] = gt;
+            if (FMT == 7) {
+                R[0][filled + k] = gq;
+                R[3][filled + k] = gt;
+            } else if (FMT == 3) {
+                R[0][filled + k] = gt;
+                R[1][filled + k] = static_cast<int32_t>(
+                    (ck->qs[o + k] << 16) | ck->qe[o + k]);
+                R[2][filled + k] = static_cast<int32_t>(
+                    (ck->ts[o + k] << 16) | ck->te[o + k]);
+                if (gq != last_q) {
+                    bpos[nb] = static_cast<int32_t>(filled + k);
+                    bqid[nb] = gq;
+                    ++nb;
+                    last_q = gq;
+                }
+            } else {
+                R[1][filled + k] = gt;
+                R[2][filled + k] = static_cast<int32_t>(
+                    (ck->qs[o + k] << 16) | ck->qe[o + k]);
+                R[3][filled + k] = static_cast<int32_t>(
+                    (ck->ts[o + k] << 16) | ck->te[o + k]);
+            }
         }
         for (int64_t k = 0; k < take; ++k) {
             uint32_t iden_ok =
@@ -597,7 +717,14 @@ int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
             uint32_t fl = 1u |
                 (static_cast<uint32_t>(ck->rev[o + k]) << 1) |
                 (iden_ok << 2);
-            R[6][filled + k] = static_cast<int32_t>(fl);
+            if (FMT == 7)
+                R[6][filled + k] = static_cast<int32_t>(fl);
+            else if (FMT == 3) {
+                uint32_t idx = static_cast<uint32_t>(filled + k);
+                nibw[idx >> 3] |= fl << (4 * (idx & 7));
+            } else
+                R[0][filled + k] = static_cast<int32_t>(
+                    static_cast<uint32_t>(st->g_qid[gn + k]) | (fl << 28));
         }
         st->n_mirror += st->bi_dir ? take + mirrors : take;
         st->cur_off += take;
@@ -611,11 +738,51 @@ int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
         }
     }
     if (filled < C)
-        for (int r2 = 0; r2 < 7; ++r2)
+        for (int r2 = 0; r2 < (FMT == 3 ? 3 : FMT); ++r2)
             std::memset(R[r2] + filled, 0, (C - filled) * 4);
+    if (FMT == 3)
+        for (int64_t j = nb; j < bcap; ++j) {
+            bpos[j] = -1;
+            bqid[j] = 0;
+        }
     return filled;
 }
 
+}  // namespace
+
+extern "C" {
+
+// Fill out (7, want) int32 with the next piece of globalized records
+// [qid qs qe tid ts te flags]; zero-pads the tail.  Returns the number
+// of real records in the piece (0 = end of stream).  `want` <= 0 falls
+// back to the chunk_recs passed at begin.
+int64_t ma_mt_next(MtState* st, int32_t* out, int64_t want) {
+    return mt_next_impl<7>(st, out, want);
+}
+
+// 4-row packed variant: [qid|flags<<28, tid, qs<<16|qe, ts<<16|te].
+// Returns the filled count; when ma_mt_pack_failed() reports 1 after a
+// call, the stream has a record that cannot pack — the caller must
+// switch to ma_mt_next for the remainder (this call's piece is valid).
+int64_t ma_mt_next4(MtState* st, int32_t* out, int64_t want) {
+    return mt_next_impl<4>(st, out, want);
+}
+
+// Flat 13.5 B/record variant (want must be a multiple of 16): 3
+// coordinate rows [tid, qs<<16|qe, ts<<16|te] + flag nibbles + a qid
+// run-length sideband (PAF streams are query-grouped, so qid is
+// piecewise constant; minimap2 emits ~16-90 records per query).  Total
+// words per piece: 3*want + 3*want/8, decoded on the device (decode3,
+// csrc/loader.cu) into the 4-row layout.  On a
+// coordinate/id overflow ma_mt_pack_failed() is set (switch to 7-row);
+// on a boundary-count overflow ma_mt_rle_failed() is set (switch to
+// 4-row); either way this call's filled prefix is valid.
+int64_t ma_mt_next3(MtState* st, int32_t* out, int64_t want) {
+    return mt_next_impl<3>(st, out, want);
+}
+
+int ma_mt_pack_failed(MtState* st) { return st->pack_fail ? 1 : 0; }
+int ma_mt_rle_failed(MtState* st) { return st->rle_fail ? 1 : 0; }
 
 void ma_mt_info(MtState* st, MaMtInfo* info) {
     int64_t nb = 0;
@@ -678,6 +845,212 @@ void ma_mt_rank_fetch(MtState* st, const int64_t* idx, int64_t n_idx,
         j -= side * cap;
         out[k] = st->rank[(j << 1) | side];
     }
+}
+
+// retain qe/te/ml/bl/rev alongside the rank columns (-p paf replay);
+// must be called between ma_mt_begin and the first ma_mt_next*
+void ma_mt_retain_full(MtState* st) { st->retain_full = true; }
+
+}  // extern "C" (reopened below)
+
+namespace {
+
+// scalar ma_hit2arc classification CODE (semantics of miniasm.h:86-104,
+// mirroring the vectorized core/hit2arc.py; only the code matters to the
+// ma_hit_flt keep test, hit.c:195-216): -1 internal, -2 qcont, -3 tcont,
+// -4 short, 0 proper overlap.
+int hit2arc_code(int64_t qs, int64_t qe, int64_t ts, int64_t te, int rev,
+                 int64_t ql, int64_t tl, int64_t max_hang, float int_frac,
+                 int64_t min_ovlp) {
+    int64_t tl5 = rev ? tl - te : ts;
+    int64_t tl3 = rev ? ts : tl - te;
+    int64_t qh5 = qs, qh3 = ql - qe;
+    int64_t ext5 = qh5 < tl5 ? qh5 : tl5;
+    int64_t ext3 = qh3 < tl3 ? qh3 : tl3;
+    int64_t span = qe - qs;
+    if (ext5 > max_hang || ext3 > max_hang ||
+        static_cast<float>(span) <
+            static_cast<float>(span + ext5 + ext3) * int_frac)
+        return -1;
+    if (qh5 <= tl5 && qh3 <= tl3) return -2;
+    if (qh5 >= tl5 && qh3 >= tl3) return -3;
+    if (span + ext5 + ext3 < min_ovlp || (te - ts) + ext5 + ext3 < min_ovlp)
+        return -4;
+    return 0;
+}
+
+// ma_hit_cut coordinate rewrite + keep test (hit.c:162-193; scalar twin
+// of select/fused2._cut_pass including the unsigned e-side min quirk).
+bool cut_replay(int32_t rs, int32_t re, bool rdel, int32_t ts_, int32_t tse,
+                bool tdel, int rev, int64_t min_span, uint32_t& qs,
+                uint32_t& qe, uint32_t& ts, uint32_t& te) {
+    if (rdel || tdel) return false;
+    int64_t qs0 = qs, qe0 = qe, ts0 = ts, te0 = te;
+    int64_t rq_s = rs, rq_e = re, rt_s = ts_, rt_e = tse;
+    int64_t qs1, qe1, ts1, te1;
+    if (rev) {
+        qs1 = te0 < rt_e ? qs0 : qs0 + (te0 - rt_e);
+        qe1 = ts0 > rt_s ? qe0 : qe0 - (rt_s - ts0);
+        ts1 = qe0 < rq_e ? ts0 : ts0 + (qe0 - rq_e);
+        te1 = qs0 > rq_s ? te0 : te0 - (rq_s - qs0);
+    } else {
+        qs1 = ts0 > rt_s ? qs0 : qs0 + (rt_s - ts0);
+        qe1 = te0 < rt_e ? qe0 : qe0 - (te0 - rt_e);
+        ts1 = qs0 > rq_s ? ts0 : ts0 + (rq_s - qs0);
+        te1 = qe0 < rq_e ? te0 : te0 - (qe0 - rq_e);
+    }
+    uint32_t qs2 = static_cast<uint32_t>((qs1 > rq_s ? qs1 : rq_s) - rq_s);
+    uint32_t ts2 = static_cast<uint32_t>((ts1 > rt_s ? ts1 : rt_s) - rt_s);
+    uint32_t ue = static_cast<uint32_t>(qe1);
+    uint32_t qe2 = (ue < static_cast<uint32_t>(rq_e)
+                        ? ue : static_cast<uint32_t>(rq_e))
+                   - static_cast<uint32_t>(rq_s);
+    ue = static_cast<uint32_t>(te1);
+    uint32_t te2 = (ue < static_cast<uint32_t>(rt_e)
+                        ? ue : static_cast<uint32_t>(rt_e))
+                   - static_cast<uint32_t>(rt_s);
+    qs = qs2, qe = qe2, ts = ts2, te = te2;
+    return static_cast<int32_t>(qe2 - qs2) >= min_span &&
+           static_cast<int32_t>(te2 - ts2) >= min_span;
+}
+
+struct PafOut {
+    int fd;
+    std::vector<char> buf;
+    size_t w = 0;
+    bool err = false;
+    explicit PafOut(int f) : fd(f), buf(1 << 22) {}
+    void flush() {
+        size_t off = 0;
+        while (off < w) {
+            ssize_t r = ::write(fd, buf.data() + off, w - off);
+            if (r < 0 && errno == EINTR) continue;
+            if (r <= 0) {
+                // surface the failure (ENOSPC/EPIPE/...): a silently
+                // truncated -p paf must not report success
+                err = true;
+                break;
+            }
+            off += static_cast<size_t>(r);
+        }
+        w = 0;
+    }
+    inline void need(size_t n) {
+        if (w + n > buf.size()) flush();
+    }
+    inline void put_str(const char* s, size_t n) {
+        std::memcpy(buf.data() + w, s, n);
+        w += n;
+    }
+    inline void put_i(int64_t v) {
+        auto r = std::to_chars(buf.data() + w, buf.data() + buf.size(), v);
+        w = static_cast<size_t>(r.ptr - buf.data());
+    }
+    inline void put_c(char c) { buf[w++] = c; }
+};
+
+}  // namespace
+
+extern "C" {
+
+// -p paf fast path (print_hits, main.c:21-30): replay the two cut passes
+// + the relaxed-parameter filter over the retained records in the exact
+// ksort-sorted mirrored order, printing survivors whose reads outlive
+// containment removal.  Tables come from the device select kernel
+// (per-read, O(n_seq) fetch instead of an O(hits) coordinate download).
+// Requires ma_mt_retain_full before the stream was consumed.
+int64_t ma_mt_print_paf(MtState* st, const int32_t* s1, const int32_t* e1,
+                        const uint8_t* d1, const int32_t* s2,
+                        const int32_t* e2, const uint8_t* d2,
+                        const uint8_t* alive, int64_t min_span,
+                        int64_t max_hang_flt, int64_t min_ovlp_flt,
+                        int fd) {
+    int64_t n = st->n_orig;
+    std::vector<uint64_t> keys;
+    std::vector<int64_t> src;
+    keys.reserve(st->n_mirror);
+    src.reserve(st->n_mirror);
+    for (int64_t i = 0; i < n; ++i) {
+        keys.push_back(static_cast<uint64_t>(st->g_qid[i]) << 32 |
+                       st->g_qs[i]);
+        src.push_back(i << 1);
+        if (st->bi_dir && st->g_qid[i] != st->g_tid[i]) {
+            keys.push_back(static_cast<uint64_t>(st->g_tid[i]) << 32 |
+                           st->g_ts[i]);
+            src.push_back((i << 1) | 1);
+        }
+    }
+    int64_t m = static_cast<int64_t>(keys.size());
+    ma_radix_argsort_u64(keys.data(), src.data(), m);
+
+    PafOut out(fd);
+    int64_t printed = 0;
+    for (int64_t p = 0; p < m; ++p) {
+        int64_t j = src[p] >> 1;
+        int side = static_cast<int>(src[p] & 1);
+        int32_t q, t;
+        uint32_t qs, qe, ts, te;
+        if (!side) {
+            q = st->g_qid[j], t = st->g_tid[j];
+            qs = st->g_qs[j], qe = st->g_qe[j];
+            ts = st->g_ts[j], te = st->g_te[j];
+        } else {  // implied mirror (hit.c:92-98: plain q/t swap)
+            q = st->g_tid[j], t = st->g_qid[j];
+            qs = st->g_ts[j], qe = st->g_te[j];
+            ts = st->g_qs[j], te = st->g_qe[j];
+        }
+        int rev = st->g_rev[j];
+        if (!cut_replay(s1[q], e1[q], d1[q], s1[t], e1[t], d1[t], rev,
+                        min_span, qs, qe, ts, te))
+            continue;
+        int code = hit2arc_code(qs, qe, ts, te, rev,
+                                e1[q] - s1[q], e1[t] - s1[t],
+                                max_hang_flt, 0.5f, min_ovlp_flt);
+        if (code == -1 || code == -4) continue;
+        if (!cut_replay(s2[q], e2[q], d2[q], s2[t], e2[t], d2[t], rev,
+                        min_span, qs, qe, ts, te))
+            continue;
+        if (!alive[q] || !alive[t]) continue;
+        // merged sub frame for the header columns (ma_sub_merge)
+        int64_t mqs = static_cast<int64_t>(s1[q]) + s2[q];
+        int64_t mqe = static_cast<int64_t>(s1[q]) + e2[q];
+        int64_t mts = static_cast<int64_t>(s1[t]) + s2[t];
+        int64_t mte = static_cast<int64_t>(s1[t]) + e2[t];
+        out.need(512 + st->gname_len[q] + st->gname_len[t]);
+        out.put_str(st->gnames[q], st->gname_len[q]);
+        out.put_c(':');
+        out.put_i(mqs + 1);
+        out.put_c('-');
+        out.put_i(mqe);
+        out.put_c('\t');
+        out.put_i(mqe - mqs);
+        out.put_c('\t');
+        out.put_i(qs);
+        out.put_c('\t');
+        out.put_i(qe);
+        out.put_c('\t');
+        out.put_c(rev ? '-' : '+');
+        out.put_c('\t');
+        out.put_str(st->gnames[t], st->gname_len[t]);
+        out.put_c(':');
+        out.put_i(mts + 1);
+        out.put_c('-');
+        out.put_i(mte);
+        out.put_c('\t');
+        out.put_i(mte - mts);
+        out.put_c('\t');
+        out.put_i(ts);
+        out.put_c('\t');
+        out.put_i(te);
+        out.put_c('\t');
+        out.put_i(st->g_ml[j]);
+        out.put_c('\t');
+        out.put_i(st->g_bl[j]);
+        out.put_str("\t255\n", 5);
+        ++printed;
+    }
+    out.flush();
+    return out.err ? -1 : printed;  // -1: a write failed (truncated output)
 }
 
 void ma_mt_join(MtState* st) {

@@ -4,13 +4,24 @@ Port of miniasm_tpu/pipeline.py.  The main path (_run_fast_v2 and the
 hybrid branch of _emit):
 
   0. -R: contained-read prefilter                     [host stream]
-  1. PAF load (host C++ loader) + one upload        [host -> device]
+  1. PAF load: host C++ parser threads fill pinned
+     pieces, each copied and decoded on a side stream
+     (K9 decode3), then unpacked into one colmat
+     (K10 unpack4)                                    [host -> device]
   2-3. crude + fine read selection, containment,
        arc classification and ordering               [device kernels]
+  -p paf: the C++ replay of the cut and filter passes
+       over the retained records                      [host]
   order: the reference's arc insertion order          [host]
   4. string-graph build + cleaning                    [device detection +
                                                        host ordered commit]
   5. unitigs (+ -f sequences) + GFA                   [host]
+
+With a snapshot directory (MINIASM_TPU_SNAPSHOT) the main path saves the
+Step 3/4 boundary state after the graph build, and a later -p ug|sg|bed
+run on the same input and options restores it and skips Steps 1-3
+(io/snapshot.py); neither happens with -R, as in the JAX package
+(pipeline.py:62-74,318-323).
 
 The staged path (-1, -2, -S below 5; pipeline.py:96-151 and the staged
 part of _emit) runs the reference's own control flow pass by pass over a
@@ -25,15 +36,15 @@ sequential passes, graph/finalize_native.py) or any other value but
 `hybrid` (the same reduction, then the Python sequential passes,
 graph/seqclean.py), as in the JAX package's _emit (pipeline.py:372-462).
 
-Outputs -p ug|sg|bed, and -p paf on the staged path; -f and -R on both.
-The main path's -p paf and the snapshot restore of the JAX package are
-not ported yet: -p paf there raises NotImplementedError.
+Outputs -p ug|sg|bed|paf, -f and -R on both paths.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,24 +63,19 @@ from .utils.timers import log
 LAST_TIMING: dict = {}
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        "miniasm_tpu_torch: %s is not ported yet (use miniasm_tpu)" % what)
-
-
 def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         fn_reads: str | None = None, stage: int = 100,
         no_first: bool = False, no_second: bool = False,
         bi_dir: bool = True, no_cont: bool = False, out=None,
-        device: str | torch.device | None = None):
+        device: str | torch.device | None = None,
+        snapshot_dir: str | None = None):
     """Assemble `paf_fn` and write -p `outfmt` to `out` (default stdout).
     Runs on `device`: `cuda` unless the caller asks for `cpu`.  -1, -2 or
     a stage below 5 take the staged path, as in the JAX package
-    (pipeline.py:58-61)."""
+    (pipeline.py:58-61).  `snapshot_dir` saves and restores the main
+    path's Step 3/4 boundary state."""
     out = out or sys.stdout
     staged = no_first or no_second or stage < 5
-    if outfmt == "paf" and not staged:
-        _not_ported("-p paf without -1, -2 or -S below 5")
     if outfmt not in ("ug", "sg", "bed", "paf"):
         raise ValueError("unknown output format %r" % outfmt)
     dev = get_device(device)
@@ -84,6 +90,23 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
             torch.cuda.synchronize(dev)
         LAST_TIMING[name] = time.time() - t0
 
+    emit = dict(opt=opt, stage=stage, outfmt=outfmt, fn_reads=fn_reads,
+                out=out, dev=dev, tick=tick)
+    if not staged and snapshot_dir and not no_cont and outfmt != "paf":
+        from .io.snapshot import load_graph_state
+
+        st = load_graph_state(snapshot_dir, paf_fn, opt, bi_dir=bi_dir)
+        if st is not None:
+            d, g, sub_s, sub_e, _sub_del = st
+            sys.stderr.write("[M::main] ===> Steps 1-3 restored from "
+                             "snapshot <===\n")
+            tick("snapshot")
+            if outfmt == "bed":
+                print_subs(d, sub_s, sub_e, out)
+                tick("print")
+                return None
+            sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
+            return _clean_and_print(g, d, sub_s, sub_e, **emit)
     excl = None
     if no_cont:
         from .io.paf import no_cont_prefilter
@@ -93,14 +116,13 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         excl = no_cont_prefilter(paf_fn, opt.min_span, opt.min_match,
                                  opt.max_hang, opt.int_frac)
         tick("no_cont")
-    emit = dict(opt=opt, stage=stage, outfmt=outfmt, fn_reads=fn_reads,
-                out=out, dev=dev, tick=tick)
     if staged:
         return _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit)
-    return _run_main(paf_fn, excl, bi_dir, emit)
+    return _run_main(paf_fn, excl, bi_dir, emit,
+                     None if no_cont else snapshot_dir)
 
 
-def _run_main(paf_fn, excl, bi_dir, emit):
+def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir):
     """The main path: Steps 2-3 fused on the device (select/fused2.py)."""
     from .io.native.pafload import load_hits_mt
     from .select.fused2 import select_build2
@@ -110,14 +132,16 @@ def _run_main(paf_fn, excl, bi_dir, emit):
     sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
     colmat, d, h3 = load_hits_mt(
         paf_fn, opt.min_span, opt.min_match, excl=excl, bi_dir=bi_dir,
-        min_iden=float(opt.min_iden), device=emit["dev"])
+        min_iden=float(opt.min_iden), device=emit["dev"],
+        retain_full=outfmt == "paf")
     tick("load+upload")
     log("hit_read", "read %d hits; stored %d hits and %d sequences (%d bp)",
         h3.n_lines, h3.n_mirror, d.n_seq,
         int(np.sum(d.lens_array(), dtype=np.uint64)))
 
     sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read selection <===\n")
-    arcs, md, counts = select_build2(colmat, d, opt, bi_dir=bi_dir)
+    arcs, md, counts = select_build2(colmat, d, opt, bi_dir=bi_dir,
+                                     paf_tables=outfmt == "paf")
     del colmat
     tick("select+fetch")
     n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_cont = counts[:6]
@@ -139,6 +163,10 @@ def _run_main(paf_fn, excl, bi_dir, emit):
         log("hit_contained", "%d sequences and %d hits remain after "
             "containment removal", int(np.sum(~d.del_array())), m_cont)
         print_subs(d, md["sub_s"], md["sub_e"], out)
+        tick("emit_done")
+        return None
+    if outfmt == "paf":
+        _print_paf(h3, d, md, m_cont, opt, out)
         tick("emit_done")
         return None
 
@@ -170,8 +198,58 @@ def _run_main(paf_fn, excl, bi_dir, emit):
         d, md["sub_s"], md["sub_e"], md["sub_del"], md["cont"],
         md["used"], md["pal"], arcs, m_hits=m_cont)
     tick("graph_build")
+    if snapshot_dir:
+        from .io.snapshot import save_graph_state
+
+        save_graph_state(snapshot_dir, paf_fn, opt, d, g, sub_s, sub_e,
+                         sub_del, bi_dir=bi_dir)
+        tick("snapshot")
     sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
     return _clean_and_print(g, d, sub_s, sub_e, **emit)
+
+
+def _print_paf(h3, d, md, m_cont, opt, out):
+    """-p paf on the main path (print_hits, main.c:21-30; JAX
+    pipeline.py:224-269): the C++ replay re-derives each surviving hit's
+    cut coordinates from the per-read trim tables in the exact sorted
+    mirrored order and writes to out's file descriptor, or through a
+    temporary file when out has none."""
+    alive = md["used"] & ~md["sub_del"] & ~md["cont"]
+    d.mark_deleted(~alive)
+    log("hit_contained", "%d sequences and %d hits remain after "
+        "containment removal", int(np.sum(alive)), m_cont)
+    tmpf = None
+    try:
+        out.flush()
+        fd = out.fileno()
+    except (OSError, AttributeError, io.UnsupportedOperation):
+        tmpf = tempfile.TemporaryFile()
+        fd = tmpf.fileno()
+    try:
+        printed = h3.print_paf(md["sub1"], md["sub2"], alive, opt.min_span,
+                               int(opt.max_hang * 1.5),
+                               int(opt.min_ovlp * 0.5), fd)
+        h3.free()
+        if printed < 0:
+            raise OSError("-p paf output write failed (disk full / broken "
+                          "pipe?); output is truncated")
+        if printed != m_cont:
+            sys.stderr.write("[W::main] -p paf replay printed %d hits, "
+                             "kernel counted %d\n" % (printed, m_cont))
+        if tmpf is not None:
+            tmpf.seek(0)
+            data = tmpf.read()
+            # the bytes as written: a latin-1 round trip through a text
+            # stream would change non-ASCII name bytes
+            buf = getattr(out, "buffer", None)
+            if buf is not None:
+                out.flush()
+                buf.write(data)
+            else:
+                out.write(data.decode("latin-1"))
+    finally:
+        if tmpf is not None:
+            tmpf.close()
 
 
 def _clean_and_print(g, d, sub_s, sub_e, *, opt, stage, outfmt, fn_reads,

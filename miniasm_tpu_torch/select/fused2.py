@@ -217,12 +217,14 @@ def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):
     return out[:3], out[3] != 0
 
 
-def select_build2(colmat, d, opt, *, bi_dir: bool):
+def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     """Run Steps 2-3 on colmat's device.  Returns (arcs, md, counts):
     arcs = numpy {u, v, l, ol, idx} in the stable hit-key order; md =
     numpy {sub_s, sub_e, sub_del, cont, used, pal, tot_dp, tot_len};
     counts = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc,
-    dup_hit]: counters 0-6 and 13 of the JAX program."""
+    dup_hit]: counters 0-6 and 13 of the JAX program.  paf_tables adds
+    md["sub1"] and md["sub2"], each pass's per-read (s, e, del) as int32,
+    int32, uint8 arrays, for the -p paf replay (HitsMt.print_paf)."""
     import time as _time
 
     from ..utils.timers import add_extra
@@ -339,7 +341,12 @@ def select_build2(colmat, d, opt, *, bi_dir: bool):
         tot_len])
     flags = (mdel.to(i32) | (cont.to(i32) << 1) | (used.to(i32) << 2)
              | (pal.to(i32) << 3))
-    meta = torch.stack([ms, me, flags])[:, :n_seq]
+    meta_rows = [ms, me, flags]
+    if paf_tables:
+        # the JAX program's s|del<<31 rows (fused2.py:506-514), unpacked
+        meta_rows += [tab1[0] & 0x7FFFFFFF, e1, d1.to(i32),
+                      tab2[0] & 0x7FFFFFFF, e2, d2.to(i32)]
+    meta = torch.stack(meta_rows)[:, :n_seq]
     add_extra("select.kernel_s", _time.time() - t0)
     t0 = _time.time()
     c = [int(x) for x in counts_t.cpu()]
@@ -359,6 +366,9 @@ def select_build2(colmat, d, opt, *, bi_dir: bool):
         "tot_dp": tot_dp,
         "tot_len": tot_len,
     }
+    if paf_tables:
+        for k, r in (("sub1", 3), ("sub2", 6)):
+            md[k] = (meta[r], meta[r + 1], meta[r + 2].astype(np.uint8))
     return arcs, md, c
 
 

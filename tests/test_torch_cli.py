@@ -1,10 +1,10 @@
 """The port's command line (miniasm_tpu_torch.cli) against the JAX
 package's on the same PAF: stdout must be byte-identical for -p ug, sg
 and bed (the staged flags are in test_torch_staged_cli.py, -f and -R in
-test_torch_flags.py, the oracle clean modes in test_torch_oracle.py).
-Also: the port imports neither JAX nor the JAX package, asks for the card
-by default and raises without one, and refuses the main path's -p paf,
-which it does not port yet."""
+test_torch_flags.py, the oracle clean modes in test_torch_oracle.py, the
+main path's -p paf in test_torch_paf.py, the snapshot in
+test_torch_snapshot.py).  Also: the port imports neither JAX nor the JAX
+package, and asks for the card by default and raises without one."""
 
 import io
 import json
@@ -72,11 +72,13 @@ def test_gz_stdin_and_empty_inputs(sim_noisy, tmp_path):
     assert run_port(["-p", "ug", empty])[:2] == (0, run_ours(["-p", "ug", empty]))
 
 
-def test_port_imports_no_jax(sim_small):
-    """A main-path run, a staged (-1) run, both oracle clean modes and -f
-    -R load no module of JAX or of the JAX package (exact names:
-    miniasm_tpu_torch shares the prefix)."""
+def test_port_imports_no_jax(sim_small, tmp_path):
+    """A main-path run, a staged (-1) run, -p paf, a snapshot save and
+    restore, both oracle clean modes and -f -R load no module of JAX or
+    of the JAX package (exact names: miniasm_tpu_torch shares the
+    prefix)."""
     paf, fa = sim_small["paf"], sim_small["fasta"]
+    snap = str(tmp_path / "snap")
     code = (
         "import io, json, os, sys\n"
         "from contextlib import redirect_stdout\n"
@@ -84,14 +86,17 @@ def test_port_imports_no_jax(sim_small):
         "with redirect_stdout(io.StringIO()):\n"
         "    rc = cli.main(['-p', 'ug', %r])\n"
         "    rc |= cli.main(['-1', '-p', 'ug', %r])\n"
+        "    rc |= cli.main(['-p', 'paf', %r])\n"
         "    rc |= cli.main(['-R', '-f', %r, %r])\n"
+        "    os.environ['MINIASM_TPU_SNAPSHOT'] = %r\n"
         "    for mode in ('native', 'py'):\n"
         "        os.environ['MINIASM_TPU_CLEAN'] = mode\n"
         "        rc |= cli.main(['-p', 'ug', %r])\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'miniasm_tpu.')))\n"
-        "print(json.dumps([rc, bad]))\n" % (paf, paf, fa, paf, paf))
+        "print(json.dumps([rc, bad]))\n" % (paf, paf, paf, fa, paf, snap,
+                                             paf))
     env = dict(os.environ, **{ENV: "cpu"})
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -113,10 +118,3 @@ def test_cuda_requested_without_card_raises(sim_small, monkeypatch):
     assert get_device("cpu").type == "cpu"
     rc, out, err = run_port(["-p", "ug", sim_small["paf"]], device="cuda")
     assert rc != 0 and out == "" and "no CUDA device" in err
-
-
-@pytest.mark.parametrize("args,flag", [(["-p", "paf"], "-p paf")])
-def test_unported_flags_are_refused(sim_small, args, flag):
-    rc, out, err = run_port(args + [sim_small["paf"]])
-    assert rc == 1 and out == ""
-    assert "not ported" in err and flag in err

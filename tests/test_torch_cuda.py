@@ -335,3 +335,143 @@ def test_empty_input_on_card(dev, tmp_path):
             run(paf, Opt(), outfmt="ug", out=buf, device=d, **kw)
             outs.append(buf.getvalue())
         assert outs[0] == outs[1]
+
+
+def _fmt3_piece(rng, n, runs):
+    """A flat FMT3 piece of n records: random coordinate words and flag
+    nibbles, `runs` run starts ascending from 0, the tail -1."""
+    m = n // 8
+    coords = rng.integers(-2**31, 2**31, 3 * n)
+    words = rng.integers(0, 2**32, m)
+    bp = np.full(m, -1, np.int64)
+    bp[:runs] = np.concatenate(
+        [[0], np.sort(rng.choice(np.arange(1, n), runs - 1, replace=False))])
+    bq = np.where(bp >= 0, rng.integers(0, 2**28, m), 0)
+    flat = np.concatenate([coords, words, bp, bq])
+    return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", ["sixteen", "padded", "full", "all_zero",
+                                  "large"])
+def test_decode3_kernel_matches_plain(dev, case):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.io.native import pafload
+
+    rng = np.random.default_rng(9)
+    n, runs = {"sixteen": (16, 2), "padded": (4096, 37),
+               "full": (4096, 512), "all_zero": (4096, 0),
+               "large": (1 << 19, 20_000)}[case]
+    flat = (np.zeros(3 * n + 3 * (n // 8), np.int32) if not runs
+            else _fmt3_piece(rng, n, runs))
+    before = cuda.launch_counts()["decode3"]
+    got = pafload.decode3(torch.from_numpy(flat).to(dev))
+    torch.cuda.synchronize()
+    assert cuda.launch_counts()["decode3"] == before + 1
+    want = pafload.decode3_plain(torch.from_numpy(flat))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_unpack4_kernel_matches_plain(dev):
+    from miniasm_tpu_torch.io.native import pafload
+
+    rng = np.random.default_rng(10)
+    packed = torch.from_numpy(rng.integers(0, 2**32, (4, 300_000))
+                              .astype(np.uint32).view(np.int32))
+    want = pafload.unpack4_plain(packed)
+    got = pafload.unpack4(packed.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    # 200,000 columns into the middle of a colmat, the rest untouched
+    out = torch.full((7, 500_000), -7, dtype=torch.int32, device=dev)
+    pafload.unpack4(packed.to(dev), 200_000, out, 123_457)
+    torch.cuda.synchronize()
+    o = out.cpu()
+    assert torch.equal(o[:, 123_457:323_457], want[:, :200_000])
+    assert (o[:, :123_457] == -7).all() and (o[:, 323_457:] == -7).all()
+
+
+def _ladder_paf(tmp_path, case):
+    """A PAF of one case of the loader's format ladder."""
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+
+    paf = str(tmp_path / ("%s.paf" % case))
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    if case == "shuffled":  # one run per record: the sideband overflows
+        import random
+
+        with open(paf) as f:
+            lines = f.readlines()
+        random.Random(36).shuffle(lines)
+        with open(paf, "w") as f:
+            f.writelines(lines)
+    elif case == "long":  # 17-bit coordinates in the last record
+        with open(paf, "a") as f:
+            f.write("ul_a\t90000\t10\t89000\t+\tul_b\t90000\t1000\t"
+                    "89990\t85000\t88990\t255\n")
+    return paf
+
+
+@pytest.mark.parametrize("case,fmt3", [("grouped", "1"), ("grouped", "0"),
+                                       ("shuffled", "1"), ("long", "1")])
+def test_loader_on_card_matches_cpu(dev, tmp_path, monkeypatch, case, fmt3):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.io.native import pafload
+
+    monkeypatch.setattr(pafload, "_CHUNK", 4096)  # several pieces
+    monkeypatch.setenv("MINIASM_TPU_FMT3", fmt3)
+    paf = _ladder_paf(tmp_path, case)
+    cols = {}
+    for d in ("cpu", "cuda"):
+        cuda.reset_launches()
+        c, _, h = pafload.load_hits_mt(paf, 2000, 100,
+                                       device=torch.device(d))
+        torch.cuda.synchronize()
+        cols[d] = c.cpu()
+        h.free()
+    assert torch.equal(cols["cuda"], cols["cpu"])
+    n = cuda.launch_counts()
+    pieces = -(-cols["cpu"].shape[1] // 1024)
+    if case == "grouped" and fmt3 == "1":
+        assert n["decode3"] == pieces and n["unpack4"] == pieces
+    elif case == "long":
+        assert n["decode3"] == n["unpack4"] == pieces - 1
+    else:
+        assert n["decode3"] == 0 and n["unpack4"] > 0
+
+
+@pytest.mark.parametrize("args", [["-p", "paf"], ["-R", "-p", "paf"],
+                                  ["-b", "-p", "paf"]],
+                         ids=lambda a: "".join(a))
+def test_main_path_paf_on_card_matches_cpu(dev, tmp_path, args):
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _ladder_paf(tmp_path, "grouped")
+    outs = {}
+    for d in ("cpu", "cuda"):
+        buf = io.StringIO()
+        run(paf, Opt(), outfmt="paf", out=buf, device=d,
+            no_cont="-R" in args, bi_dir="-b" not in args)
+        outs[d] = buf.getvalue()
+    assert outs["cuda"] == outs["cpu"] and outs["cpu"]
+
+
+def test_snapshot_restore_on_card(dev, tmp_path):
+    """The second run restores: no select or loader kernel launches, and
+    the bytes of the first."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _ladder_paf(tmp_path, "grouped")
+    snap = str(tmp_path / "snap")
+    outs = []
+    for _ in range(2):
+        cuda.reset_launches()
+        buf = io.StringIO()
+        run(paf, Opt(), out=buf, device="cuda", snapshot_dir=snap)
+        outs.append(buf.getvalue())
+    n = cuda.launch_counts()
+    assert outs[0] == outs[1] and outs[0]
+    assert all(n[k] == 0 for k in ("cut_hit2arc", "sweep", "decode3",
+                                   "unpack4"))

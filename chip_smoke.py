@@ -20,16 +20,25 @@ What it does, in order:
      second run restores and prints the first's bytes), and the loader's
      format switches: the clean PAF shuffled (random.Random(36); every
      piece rides the 4-row layout) and with one 90 kb overlap appended
-     (the stream ends in the 7-row layout);
+     (the stream ends in the 7-row layout); then the sharded path,
+     run_sharded on a one-rank NCCL group on both inputs (each must print
+     the bytes of its -p ug run), and the multi-process worker, two
+     processes on the one card over gloo on the noisy input (rank 0's GFA
+     must be noisy_ug's bytes);
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
-     run requires (EXPECT): K1-K4, K9 and K10 on the noisy main-path runs,
-     K2, K5 and K6 on the staged runs, K3, K7 and K8 on the oracle runs;
+     run requires (EXPECT, and MH_EXPECT for each worker process): K1-K4,
+     K9 and K10 on the noisy main-path runs, K2, K5 and K6 on the staged
+     runs, K3, K7 and K8 on the oracle runs, K11, K1-K4 on the sharded
+     runs;
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
-     each path), bit for bit, and times both with CUDA events;
-  5. runs the same commands with MINIASM_TPU_TORCH_DEVICE=cpu (the plain
-     versions only) and requires byte-identical stdout.
+     each path), bit for bit, and times both with CUDA events; K11 also
+     on an 8-way routing of the clean rows and on each worker process's
+     own repartition call (its inputs, saved by the process);
+  5. runs the same commands, and the sharded runs on a one-rank gloo
+     group, with MINIASM_TPU_TORCH_DEVICE=cpu (the plain versions only)
+     and requires byte-identical stdout.
 
 It prints one JSON line per kernel and one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {"platform": "gpu", ...}}.  Any
@@ -72,7 +81,7 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
 # another (pafread.cpp) and launches neither.
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
-         "decode3": ">0", "unpack4": "=decode3"}
+         "decode3": ">0", "unpack4": "=decode3", "route": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -87,7 +96,7 @@ def _staged(sweep, hit_cut, hit2arc, graph):
     return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
             "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
-            "dup_mark": 0, "decode3": 0, "unpack4": 0}
+            "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0}
 
 
 def _oracle(symm_calls):
@@ -120,7 +129,14 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           # the sideband overflows in the first piece: no FMT3 piece
           "shuffled_ug": dict(_CLEAN, decode3=0, unpack4=">0"),
           # below E. coli size the switch can come in the first piece
-          "long_ug": dict(_CLEAN, decode3="any")}
+          "long_ug": dict(_CLEAN, decode3="any"),
+          # the sharded runs: rank 0 loads on the host (7-row pieces,
+          # nothing to decode: no K9/K10); K11 once per sweep pass, then
+          # the main path's select and clean kernels
+          "sharded_ug": dict(_CLEAN, route=2, decode3=0, unpack4=0),
+          "sharded_ug_2": dict(_CLEAN, route=2, decode3=0, unpack4=0),
+          "sharded_ug_3": dict(_CLEAN, route=2, decode3=0, unpack4=0),
+          "sharded_noisy_ug": dict(_NOISY, route=2, decode3=0, unpack4=0)}
 EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
 # data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
@@ -133,7 +149,8 @@ AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
             ("noisy_py_sg", "dup_mark"): 5,
             ("noisy_R_ug", "trans_multi"): 19,
             ("noisy_s1_R_f_ug", "trans_multi"): 19,
-            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5}
+            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5,
+            ("sharded_noisy_ug", "trans_multi"): 19}
 for _tag, _want in EXPECT.items():
     if _want["decode3"] == ">0" and _tag != "noisy_R_ug":
         AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
@@ -144,7 +161,8 @@ RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
                  "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug",
                  "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
-                 "decode3": "ecoli_ug", "unpack4": "ecoli_ug"}
+                 "decode3": "ecoli_ug", "unpack4": "ecoli_ug",
+                 "route": "sharded_ug"}
 # the path whose calls each kernel's row times; a kernel reused on another
 # path gets a sub-row of its own there, with the launches of a run that
 # makes those calls: K2 in the staged hit_sub (crude and fine, both of
@@ -152,11 +170,24 @@ RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
 ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
             "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "staged",
             "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
-            "unpack4": "main"}
+            "unpack4": "main", "route": "sharded"}
+# a kernel whose row times one call, not the sum of its path's variants:
+# K11's largest call of the run of record (its other calls are listed as
+# cases beside it)
+ROW_CALL = {"route": ("sharded", "sharded_ug")}
+# each worker process of the multi-process run (rank -> launches): K11 for
+# the repartition and both sweep passes, K1 and K2 twice; rank 0 alone
+# cleans (without the group, as the JAX worker does)
+_MH = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
+       "decode3": 0, "unpack4": 0, "route": 3, "cut_hit2arc": 2, "sweep": 2}
+MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0"),
+             1: dict(_MH, trans_multi=0, bubble_bfs=0)}
+MH_PROCS = len(MH_EXPECT)
 REUSE = {"sweep": ("hit_sub", "staged", "ecoli_S4_bed"),
          "trans_multi": ("del_trans", "oracle", "noisy_native_ug")}
-# the path of the run being driven; the recorders key each call by it
-PATH = {"now": "main"}
+# the path and tag of the run being driven; the recorders key each call
+# by them
+PATH = {"now": "main", "tag": ""}
 
 
 def _say(msg: str) -> None:
@@ -252,8 +283,8 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None
     return buf.getvalue(), err.getvalue(), dt, stages, launches
 
 
-def _check_launches(tag: str, launches: dict) -> None:
-    for name, want in EXPECT[tag].items():
+def _check_launches(tag: str, launches: dict, expect=None) -> None:
+    for name, want in (expect or EXPECT[tag]).items():
         got = launches[name]
         if want == "any":
             continue
@@ -363,6 +394,12 @@ def _cost(name, args, kw, out):
         n = out.shape[1]
         # 4 words in, 7 out; shifts and masks
         return 4 * 4 * n + _nbytes(out), 8 * n
+    if name == "route":
+        dest, payload = args[0].dest, args[1]
+        # per row: the destination's match and popcount rank (about 10
+        # integer ops) and R stores
+        return (_nbytes(dest, payload) + _nbytes(out),
+                (10 + payload.shape[0]) * dest.numel())
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -418,14 +455,17 @@ def _seeded_dup_input(n: int):
     return torch.sort(torch.from_numpy(key).cuda(), stable=True)
 
 
-def _kernel_phase(recs, runs):
-    """Kernel vs plain version on the recorded inputs of the runs.  Each
-    kernel's row times the calls of its own path (ROW_PATH); a kernel
-    reused on another path gets a sub-row there (REUSE)."""
+def _kernel_phase(recs, runs, cases):
+    """Kernel vs plain version on the recorded inputs of the runs, and on
+    the extra calls `cases` ({kernel: {key: (args, kw)}}).  Each kernel's
+    row times the calls of its own path (ROW_PATH), or one call
+    (ROW_CALL); a kernel reused on another path gets a sub-row there
+    (REUSE)."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.core import hit2arc as h2a
     from miniasm_tpu_torch.graph import clean, devbub, devclean
     from miniasm_tpu_torch.io.native import pafload
+    from miniasm_tpu_torch.parallel import route as rt
     from miniasm_tpu_torch.select import cut, fused2
     from miniasm_tpu_torch.utils import arrays
 
@@ -438,10 +478,12 @@ def _kernel_phase(recs, runs):
              "hit_cut": cut.hit_cut_plain,
              "hit2arc": h2a.hit2arc_rows_plain,
              "key_member": arrays.key_member_plain,
-             "dup_mark": clean.dup_mark_plain}
+             "dup_mark": clean.dup_mark_plain,
+             "route": rt.route_plain}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
             "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
-            "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50}
+            "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50,
+            "route": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
@@ -450,13 +492,22 @@ def _kernel_phase(recs, runs):
         if name == "dup_mark" and calls:
             n = max(c[1][0].numel() for c in calls.values())
             calls[("seeded", "dups")] = (0, _seeded_dup_input(n), {})
+        for key, (args, kw) in cases.get(name, {}).items():
+            calls[key] = (0, args, kw)
+        fn = rec.orig
         measured = {}
         for key, (_size, args, kw) in sorted(calls.items(),
                                              key=lambda x: str(x[0])):
             if name == "unpack4":
                 # (piece, n): the kernel into a new (7, n) colmat
                 args = args[:2]
-            m = _measure(name, rec.orig, plain[name], args, kw, reps[name])
+            m = _measure(name, fn, plain[name], args, kw, reps[name])
+            if name == "route":
+                # the call's Layout: its histogram and the read-back, paid
+                # once per destination vector
+                lay = args[0]
+                m["layout_ms"] = _time_ms(
+                    lambda: rt.Layout(lay.dest, lay.n_sh), reps[name])
             if m["err"] != 0.0:
                 _fail("kernel %s[%s] disagrees with its plain version "
                       "(max abs err %r)" % (name, key, m["err"]))
@@ -464,6 +515,9 @@ def _kernel_phase(recs, runs):
                 _fail("dup_mark: the seeded input has no duplicate")
             measured[key] = m
         own = [m for k, m in measured.items() if k[0] == ROW_PATH[name]]
+        if name in ROW_CALL:
+            own = [measured[ROW_CALL[name]]] if ROW_CALL[name] in measured \
+                else []
         if not own:
             _fail("kernel %s: the %s runs recorded no call"
                   % (name, ROW_PATH[name]))
@@ -477,6 +531,11 @@ def _kernel_phase(recs, runs):
                "max_abs_err": max(m["err"] for m in measured.values())}
         row.update(_sum(own))
         row["calls_timed"] = len(own)
+        if name in ROW_CALL:
+            row["layout_ms"] = own[0]["layout_ms"]
+            row["cases"] = {"/".join(k): dict(
+                _sum([m]), layout_ms=m["layout_ms"], shapes=m["shapes"])
+                for k, m in measured.items()}
         if name in REUSE:
             sub, path, run = REUSE[name]
             parts = [m for k, m in measured.items() if k[0] == path]
@@ -490,6 +549,119 @@ def _kernel_phase(recs, runs):
         _say("kernel " + json.dumps(row))
         rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the sharded path and the multi-process worker
+
+def _group(device: str, rdv_dir: str):
+    """A one-rank group on `device` (NCCL on the card, gloo on the CPU)
+    around a file:// rendezvous, warmed by one all_reduce; returns
+    (group, seconds to set it up)."""
+    from miniasm_tpu_torch.parallel import group
+
+    t0 = time.time()
+    shutil.rmtree(rdv_dir, ignore_errors=True)
+    os.makedirs(rdv_dir)
+    g = group.init(0, 1, "file://" + os.path.join(rdv_dir, "rdv_" + device),
+                   device=device)
+    g.all_reduce(torch.zeros(1, device=g.device))
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    return g, time.time() - t0
+
+
+def _sharded(paf: str, device: str) -> tuple[str, str, float, dict, dict]:
+    """One run_sharded on the current group, as _cli runs the CLI."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.parallel import full
+    from miniasm_tpu_torch.utils import timers
+
+    buf, err = io.StringIO(), io.StringIO()
+    timers.EXTRA.clear()
+    cuda.reset_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        full.run_sharded(paf, Opt(), out=buf)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = cuda.launch_counts()
+    stages = dict(full.LAST_TIMING)
+    stages.update({"extra." + k: v for k, v in timers.EXTRA.items()})
+    return buf.getvalue(), err.getvalue(), dt, stages, launches
+
+
+def _multihost(paf: str, mdir: str) -> dict:
+    """Two worker processes of miniasm_tpu_torch.parallel.multihost on the
+    one card over gloo; returns rank 0's GFA, the wall and each process's
+    stats (launches, stage times)."""
+    from miniasm_tpu_torch.device import ENV
+
+    procs = MH_PROCS
+    shutil.rmtree(mdir, ignore_errors=True)
+    os.makedirs(mdir)
+    env = dict(os.environ)
+    env.pop(ENV, None)  # the card
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.time()
+    ps = [subprocess.Popen(
+        [sys.executable, "-m", "miniasm_tpu_torch.parallel.multihost",
+         "--coordinator", "file://" + os.path.join(mdir, "rdv"),
+         "--num-procs", str(procs), "--proc-id", str(k), "--backend",
+         "gloo", "--out", os.path.join(mdir, "p%d.gfa" % k),
+         "--stats", os.path.join(mdir, "p%d.json" % k), paf],
+        env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for k in range(procs)]
+    errs = []
+    try:
+        for p in ps:
+            errs.append(p.communicate(timeout=900)[1])
+    finally:
+        for p in ps:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.time() - t0
+    for k, (p, e) in enumerate(zip(ps, errs)):
+        if p.returncode != 0:
+            sys.stderr.write(e[-3000:])
+            _fail("multihost process %d exited %d" % (k, p.returncode))
+    stats = []
+    for k in range(procs):
+        with open(os.path.join(mdir, "p%d.json" % k)) as f:
+            stats.append(json.load(f))
+    with open(os.path.join(mdir, "p0.gfa")) as f:
+        out = f.read()
+    return {"out": out, "wall_s": dt, "stats": stats}
+
+
+def _route_cases(paf: str, mdir: str) -> dict:
+    """K11's calls beyond the recorded ones: an 8-way routing of the clean
+    rows (dest = tid // ceil(n_seq / 8), self matches dropped, the four
+    payload rows of the sweep exchange), and each worker process's
+    repartition, on the inputs the process saved (--stats)."""
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.io.native.pafload import load_hits_mt
+    from miniasm_tpu_torch.parallel import full, route as rt
+    from miniasm_tpu_torch.parallel.group import block_size
+
+    opt = Opt()
+    cm, d, h = load_hits_mt(paf, opt.min_span, opt.min_match,
+                            min_iden=float(opt.min_iden), upload=False)
+    h.free()
+    cm = cm.cuda()
+    qid, tid = cm[0], cm[3]
+    dest = full._owner_of(tid, block_size(d.n_seq, 8), 8, qid != tid)
+    pay = torch.stack([tid, cm[4], cm[5], cm[6]]).contiguous()
+    cases = {("cases", "ecoli_8way"): ((rt.Layout(dest, 8), pay), {})}
+    for k in range(MH_PROCS):
+        x = torch.load(os.path.join(mdir, "p%d.json.route.pt" % k))
+        cases[("cases", "multihost_rank%d_repart" % k)] = (
+            (rt.Layout(x["dest"].cuda(), x["n_sh"]), x["payload"].cuda()),
+            {})
+    return {"route": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -515,12 +687,14 @@ def main(argv=None) -> int:
     from miniasm_tpu_torch.graph import clean, devbub, devclean
     from miniasm_tpu_torch.io.native import pafload
     from miniasm_tpu_torch.io.native.build import get_lib
+    from miniasm_tpu_torch.parallel import full as pfull, group
     from miniasm_tpu_torch.select import cut, fused2
     from miniasm_tpu_torch.utils import arrays
 
     if a.genome == ECOLI_BP:
         for (tag, name), want in AT_ECOLI.items():
             EXPECT[tag][name] = want
+        MH_EXPECT[0]["trans_multi"] = 19
     report: dict = {}
     smi = _smi()
     _say(smi)
@@ -629,7 +803,15 @@ def main(argv=None) -> int:
     # and so do the snapshot runs
     same_as = {"noisy_native_ug": "noisy_ug", "noisy_py_sg": "noisy_sg",
                "ecoli_snap_ug": "ecoli_ug",
-               "ecoli_snap_ug_restore": "ecoli_ug"}
+               "ecoli_snap_ug_restore": "ecoli_ug",
+               "sharded_ug": "ecoli_ug", "sharded_ug_2": "ecoli_ug",
+               "sharded_ug_3": "ecoli_ug", "sharded_noisy_ug": "noisy_ug"}
+    # the sharded runs (a one-rank group: NCCL on the card, gloo on the
+    # CPU), each printing the bytes of its -p ug run; the clean set three
+    # times for the spread, the repeats on the card only
+    sharded = [("sharded_ug", paf), ("sharded_ug_2", paf),
+               ("sharded_ug_3", paf), ("sharded_noisy_ug", noisy)]
+    rdv = os.path.join(ddir, "rendezvous")
 
     def snapshot_of(tag, device):
         return snap[device] if tag.startswith("ecoli_snap") else None
@@ -666,14 +848,16 @@ def main(argv=None) -> int:
             Recorder(pafload, "decode3", on_path(lambda a_, k: "all")),
             # the largest piece: the most columns unpacked
             Recorder(pafload, "unpack4", on_path(lambda a_, k: "all"),
-                     size_fn=lambda a_, k: a_[1])]
+                     size_fn=lambda a_, k: a_[1]),
+            # K11: the largest call of each run
+            Recorder(pfull, "route", on_path(lambda a_, k: PATH["tag"]))]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
             st.enter_context(r)
         for tag, args, mode, path in plan:
             k3.stat = 0
-            PATH["now"] = path
+            PATH["now"], PATH["tag"] = path, tag
             out, err, dt, stages, launches = _cli(
                 args, "cuda", mode, snapshot_of(tag, "cuda"))
             if path == "snapshot":
@@ -693,6 +877,47 @@ def main(argv=None) -> int:
                 _fail("%s printed nothing" % tag)
             if "-f" in args:
                 _check_sequences(tag, out)
+        g, t_group = _group("cuda", rdv)
+        _say("[card] one-rank group: %s on %s, %.3f s (init and a first "
+             "all_reduce)" % (g.backend, g.device, t_group))
+        try:
+            for tag, src in sharded:
+                k3.stat = 0
+                PATH["now"], PATH["tag"] = "sharded", tag
+                out, err, dt, stages, launches = _sharded(src, "cuda")
+                runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
+                             "launches": launches, "k3_max_row": k3.stat,
+                             "clean": "hybrid", "path": "sharded",
+                             "gfa": _gfa_summary(out)}
+                _say("[card] %s: %.3f s, %d bytes, %s; launches %s; K3 "
+                     "largest row %d; stages %s"
+                     % (tag, dt, len(out), json.dumps(runs[tag]["gfa"]),
+                        json.dumps(launches), k3.stat, json.dumps(stages)))
+                _check_launches(tag, launches)
+        finally:
+            group.destroy()
+    report["group_init_s"] = t_group
+
+    # --- 3b. the multi-process worker: two processes on the one card,
+    #     over gloo (NCCL refuses two ranks on one card) ---
+    mh = _multihost(noisy, os.path.join(ddir, "multihost"))
+    for k, st in enumerate(mh["stats"]):
+        _say("[card] multihost_noisy_ug rank %d (%s, %s): launches %s; "
+             "stages %s" % (k, st["device"], st["backend"],
+                            json.dumps(st["launches"]),
+                            json.dumps(st["stages_s"])))
+        if sorted(st["launches"]) != sorted(cuda.launch_counts()):
+            _fail("multihost_noisy_ug rank %d counts the kernels %s, the "
+                  "package has %s" % (k, sorted(st["launches"]),
+                                      sorted(cuda.launch_counts())))
+        _check_launches("multihost_noisy_ug rank %d" % k, st["launches"],
+                        MH_EXPECT[k])
+    if mh["out"] != runs["noisy_ug"]["out"]:
+        _fail("multihost_noisy_ug: rank 0 printed other bytes than noisy_ug")
+    _say("[card] multihost_noisy_ug: 2 processes, %.3f s from start to "
+         "exit; rank 0's GFA is noisy_ug's bytes" % mh["wall_s"])
+    runs["multihost_noisy_ug"] = {"wall_s": mh["wall_s"],
+                                  "stats": mh["stats"], "path": "multihost"}
     for tag in ("ecoli_ug", "ecoli_ug_2", "ecoli_ug_3"):
         if runs[tag]["out"] != runs["ecoli_ug_cold"]["out"]:
             _fail("two card runs on one input differ")
@@ -709,7 +934,8 @@ def main(argv=None) -> int:
               % (longest, a.genome))
 
     # --- 4. kernels against their plain versions ---
-    rows = _kernel_phase(recs, runs)
+    rows = _kernel_phase(recs, runs, _route_cases(
+        paf, os.path.join(ddir, "multihost")))
 
     # --- 5. the same commands on the CPU ---
     for tag, args, mode, path in plan:
@@ -724,6 +950,21 @@ def main(argv=None) -> int:
         runs[tag]["cpu_wall_s"] = dt
         if not same:
             _fail("%s: card and CPU outputs differ" % tag)
+    g, _ = _group("cpu", rdv)
+    try:
+        for tag, src in sharded:
+            if tag[-2:] in ("_2", "_3"):
+                continue
+            out, err, dt, _, _ = _sharded(src, "cpu")
+            same = out == runs[tag]["out"]
+            _say("[cpu] %s (%s): %.3f s, stdout %s the card's"
+                 % (tag, g.backend, dt,
+                    "identical to" if same else "DIFFERS from"))
+            runs[tag]["cpu_wall_s"] = dt
+            if not same:
+                _fail("%s: card and CPU outputs differ" % tag)
+    finally:
+        group.destroy()
 
     if a.json:
         for r in runs.values():

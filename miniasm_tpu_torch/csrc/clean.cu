@@ -17,6 +17,11 @@
 // reads of arc rows (L2-resident at these graph sizes) plus O(deg^2) shared
 // compares per row; with ~40 K rows of ~10-60 slots it is a few MB of reads
 // and is bound by latency and the serial slot loop, not by bytes.
+//
+// A launch covers the rows [row0, row0 + n_rows) and writes the bits of
+// their arcs, from arc first[row0] on, into out[0..]: the sharded clean
+// gives each rank one block of rows (the JAX kernel's row-sharded tables,
+// devclean.py:167-172); the neighbour rows are read from the whole table.
 #include "common.cuh"
 
 namespace {
@@ -25,11 +30,12 @@ __global__ void trans_multi_kernel(const int64_t* __restrict__ first,
                                    const int32_t* __restrict__ av,
                                    const int32_t* __restrict__ al,
                                    const uint8_t* __restrict__ sdel_v,
-                                   int32_t fuzz, int do_trans,
-                                   uint8_t* __restrict__ bits) {
+                                   int64_t row0, int32_t fuzz, int do_trans,
+                                   uint8_t* __restrict__ out) {
     extern __shared__ int32_t smem[];
-    const int64_t r = blockIdx.x;
+    const int64_t r = row0 + blockIdx.x;
     const int64_t s = first[r];
+    const int64_t base = first[row0];
     const int nv = static_cast<int>(first[r + 1] - s);
     if (nv == 0) return;
     int32_t* v = smem;
@@ -72,7 +78,7 @@ __global__ void trans_multi_kernel(const int64_t* __restrict__ first,
                     multi = true;
                     break;
                 }
-        bits[s + j] = (elim ? 1 : 0) | (multi ? 2 : 0);
+        out[s - base + j] = (elim ? 1 : 0) | (multi ? 2 : 0);
     }
 }
 
@@ -80,8 +86,8 @@ __global__ void trans_multi_kernel(const int64_t* __restrict__ first,
 
 extern "C" int ma_trans_multi(const int64_t* first, const int32_t* av,
                               const int32_t* al, const uint8_t* sdel_v,
-                              int64_t n_vtx, int max_deg, int fuzz,
-                              int do_trans, uint8_t* bits,
+                              int64_t row0, int64_t n_rows, int max_deg,
+                              int fuzz, int do_trans, uint8_t* bits,
                               cudaStream_t stream) {
     const size_t smem = static_cast<size_t>(max_deg) * 3 * sizeof(int32_t);
     if (smem > 48 * 1024) {
@@ -90,8 +96,8 @@ extern "C" int ma_trans_multi(const int64_t* first, const int32_t* av,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    trans_multi_kernel<<<static_cast<unsigned int>(n_vtx), 128, smem,
-                         stream>>>(first, av, al, sdel_v, fuzz, do_trans,
-                                   bits);
+    trans_multi_kernel<<<static_cast<unsigned int>(n_rows), 128, smem,
+                         stream>>>(first, av, al, sdel_v, row0, fuzz,
+                                   do_trans, bits);
     return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,9 @@ reference's next pass scans.
 Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), one block per
 vertex row over the CSR arc list; steps 3-6 are torch ops on the same
 per-arc columns.  The host applies the masks and commits the candidates in
-reference order (graph/hybrid.py).
+reference order (graph/hybrid.py).  Under a process group (the sharded
+path) every rank runs K3 on its block of vertex rows (detect(group=),
+follow, release).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .asg import Graph
 # _clean_kernel stage A (l.179-225): transitive-reduction and multi-arc marks
 K_TRANS = Kernel(
     "trans_multi", "clean.cu", "ma_trans_multi",
-    [P, P, P, P, I64, I32, I32, I32, P],
+    [P, P, P, P, I64, I64, I32, I32, I32, P],
     replaces="miniasm_tpu/graph/devclean.py:143")
 
 # compare-tensor budget of the plain version: rows * D * D bools per chunk
@@ -98,15 +100,19 @@ def _ratio_schedule(opt):
 
 
 def trans_multi_plain(first, av, al, sdel_v, D: int, fuzz: int,
-                      do_trans: bool):
+                      do_trans: bool, rows=None):
     """Plain PyTorch version of the trans_multi kernel, the JAX program's
     table form: scatter the CSR rows into (V, D) tables, run the slot loop
     vectorized over rows, then the multi-arc compare.  Returns (A,) uint8
-    bits: bit0 eliminated, bit1 multi-arc."""
+    bits: bit0 eliminated, bit1 multi-arc; with rows = (r0, r1) only the
+    bits of the arcs of rows r0..r1-1."""
     dev = av.device
     i32 = torch.int32
     V = first.shape[0] - 1
     A = av.shape[0]
+    r0, r1 = rows if rows is not None else (0, V)
+    in_rows = torch.zeros(V, dtype=torch.bool, device=dev)
+    in_rows[r0:r1] = True
     nv = (first[1:] - first[:-1]).to(i32)
     au = torch.repeat_interleave(torch.arange(V, device=dev), nv.long())
     slots = torch.arange(A, device=dev) - first[:-1][au]
@@ -121,16 +127,16 @@ def trans_multi_plain(first, av, al, sdel_v, D: int, fuzz: int,
         last = (nv - 1).clamp(min=0).long()
         bound = torch.where(
             nv > 0, nbr_l.gather(1, last[:, None])[:, 0] + fuzz, 0)
-        active = (nv > 0) & (sdel_v == 0)
+        active = (nv > 0) & (sdel_v == 0) & in_rows
         mark = torch.where(in_table & active[:, None], 1, 0).to(torch.int8)
         step = max(_CHUNK_ELEMS // D // D, 1)
         for i in range(D):
             # slot i is scanned only while still in play (earlier slots'
             # demotions count), so the slots run in order
-            rows = torch.nonzero(active & (i < nv)
+            scan = torch.nonzero(active & (i < nv)
                                  & (mark[:, i] == 1)).flatten()
-            for c0 in range(0, rows.shape[0], step):
-                r = rows[c0:c0 + step]
+            for c0 in range(0, scan.shape[0], step):
+                r = scan[c0:c0 + step]
                 wi = nbr_v[r, i].long()
                 wn_v = nbr_v[wi]
                 # the neighbour's row sorted by length: the <= bound mask
@@ -147,22 +153,26 @@ def trans_multi_plain(first, av, al, sdel_v, D: int, fuzz: int,
     multi = torch.zeros((V, D), dtype=torch.bool, device=dev)
     step = max(_CHUNK_ELEMS // D // D, 1)
     earlier = slot[None, :] < slot[:, None]  # [j, j2]: j2 before j
-    for c0 in range(0, V, step):
-        cv = nbr_v[c0:c0 + step]
-        lv = live[c0:c0 + step]
+    for c0 in range(r0, r1, step):
+        c1 = min(c0 + step, r1)
+        cv = nbr_v[c0:c1]
+        lv = live[c0:c1]
         eq = cv[:, :, None] == cv[:, None, :]
-        multi[c0:c0 + step] = (eq & earlier[None] & lv[:, None, :]).any(2) \
-            & lv
+        multi[c0:c1] = (eq & earlier[None] & lv[:, None, :]).any(2) & lv
     bits = elim.to(torch.uint8) | (multi.to(torch.uint8) << 1)
-    return bits[au, slots].contiguous()
+    a0, a1 = int(first[r0]), int(first[r1])
+    return bits[au[a0:a1], slots[a0:a1]].contiguous()
 
 
-def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool):
+def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool,
+                rows=None):
     """K3.  first (V+1,) int64 CSR offsets; av/al (A,) int32 targets and
     lengths (rows sorted by length); sdel_v (V,) uint8.  Returns (A,) uint8
-    [bit0 transitively reduced, bit1 multi-arc]."""
+    [bit0 transitively reduced, bit1 multi-arc]; with rows = (r0, r1) the
+    bits of the arcs of rows r0..r1-1 only (first[r0]..first[r1])."""
     if av.device.type == "cpu":
-        return trans_multi_plain(first, av, al, sdel_v, D, fuzz, do_trans)
+        return trans_multi_plain(first, av, al, sdel_v, D, fuzz, do_trans,
+                                 rows)
     if first.dtype != torch.int64 or av.dtype != torch.int32 \
             or al.dtype != torch.int32 or sdel_v.dtype != torch.uint8:
         raise TypeError("trans_multi: int64 offsets, int32 arcs, uint8 "
@@ -172,18 +182,64 @@ def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool):
                          "kernel's shared memory (at most %d)"
                          % (D, _SMEM_MAX // 12))
     V = first.shape[0] - 1
-    bits = torch.empty(av.shape[0], dtype=torch.uint8, device=av.device)
-    if av.shape[0]:
-        K_TRANS(ptr(first), ptr(av), ptr(al), ptr(sdel_v), V, int(D),
-                int(fuzz), 1 if do_trans else 0, ptr(bits))
+    r0, r1 = rows if rows is not None else (0, V)
+    a0, a1 = (0, av.shape[0]) if rows is None else \
+        (int(first[r0]), int(first[r1]))
+    bits = torch.empty(a1 - a0, dtype=torch.uint8, device=av.device)
+    if a1 > a0:
+        K_TRANS(ptr(first), ptr(av), ptr(al), ptr(sdel_v), r0, r1 - r0,
+                int(D), int(fuzz), 1 if do_trans else 0, ptr(bits))
     return bits
 
 
+def _stage_a(group, first, av, al, sdel_v, D, fuzz, do_trans):
+    """K3 on this rank's block of vertex rows; an all_gather joins the
+    ranks' arc bits in row order."""
+    V = first.shape[0] - 1
+    blocks = [group.block(V, k) for k in range(group.size)]
+    f = first.cpu()
+    sizes = [int(f[r1] - f[r0]) for r0, r1 in blocks]
+    bits = trans_multi(first, av, al, sdel_v, D, fuzz, do_trans,
+                       rows=blocks[group.rank])
+    return torch.cat(group.all_gather_cols(bits, sizes=sizes))
+
+
+def follow(group) -> None:
+    """The other ranks' side of a sharded clean (rank 0 runs the cleaner
+    and calls detect(group=)): for each detection rank 0 announces, take
+    its arc table and run K3 on this rank's block of rows, until rank 0
+    calls release()."""
+    dev = group.device
+    while True:
+        head = group.broadcast_object()
+        if head is None:
+            return
+        V, A, D, fuzz, do_trans = head
+        first = group.broadcast(torch.empty(V + 1, dtype=torch.int64,
+                                            device=dev))
+        av = group.broadcast(torch.empty(A, dtype=torch.int32, device=dev))
+        al = group.broadcast(torch.empty(A, dtype=torch.int32, device=dev))
+        sdel_v = group.broadcast(torch.empty(V, dtype=torch.uint8,
+                                             device=dev))
+        _stage_a(group, first, av, al, sdel_v, D, fuzz, do_trans)
+
+
+def release(group) -> None:
+    """Rank 0: end the other ranks' follow()."""
+    group.broadcast_object(None)
+
+
 def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
-           device: torch.device = torch.device("cpu")) -> dict:
+           device: torch.device = torch.device("cpu"), group=None) -> dict:
     """Run detection on the current graph.  Returns a dict with per-arc
     masks (numpy (n_arc,) bool in CSR arc order), candidate vertex masks
-    ((n_vtx,) bool), and counters."""
+    ((n_vtx,) bool), and counters.
+
+    With a group (the counterpart of the JAX detect(mesh=), devclean.py:
+    341-386), rank 0 calls this while the other ranks run follow(): every
+    rank runs K3 stage A on its block of vertex rows of the table rank 0
+    broadcasts, and an all_gather joins the arc bits; the rest of the
+    detection runs on rank 0."""
     import time as _time
 
     from ..utils.timers import add_extra
@@ -195,8 +251,15 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
     V, A = c["V"], g.n_arc
     dev = device
     i64 = torch.int64
-    bits = trans_multi(c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
-                       int(opt.gap_fuzz), do_trans)
+    args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
+            int(opt.gap_fuzz), do_trans)
+    if group is None or A == 0:
+        bits = trans_multi(*args)
+    else:
+        group.broadcast_object((V, A, c["D"], int(opt.gap_fuzz), do_trans))
+        for t in args[:4]:
+            group.broadcast(t)
+        bits = _stage_a(group, *args)
     elim = (bits & 1) != 0
     multi = (bits & 2) != 0
     live1 = ~elim & ~multi

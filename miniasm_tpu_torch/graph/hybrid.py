@@ -108,21 +108,24 @@ class _Cleaner:
     mutations."""
 
     def __init__(self, g: Graph, opt, do_trans: bool,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"), group=None):
         self.g = g
         self.opt = opt
         self.device = device
+        self.group = group  # detection shared with the group's ranks
         # symm_mode: whether detection chains candidate masks through the
         # multi/asymm live set.  True except in the rare trans==0 window
         # where the reference leaves the graph unsymmetrized (see
         # devclean._clean_kernel's do_symm).
         self.symm_mode = True
-        self.det = devclean.detect(g, opt, do_trans=do_trans, device=device)
+        self.det = devclean.detect(g, opt, do_trans=do_trans, device=device,
+                                   group=group)
         self.trans_done = not do_trans
 
     def redetect(self):
         self.det = devclean.detect(self.g, self.opt, do_trans=False,
-                                   do_symm=self.symm_mode, device=self.device)
+                                   do_symm=self.symm_mode, device=self.device,
+                                   group=self.group)
 
     # ---- order-independent mask application ----
 
@@ -384,11 +387,15 @@ class _Cleaner:
 
 
 def clean_graph(g: Graph, opt, stage: int,
-                device: torch.device = torch.device("cpu")) -> Graph:
-    """Steps 4.1-4.5 (main.c:156-188) over the device-detection driver."""
+                device: torch.device = torch.device("cpu"),
+                group=None) -> Graph:
+    """Steps 4.1-4.5 (main.c:156-188), every pass detected on the device.
+    With a process group (rank 0 calls this; the others run
+    devclean.follow), every detection runs K3 on every rank's block of
+    vertex rows, as the JAX clean_graph(mesh=) row-shards its tables."""
     import sys
 
-    cl = _Cleaner(g, opt, do_trans=stage >= 6, device=device)
+    cl = _Cleaner(g, opt, do_trans=stage >= 6, device=device, group=group)
     if stage >= 6:
         sys.stderr.write("[M::main] ===> Step 4.1: transitive reduction <===\n")
         n = cl.apply_trans()

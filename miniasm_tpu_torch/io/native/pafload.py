@@ -167,6 +167,7 @@ def _bind(lib):
                                      ctypes.c_int64, ctypes.c_int64,
                                      ctypes.POINTER(ctypes.c_int64)]
     lib.ma_mt_retain_full.argtypes = [ctypes.c_void_p]
+    lib.ma_mt_seed_carry.argtypes = [ctypes.c_void_p, ctypes.c_int64]
     lib.ma_mt_print_paf.restype = ctypes.c_int64
     lib.ma_mt_print_paf.argtypes = [ctypes.c_void_p, i32p, i32p, u8p, i32p,
                                     i32p, u8p, u8p, ctypes.c_int64,
@@ -361,11 +362,16 @@ class _Uploader:
 
 def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
                  min_iden=0.05, device=torch.device("cpu"), n_workers=2,
-                 retain_full=False):
+                 retain_full=False, carry_seed=None, upload=True):
     """Parse `fn` with the pipelined loader and build the (7, n) int32
     colmat of the unmirrored originals on `device` through the format
     ladder above; lines naming a read of `excl` are dropped.  With
-    retain_full the C++ state keeps every column for HitsMt.print_paf.
+    upload=False the colmat stays on the host whatever `device`, parsed
+    straight into 7-row pieces (nothing to decode), as the host-side
+    consumers want it (the sharded paths partition it by owner first).
+    With retain_full the C++ state keeps every column for HitsMt.print_paf.
+    carry_seed is the bl a leading 10-field line takes (the file is a byte
+    range of a larger PAF: the bl of the last 11-field line before it).
     Returns (colmat, SeqDict, HitsMt)."""
     from .build import get_lib
 
@@ -388,10 +394,15 @@ def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
     i32p = ctypes.POINTER(ctypes.c_int32)
     f3_words = 3 * sz + 3 * (sz // 8)
     try:
+        if carry_seed is not None:
+            # before the first piece is pulled (paf.c:56-60 across a split)
+            lib.ma_mt_seed_carry(res, int(carry_seed))
         if retain_full:
             lib.ma_mt_retain_full(res)
-        up = _Uploader(torch.device(device), 7 * sz)
+        up = _Uploader(torch.device(device if upload else "cpu"), 7 * sz)
         fmt = 4 if os.environ.get("MINIASM_TPU_FMT3") == "0" else 3
+        if not upload:
+            fmt = 7
         while True:
             buf = up.buffer()
             p = ctypes.cast(buf.data_ptr(), i32p)

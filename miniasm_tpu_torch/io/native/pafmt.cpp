@@ -553,6 +553,15 @@ MtState* ma_mt_begin(const char* fn, int64_t min_span, int64_t min_match,
     return st;
 }
 
+// Seed the 10-field bl carry (paf.c:56-60 reuses the previous line's bl)
+// for range-split multi-process reads: the value of the nearest complete
+// 11-field line BEFORE this process's byte range.  Must be called between
+// ma_mt_begin and the first ma_mt_next/ma_mt_next3/ma_mt_next4 (the carry
+// is consumed only on the consumer thread, so no lock is needed there).
+void ma_mt_seed_carry(MtState* st, int64_t bl) {
+    st->carry_bl = static_cast<uint32_t>(bl);
+}
+
 }  // extern "C" (reopened after the template below)
 
 namespace {

@@ -253,9 +253,11 @@ def _print_paf(h3, d, md, m_cont, opt, out):
 
 
 def _clean_and_print(g, d, sub_s, sub_e, *, opt, stage, outfmt, fn_reads,
-                     out, dev, tick):
+                     out, dev, tick, group=None):
     """Steps 4.1-5 of both paths: the clean MINIASM_TPU_CLEAN names
-    (hybrid by default), then -p ug (with -f sequences) or sg."""
+    (hybrid by default), then -p ug (with -f sequences) or sg.  `group`
+    (rank 0 of a sharded run) shares the hybrid cleaner's detections with
+    the group's ranks; the oracle modes run on rank 0 alone."""
     mode = os.environ.get("MINIASM_TPU_CLEAN", "hybrid")
     ug = None
     if mode == "hybrid":
@@ -264,7 +266,7 @@ def _clean_and_print(g, d, sub_s, sub_e, *, opt, stage, outfmt, fn_reads,
         # scan order (graph/hybrid.py)
         from .graph.hybrid import clean_graph
 
-        g = clean_graph(g, opt, stage, device=dev)
+        g = clean_graph(g, opt, stage, device=dev, group=group)
     else:
         from .graph.clean import del_trans
 

@@ -74,20 +74,29 @@ def test_gz_stdin_and_empty_inputs(sim_noisy, tmp_path):
 
 def test_port_imports_no_jax(sim_small, tmp_path):
     """A main-path run, a staged (-1) run, -p paf, a snapshot save and
-    restore, both oracle clean modes and -f -R load no module of JAX or
-    of the JAX package (exact names: miniasm_tpu_torch shares the
-    prefix)."""
+    restore, both oracle clean modes, -f -R, and the parallel package
+    (run_sharded on a one-rank group, the multi-process worker) load no
+    module of JAX or of the JAX package (exact names: miniasm_tpu_torch
+    shares the prefix)."""
     paf, fa = sim_small["paf"], sim_small["fasta"]
     snap = str(tmp_path / "snap")
     code = (
         "import io, json, os, sys\n"
         "from contextlib import redirect_stdout\n"
         "from miniasm_tpu_torch import cli\n"
+        "from miniasm_tpu_torch.config import Opt\n"
+        "from miniasm_tpu_torch.parallel import group, multihost, route\n"
+        "from miniasm_tpu_torch.parallel.full import run_sharded\n"
         "with redirect_stdout(io.StringIO()):\n"
         "    rc = cli.main(['-p', 'ug', %r])\n"
         "    rc |= cli.main(['-1', '-p', 'ug', %r])\n"
         "    rc |= cli.main(['-p', 'paf', %r])\n"
         "    rc |= cli.main(['-R', '-f', %r, %r])\n"
+        "    group.init(0, 1, 'file://' + %r + '_rdv', device='cpu')\n"
+        "    run_sharded(%r, Opt())\n"
+        "    group.destroy()\n"
+        "    multihost.worker(%r, %r + '.gfa', coordinator='file://' + %r\n"
+        "                     + '_rdv2', num_procs=1, proc_id=0)\n"
         "    os.environ['MINIASM_TPU_SNAPSHOT'] = %r\n"
         "    for mode in ('native', 'py'):\n"
         "        os.environ['MINIASM_TPU_CLEAN'] = mode\n"
@@ -96,6 +105,7 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'miniasm_tpu.')))\n"
         "print(json.dumps([rc, bad]))\n" % (paf, paf, paf, fa, paf, snap,
+                                             paf, paf, snap, snap, snap,
                                              paf))
     env = dict(os.environ, **{ENV: "cpu"})
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

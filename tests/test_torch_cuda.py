@@ -165,6 +165,140 @@ def test_trans_multi_kernel_matches_plain(dev, do_trans):
     want = devclean.trans_multi_plain(*args)
     assert torch.equal(got, want)
     assert int((want & 1).sum()) > 0 or not do_trans
+    # one rank's block of rows, as the sharded clean runs it
+    V = c["first"].shape[0] - 1
+    rows = (V // 3, 2 * V // 3)
+    a0, a1 = (int(c["first"][r]) for r in rows)
+    got = devclean.trans_multi(*args, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[a0:a1])
+    assert torch.equal(devclean.trans_multi_plain(*args, rows=rows), got)
+
+
+@pytest.mark.parametrize("n_sh", [1, 8])
+def test_route_kernel_matches_plain(dev, n_sh):
+    from miniasm_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(n_sh)
+    L = 300_000
+    dest = torch.from_numpy(rng.integers(0, n_sh + 1, L).astype(np.int32))
+    payload = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, (4, L)).astype(np.int32))
+    # random destinations; ties: every row to one bucket, some dropped
+    d1 = torch.where(dest == n_sh, n_sh, n_sh - 1).to(torch.int32)
+    for d in (dest, d1):
+        on_card = rt.Layout(d.to(dev), n_sh)
+        on_host = rt.Layout(d, n_sh)
+        assert on_card.sizes == on_host.sizes
+        # one layout serves two payloads, as the select step's passes
+        for p in (payload, payload.flip(1).contiguous()):
+            got = rt.route(on_card, p.to(dev))
+            torch.cuda.synchronize()
+            want = rt.route(on_host, p)
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(rt.route_plain(on_card, p.to(dev)).cpu(),
+                               want)
+
+
+def _noisy_paf(tmp_path):
+    """tests/conftest.py's sim_noisy: the 200 kb simulation with half of
+    its PAF lines dropped (random.Random(36))."""
+    import random
+
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+
+    full = str(tmp_path / "r.paf")
+    paf = str(tmp_path / "noisy.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), full)
+    rng = random.Random(36)
+    with open(full) as f, open(paf, "w") as g:
+        for line in f:
+            if rng.random() > 0.50:
+                g.write(line)
+    return paf
+
+
+def test_sharded_nccl_world_one_matches_cpu(dev, tmp_path):
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.parallel import group
+    from miniasm_tpu_torch.parallel.full import run_sharded
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _noisy_paf(tmp_path)
+    want = io.StringIO()
+    run(paf, Opt(), out=want, device="cpu")
+    g = group.init(0, 1, "file://" + str(tmp_path / "rdv"), device="cuda")
+    try:
+        assert g.backend == "nccl" and g.device.type == "cuda"
+        cuda.reset_launches()
+        got = io.StringIO()
+        run_sharded(paf, Opt(), out=got)
+        torch.cuda.synchronize()
+        n = cuda.launch_counts()
+    finally:
+        group.destroy()
+    assert got.getvalue() == want.getvalue() and want.getvalue()
+    assert n["route"] == 2 and n["sweep"] == 2 and n["cut_hit2arc"] == 2
+    assert n["trans_multi"] > 0
+
+
+def _sharded_rank(paf, outfn):
+    """One rank of test_sharded_gloo_two_ranks_on_one_card."""
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.parallel import group
+    from miniasm_tpu_torch.parallel.full import run_sharded
+
+    g = group.current()
+    assert g.backend == "gloo" and g.device.type == "cuda"
+    buf = io.StringIO()
+    run_sharded(paf, Opt(), out=buf)
+    if g.rank == 0:
+        with open(outfn, "w") as f:
+            f.write(buf.getvalue())
+
+
+def test_sharded_gloo_two_ranks_on_one_card(dev, tmp_path):
+    """Gloo runs every collective of run_sharded (scatter, broadcasts,
+    all_to_all_single, all_reduce, all_gather) on CUDA tensors."""
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.parallel import group
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _noisy_paf(tmp_path)
+    want = io.StringIO()
+    run(paf, Opt(), out=want, device="cpu")
+    out = str(tmp_path / "g.gfa")
+    group.launch(2, _sharded_rank, paf, out, backend="gloo", device="cuda")
+    with open(out) as f:
+        assert f.read() == want.getvalue()
+
+
+def test_multihost_gloo_two_ranks_on_one_card(dev, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _noisy_paf(tmp_path)
+    want = io.StringIO()
+    run(paf, Opt(), out=want, device="cpu")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("MINIASM_TPU_TORCH_DEVICE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "miniasm_tpu_torch.parallel.multihost",
+         "--coordinator", "file://" + str(tmp_path / "rdv"), "--num-procs",
+         "2", "--proc-id", str(k), "--backend", "gloo",
+         "--out", str(tmp_path / ("p%d.gfa" % k)), paf],
+        env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for k in range(2)]
+    errs = [p.communicate(timeout=600)[1].decode() for p in procs]
+    for p, e in zip(procs, errs):
+        assert p.returncode == 0, e[-3000:]
+    assert (tmp_path / "p0.gfa").read_text() == want.getvalue()
 
 
 @pytest.mark.parametrize("K", [4, 64])

@@ -33,9 +33,12 @@ What it does, in order:
      runs;
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
-     each path), bit for bit, and times both with CUDA events; K11 also
-     on an 8-way routing of the clean rows and on each worker process's
-     own repartition call (its inputs, saved by the process);
+     each path), bit for bit, and times both with CUDA events, the
+     wrapper also by torch.profiler's device time; K11 also on an 8-way
+     routing of the clean rows and on each worker process's own
+     repartition call (its inputs, saved by the process); the shapes of
+     every K3 and K4 call of noisy_ug, read from the recorded calls (the
+     runs themselves carry no hook that syncs, reduces or copies);
   5. runs the same commands, and the sharded runs on a one-rank gloo
      group, with MINIASM_TPU_TORCH_DEVICE=cpu (the plain versions only)
      and requires byte-identical stdout.
@@ -147,10 +150,14 @@ EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # pieces); a smaller --genome holds them to ">0" only
 AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
             ("noisy_py_sg", "dup_mark"): 5,
-            ("noisy_R_ug", "trans_multi"): 19,
-            ("noisy_s1_R_f_ug", "trans_multi"): 19,
-            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5,
-            ("sharded_noisy_ug", "trans_multi"): 19}
+            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5}
+# every run that cleans the noisy set's graph with the hybrid cleaner: 19
+# K3 detections and 11 K4 launches (6 dispatches, 5 of which overflow K =
+# 64 and run again at 128)
+for _tag in ("noisy_ug", "noisy_sg", "noisy_s2_ug", "noisy_s12_sg",
+             "noisy_R_ug", "noisy_s1_R_f_ug", "sharded_noisy_ug"):
+    AT_ECOLI[(_tag, "trans_multi")] = 19
+    AT_ECOLI[(_tag, "bubble_bfs")] = 11
 for _tag, _want in EXPECT.items():
     if _want["decode3"] == ">0" and _tag != "noisy_R_ug":
         AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
@@ -212,22 +219,28 @@ def _smi() -> str:
 # recording the kernels' inputs on the main path
 
 class Recorder:
-    """Wraps a module-level kernel wrapper so the runs' calls keep a copy
-    of the largest input each variant saw (key_fn names the variant;
-    size_fn measures an input, by default its tensors' elements), and the
-    largest value of stat_fn (a number from the arguments) since the last
-    reset.  `kernel` names the kernel when the wrapper's name is not its
-    name.  The wrapped call itself is unchanged."""
+    """Wraps a module-level kernel wrapper so the runs' calls keep the
+    largest input each variant saw (key_fn names the variant; size_fn
+    measures an input, by default its tensors' elements), and the largest
+    value of stat_fn (a number from the arguments) since the last reset,
+    and with `log_tag` every call of the run so tagged in `log`.  It
+    keeps the arguments themselves, no copies (the
+    port writes no kernel input in place), so the hook adds no device work
+    and no sync to the timed runs.  `kernel` names the kernel when the
+    wrapper's name is not its name.  The wrapped call itself is
+    unchanged."""
 
     def __init__(self, mod, name: str, key_fn, stat_fn=None, kernel=None,
-                 size_fn=None):
+                 size_fn=None, log_tag=None):
         self.mod, self.name, self.key_fn = mod, name, key_fn
         self.kernel = kernel or name
         self.stat_fn, self.stat = stat_fn, 0
         self.size_fn = size_fn or (lambda a, k: sum(
             x.numel() for x in a if isinstance(x, torch.Tensor)))
+        self.log_tag = log_tag
         self.orig = getattr(mod, name)
         self.calls: dict = {}
+        self.log: list = []
 
     def __enter__(self):
         def wrapped(*a, **k):
@@ -236,9 +249,9 @@ class Recorder:
                 self.stat = max(self.stat, self.stat_fn(a, k))
             key = self.key_fn(a, k)
             if key not in self.calls or self.calls[key][0] < size:
-                self.calls[key] = (size, tuple(
-                    x.clone() if isinstance(x, torch.Tensor) else x
-                    for x in a), dict(k))
+                self.calls[key] = (size, a, dict(k))
+            if PATH["tag"] == self.log_tag:
+                self.log.append((a, dict(k)))
             return self.orig(*a, **k)
 
         setattr(self.mod, self.name, wrapped)
@@ -328,6 +341,30 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _device_ms(fn, reps: int):
+    """Device time per call of what fn launches, from the device events
+    torch.profiler records over reps calls: each kernel's mean duration
+    times its launches per call, summed (a trace that misses some events
+    of a kernel still gives its mean); None where it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not us:
+        return None
+    return sum(sum(d) / len(d) * max(1, round(len(d) / reps))
+               for d in us.values()) / 1e3
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -414,8 +451,9 @@ def _cost(name, args, kw, out):
 
 
 def _measure(name, fn, plain, args, kw, reps):
-    """Kernel vs plain version on one recorded call: bit-equal, both timed,
-    the call's bytes and operations; K7 also beside torch.isin, the one
+    """Kernel vs plain version on one recorded call: bit-equal, both timed
+    (the wrapper by CUDA events and by torch.profiler's device time), the
+    call's bytes and operations; K7 also beside torch.isin, the one
     PyTorch call that computes its function when every needle is live."""
     got = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -423,6 +461,7 @@ def _measure(name, fn, plain, args, kw, reps):
     err = _max_abs_err(got, want)
     b, o = _cost(name, args, kw, got)
     m = {"err": err, "ms": _time_ms(lambda: fn(*args, **kw), reps),
+         "device_ms": _device_ms(lambda: fn(*args, **kw), reps),
          "plain_ms": _time_ms(lambda: plain(*args, **kw), 2),
          "bytes": b, "ops": o, "library_ms": None,
          "shapes": [list(x.shape) for x in args if hasattr(x, "shape")]}
@@ -434,13 +473,31 @@ def _measure(name, fn, plain, args, kw, reps):
     return m
 
 
+def _calls(name, rec) -> list:
+    """Every call of the run rec.log_tag, read from the recorded calls
+    after the runs: K3 [V, A, D, do_trans]; K4 [S, K, the largest visited
+    set], the call replayed on its inputs."""
+    rows = []
+    for args, kw in rec.log:
+        if name == "trans_multi":
+            rows.append([args[0].shape[0] - 1, args[1].shape[0],
+                         int(args[4]), int(bool(args[6]))])
+        else:
+            S = args[5].shape[0]
+            nb = int(rec.orig(*args, **kw)[0][1].max()) if S else 0
+            rows.append([S, int(args[6]), nb])
+    return rows
+
+
 def _sum(parts) -> dict:
     """Times, bound and library time of a set of measured calls."""
     ms = sum(p["ms"] for p in parts)
+    dev = [p["device_ms"] for p in parts]
     t_bytes = sum(p["bytes"] for p in parts) / HBM_BYTES_S * 1e3
     t_ops = sum(p["ops"] for p in parts) / INT32_OPS_S * 1e3
     lib = [p["library_ms"] for p in parts]
-    return {"ms": ms, "plain_ms": sum(p["plain_ms"] for p in parts),
+    return {"ms": ms, "device_ms": None if None in dev else sum(dev),
+            "plain_ms": sum(p["plain_ms"] for p in parts),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if None in lib else sum(lib)}
@@ -533,9 +590,6 @@ def _kernel_phase(recs, runs, cases):
         row["calls_timed"] = len(own)
         if name in ROW_CALL:
             row["layout_ms"] = own[0]["layout_ms"]
-            row["cases"] = {"/".join(k): dict(
-                _sum([m]), layout_ms=m["layout_ms"], shapes=m["shapes"])
-                for k, m in measured.items()}
         if name in REUSE:
             sub, path, run = REUSE[name]
             parts = [m for k, m in measured.items() if k[0] == path]
@@ -544,8 +598,15 @@ def _kernel_phase(recs, runs, cases):
                       % (name, path))
             row[sub] = dict(_sum(parts), launches=runs[run]["launches"][name],
                             launches_run=run, calls_timed=len(parts))
-        row["shapes"] = {"/".join(k): m["shapes"]
-                         for k, m in measured.items()}
+        # every timed call on its own: times, bound and shapes
+        row["cases"] = {"/".join(k): dict(m, **_sum([m]))
+                        for k, m in measured.items()}
+        if rec.log_tag is not None:
+            row["calls"] = _calls(name, rec)
+            _say("[calls] %s %s (%s): %s" % (
+                rec.log_tag, name, "V, A, D, do_trans"
+                if name == "trans_multi" else "S, K, nb max",
+                json.dumps(row["calls"])))
         _say("kernel " + json.dumps(row))
         rows.append(row)
     return rows
@@ -695,6 +756,7 @@ def main(argv=None) -> int:
         for (tag, name), want in AT_ECOLI.items():
             EXPECT[tag][name] = want
         MH_EXPECT[0]["trans_multi"] = 19
+        MH_EXPECT[0]["bubble_bfs"] = 11
     report: dict = {}
     smi = _smi()
     _say(smi)
@@ -825,20 +887,25 @@ def main(argv=None) -> int:
 
     # --- 3. every run on the card ---
     # K3 keeps a row of arcs (3 int32 each) in shared memory
-    k3_row_limit = devclean._SMEM_MAX // 12
+    k3_row_limit = cuda.SMEM_MAX // 12
 
     def on_path(variant):
         # record each call under the path of the run that made it
         return lambda a_, k: (PATH["now"], variant(a_, k))
 
-    k3 = Recorder(devclean, "trans_multi", on_path(lambda a_, k: "all"),
-                  stat_fn=lambda a_, k: a_[4])  # D: the largest row
+    # K3 and K4 also keep every call of noisy_ug, whose shapes the kernel
+    # phase reads
+    k3 = Recorder(devclean, "trans_multi", on_path(
+                      lambda a_, k: "trans" if a_[6] else "multi"),
+                  stat_fn=lambda a_, k: a_[4],  # D: the largest row
+                  log_tag="noisy_ug")
     recs = [Recorder(fused2, "cut_hit2arc", on_path(
                 lambda a_, k: "final" if k["final_pass"] else "relaxed")),
             Recorder(fused2, "sweep", on_path(
                 lambda a_, k: "fine" if a_[3] else "crude")),
             k3,
-            Recorder(devbub, "bubble_bfs", on_path(lambda a_, k: "all")),
+            Recorder(devbub, "bubble_bfs", on_path(
+                lambda a_, k: "K%d" % a_[6]), log_tag="noisy_ug"),
             Recorder(cut, "hit_cut", on_path(lambda a_, k: "all")),
             Recorder(h2a, "hit2arc_rows", on_path(
                 lambda a_, k: "relaxed" if a_[3] == 0.5 else "final"),

@@ -154,6 +154,10 @@ def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+# shared memory a block may use on an H100 (227 KB), the most a kernel's
+# dynamic shared memory can be raised to
+SMEM_MAX = 232448
+
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_int64

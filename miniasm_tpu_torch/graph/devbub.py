@@ -2,7 +2,7 @@
 
 Port of miniasm_tpu/graph/devbub.py.  The per-source Kahn BFS runs on the
 device for all candidate sources at once (the `bubble_bfs` kernel, K4,
-csrc/bubble.cu: one thread per source, in the serial asg_bub_pop1 order),
+csrc/bubble.cu: one warp per source, in the serial asg_bub_pop1 order),
 and the HOST commits the verdicts in the reference's ascending-source
 order.
 
@@ -31,8 +31,8 @@ sequential host BFS against the live graph.  Commits only shrink
 live-arc sets, so candidates never grow and the scan-order equivalence
 argument of graph/hybrid.py applies unchanged.
 
-Capacity: visited sets are capped at K per source; any overflow re-runs
-the whole dispatch with K doubled, so results are always exact.
+Capacity: visited sets are capped at K per source; the sources that
+overflow run again with K doubled, so results are always exact.
 """
 
 from __future__ import annotations
@@ -40,13 +40,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cuda import I32, I64, P, Kernel, ptr
+from ..cuda import I32, I64, P, SMEM_MAX, Kernel, ptr
 from .asg import Graph
 
 # _bub_kernel: bounded Kahn BFS per bubble source
 K_BUB = Kernel(
     "bubble_bfs", "bubble.cu", "ma_bubble_bfs",
-    [P, P, P, P, P, P, I64, I32, I32, P, P, P, P],
+    [P, P, P, P, P, P, I64, I32, I32, P, P, P, P, I32],
     replaces="miniasm_tpu/graph/devbub.py:63")
 
 
@@ -149,10 +149,13 @@ def bubble_bfs_plain(first, av, al, adel, live_out, sources, K: int,
 
 
 def bubble_bfs(first, av, al, adel, live_out, sources, K: int,
-               max_dist: int):
+               max_dist: int, *, smem_cap: int = SMEM_MAX):
     """K4.  first (V+1,) int64 CSR offsets; av/al (A,) int32; adel (A,)
     uint8 tombstones; live_out (V,) int32 live arcs per row; sources (S,)
-    int32.  Returns (res (4, S), vis (S, K), par (S, K)), all int32."""
+    int32.  Returns (res (4, S), vis (S, K), par (S, K)), all int32.  A
+    source's state stays in shared memory where it fits `smem_cap` bytes a
+    block, else in global scratch; the card tests lower the cap to reach
+    the latter."""
     if av.device.type == "cpu":
         return bubble_bfs_plain(first, av, al, adel, live_out, sources, K,
                                 max_dist)
@@ -166,11 +169,15 @@ def bubble_bfs(first, av, al, adel, live_out, sources, K: int,
     res = torch.empty((4, S), dtype=torch.int32, device=dev)
     vis = torch.empty((S, K), dtype=torch.int32, device=dev)
     par = torch.empty((S, K), dtype=torch.int32, device=dev)
-    work = torch.empty((S, 4 * K + 1), dtype=torch.int32, device=dev)
+    # a source's state (bubble.cu state_words): row starts (int64), vis,
+    # par, d, c, r, row lengths, the stack of K + 1; even
+    W = (9 * K + 2) & ~1
+    work = (torch.empty((S, W), dtype=torch.int32, device=dev)
+            if 4 * W > smem_cap else None)
     if S:
         K_BUB(ptr(first), ptr(av), ptr(al), ptr(adel), ptr(live_out),
               ptr(sources), S, int(K), int(max_dist), ptr(res), ptr(vis),
-              ptr(par), ptr(work))
+              ptr(par), None if work is None else ptr(work), int(smem_cap))
     return res, vis, par
 
 
@@ -192,17 +199,26 @@ def _arc_cols(g: Graph, device: torch.device) -> dict:
 
 
 def _dispatch(g: Graph, cands, max_dist: int, K: int, device):
-    """Run the kernel over candidate sources, doubling K on overflow."""
+    """Run the kernel over the candidate sources; the sources whose visited
+    set overflowed K run again at 2K, and so on.  Sources are independent,
+    so the rows merged back (widened with -1) equal one run of every
+    source at the final K."""
     c = _arc_cols(g, device)
+    cols = (c["first"], c["av"], c["al"], c["adel"], c["live_out"])
     src = torch.from_numpy(np.asarray(cands, dtype=np.int32)).to(device)
-    while True:
-        res, vis, par = bubble_bfs(c["first"], c["av"], c["al"], c["adel"],
-                                   c["live_out"], src, K, int(max_dist))
-        res = res.cpu().numpy()
-        if not (res[0] & 2).any():
-            return ((res[0] & 1).astype(bool), res[1], res[2], res[3],
-                    vis.cpu().numpy(), par.cpu().numpy(), K)
+    res, vis, par = bubble_bfs(*cols, src, K, int(max_dist))
+    redo = torch.nonzero(res[0] & 2).flatten()
+    while redo.numel():
         K *= 2
+        r2, v2, p2 = bubble_bfs(*cols, src[redo], K, int(max_dist))
+        wide = (0, K - vis.shape[1])
+        vis = torch.nn.functional.pad(vis, wide, value=-1)
+        par = torch.nn.functional.pad(par, wide, value=-1)
+        res[:, redo], vis[redo], par[redo] = r2, v2, p2
+        redo = redo[(r2[0] & 2) != 0]
+    res = res.cpu().numpy()
+    return ((res[0] & 1).astype(bool), res[1], res[2], res[3],
+            vis.cpu().numpy(), par.cpu().numpy(), K)
 
 
 def _host_pop1(g: Graph, v0: int, max_dist: int):

@@ -20,12 +20,12 @@ first sort (the is_srt latch, asg.c:75-78): compaction preserves relative
 arc order, so "live slots in slot order" here is the sequence the
 reference's next pass scans.
 
-Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), one block per
-vertex row over the CSR arc list; steps 3-6 are torch ops on the same
-per-arc columns.  The host applies the masks and commits the candidates in
-reference order (graph/hybrid.py).  Under a process group (the sharded
-path) every rank runs K3 on its block of vertex rows (detect(group=),
-follow, release).
+Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), a group of
+lanes per vertex row over the CSR arc list; steps 3-6 are torch ops on
+the same per-arc columns.  The host applies the masks and commits the
+candidates in reference order (graph/hybrid.py).  Under a process group
+(the sharded path) every rank runs K3 on its block of vertex rows
+(detect(group=), follow, release).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cuda import I32, I64, P, Kernel, ptr
+from ..cuda import I32, I64, P, SMEM_MAX, Kernel, ptr
 from .asg import Graph
 
 # _clean_kernel stage A (l.179-225): transitive-reduction and multi-arc marks
@@ -44,9 +44,6 @@ K_TRANS = Kernel(
 
 # compare-tensor budget of the plain version: rows * D * D bools per chunk
 _CHUNK_ELEMS = 1 << 26
-# shared memory a block of the kernel may use on an H100 (227 KB); a row
-# holds 3 int32 per arc
-_SMEM_MAX = 232448
 
 
 def build_arcs(g: Graph, device: torch.device) -> dict:
@@ -177,10 +174,10 @@ def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool,
             or al.dtype != torch.int32 or sdel_v.dtype != torch.uint8:
         raise TypeError("trans_multi: int64 offsets, int32 arcs, uint8 "
                         "delete bits expected")
-    if 3 * 4 * D > _SMEM_MAX:
+    if 3 * 4 * D > SMEM_MAX:  # a row holds 3 int32 per arc
         raise ValueError("trans_multi: a row of %d arcs does not fit the "
                          "kernel's shared memory (at most %d)"
-                         % (D, _SMEM_MAX // 12))
+                         % (D, SMEM_MAX // 12))
     V = first.shape[0] - 1
     r0, r1 = rows if rows is not None else (0, V)
     a0, a1 = (0, av.shape[0]) if rows is None else \

@@ -1,10 +1,15 @@
-"""Set membership over composite integer keys (port of
-miniasm_tpu/utils/arrays.py:81 member_multi).
+"""Array helpers over int32 key columns (port of miniasm_tpu/utils/arrays.py).
 
-The JAX program sorts hay and needles together with a stable multi-key sort
-and scans for the last hay row.  Here each key tuple is packed into one
-int64, the hay keys are sorted with one `torch.sort`, and the K7
-`key_member` kernel (csrc/symm.cu) looks each needle up by binary search.
+Set membership over composite keys (`member_multi`, l.81): the JAX program
+sorts hay and needles together with a stable multi-key sort and scans for
+the last hay row.  Here each key tuple is packed into one int64, the hay
+keys are sorted with one `torch.sort`, and the K7 `key_member` kernel
+(csrc/symm.cu) looks each needle up by binary search.
+
+The sorting and indexing helpers (`argsort_multi`, `sort_rows_multi`,
+`segment_starts`, `csr_index`, `compact`) are plain torch ops with the JAX
+functions' results, int32 where those are int32.  No caller in the port
+needs a kernel for them.
 """
 
 from __future__ import annotations
@@ -19,6 +24,65 @@ INT32_MAX = 2**31 - 1
 K_MEMBER = Kernel(
     "key_member", "symm.cu", "ma_key_member", [P, I64, P, I64, I64, P],
     replaces="miniasm_tpu/utils/arrays.py:81")
+
+
+def _masked_i32(col: torch.Tensor, n) -> torch.Tensor:
+    """The column cast to int32 (wrapping, like astype), rows >= n set to
+    INT32_MAX."""
+    col = col.to(torch.int32)
+    if n is None:
+        return col
+    iota = torch.arange(col.shape[0], device=col.device)
+    return torch.where(iota < n, col, INT32_MAX)
+
+
+def argsort_multi(keys, n=None) -> torch.Tensor:
+    """Stable lexicographic argsort by integer key columns, keys[0] the
+    most significant, each cast to int32; with n, rows >= n sort as
+    INT32_MAX in every key.  LSD rounds of stable sorts, as the JAX
+    function.  Returns (m,) int32."""
+    ks = [_masked_i32(k, n) for k in keys]
+    perm = torch.arange(ks[0].shape[0], device=ks[0].device)
+    for k in reversed(ks):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return perm.to(torch.int32)
+
+
+def sort_rows_multi(cols, keys_idx, n=None):
+    """Stable sort of equally long 1-D columns by the columns named in
+    keys_idx (most significant first).  Returns (permuted columns, perm)."""
+    perm = argsort_multi([cols[i] for i in keys_idx], n=n)
+    return [c[perm.long()] for c in cols], perm
+
+
+def segment_starts(sorted_ids: torch.Tensor, n) -> torch.Tensor:
+    """Bool mask of the rows that start an id run of a sorted column: row
+    i < n whose id differs from row i-1's (row 0 against -1)."""
+    prev = torch.cat([torch.full((1,), -1, dtype=sorted_ids.dtype,
+                                 device=sorted_ids.device), sorted_ids[:-1]])
+    iota = torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
+    return (iota < n) & (sorted_ids != prev)
+
+
+def csr_index(sorted_ids: torch.Tensor, n, num_segments: int):
+    """CSR index over a sorted id column (asg_arc_index_core, asg.c:27-36):
+    int32 (start, count) per segment id 0..num_segments-1 from two
+    searchsorteds; rows >= n read as INT32_MAX, absent ids count 0."""
+    ids = _masked_i32(sorted_ids, n)
+    seg = torch.arange(num_segments, dtype=torch.int32, device=ids.device)
+    start = torch.searchsorted(ids, seg, side="left", out_int32=True)
+    end = torch.searchsorted(ids, seg, side="right", out_int32=True)
+    return start, end - start
+
+
+def compact(mask: torch.Tensor, cols, n=None):
+    """Stable compaction: the rows whose mask is set (and, with n, whose
+    index is below n) move to the front in order, the rest follow in
+    order.  Returns (permuted columns, int32 count of the kept rows)."""
+    if n is not None:
+        mask = mask & (torch.arange(mask.shape[0], device=mask.device) < n)
+    perm = argsort_multi([torch.where(mask, 0, 1)]).long()
+    return [c[perm] for c in cols], mask.sum().to(torch.int32)
 
 
 def key_column(k, device: torch.device) -> torch.Tensor:
@@ -86,11 +150,9 @@ def member_multi(hay_keys, hay_n, needle_keys, needle_n,
     assert len(hay_keys) == len(needle_keys)
     h = [key_column(k, device) for k in hay_keys]
     q = [key_column(k, device) for k in needle_keys]
-    mh, mq = h[0].shape[0], q[0].shape[0]
-    h = [torch.where(torch.arange(mh, device=device) >= hay_n, INT32_MAX, k)
-         for k in h]
-    q = [torch.where(torch.arange(mq, device=device) >= needle_n, INT32_MAX,
-                     k) for k in q]
+    mh = h[0].shape[0]
+    h = [_masked_i32(k, hay_n) for k in h]
+    q = [_masked_i32(k, needle_n) for k in q]
     keys = pack_keys([torch.cat([a, b]) for a, b in zip(h, q)])
     hay = torch.sort(keys[:mh]).values
     return key_member(hay, keys[mh:].contiguous(), needle_n)

@@ -97,6 +97,44 @@ def test_bubble_dispatch_matches_jax(kind, seed):
         assert np.array_equal(t_par[i, :nb], j_par[i, :nb])
 
 
+@pytest.mark.parametrize("kind,seed", [("braid", 0), ("braid", 5),
+                                       ("random", 3)])
+def test_bubble_dispatch_reruns_only_overflow(kind, seed, monkeypatch):
+    """_dispatch from K = 4: each re-run takes only the sources that
+    overflowed the run before it, at twice its K, and the merged arrays
+    equal one plain run of every source at the final K."""
+    g = Graph.from_arrays(_bubble_graph(kind, seed))
+    live = np.array([g.live_out(v) for v in range(g.n_vtx)])
+    cands = [int(v) for v in np.flatnonzero(live >= 2)]
+    calls = []
+    orig = tbub.bubble_bfs
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a[5].tolist(), a[6], out[0][0].numpy() & 2))
+        return out
+
+    monkeypatch.setattr(tbub, "bubble_bfs", spy)
+    dist = port_opt().bub_dist
+    ok, nb, ntip, sink, vis, par, K = tbub._dispatch(g, cands, dist, 4, CPU)
+    assert len(calls) >= 2 and K == 4 << (len(calls) - 1)
+    assert calls[0][0] == cands
+    for (src, k0, ovf), (src2, k1, _) in zip(calls, calls[1:]):
+        assert k1 == 2 * k0
+        assert src2 == [s for s, o in zip(src, ovf) if o]
+    assert not calls[-1][2].any()
+    c = tbub._arc_cols(g, CPU)
+    res, v_all, p_all = tbub.bubble_bfs_plain(
+        c["first"], c["av"], c["al"], c["adel"], c["live_out"],
+        torch.tensor(cands, dtype=torch.int32), K, dist)
+    res = res.numpy()
+    assert np.array_equal(ok, (res[0] & 1).astype(bool))
+    assert not (res[0] & 2).any()
+    for got, want in ((nb, res[1]), (ntip, res[2]), (sink, res[3]),
+                      (vis, v_all.numpy()), (par, p_all.numpy())):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("kind,seed", [("braid", 1), ("braid", 4),
                                        ("braid", 9), ("random", 0)])
 def test_pop_bubbles_matches_jax(kind, seed):

@@ -319,6 +319,204 @@ def test_bubble_bfs_kernel_matches_plain(dev, K):
         assert torch.equal(x, y)
 
 
+def layered_arcs(rng, comps=((12, 3, 0), (20, 4, 0), (20, 3, 4),
+                             (40, 4, 0))):
+    """K4's columns for components of (layers, width, n_back): a root read
+    overlaps the reads of a first layer, each layer's reads overlap reads
+    of the next (every read is reached, each arc with its complement), the
+    last layer a sink read, the sink one read more; so the root's visited
+    set takes the whole component, up to 163 vertices.  n_back tombstoned
+    arcs lead from later reads back to the root: the back-arc test aborts
+    on them.  Returns ((first, av, al, adel, live_out), sources)."""
+    us, vs, ls, dead = [], [], [], []
+
+    def arc(a, b, ln, d=False):
+        us.extend([2 * a, 2 * b + 1])
+        vs.extend([2 * b, 2 * a + 1])
+        ls.extend([ln, ln])
+        dead.extend([d, d])
+
+    base = 0
+    for layers, width, n_back in comps:
+        ids = [[base]] + [[base + 1 + i * width + j for j in range(width)]
+                          for i in range(layers)]
+        sink = base + 1 + layers * width
+        ids.append([sink])
+        for cur, nxt in zip(ids, ids[1:]):
+            pairs = {(cur[k % len(cur)], b) for k, b in enumerate(nxt)}
+            pairs |= {(a, nxt[int(rng.integers(len(nxt)))]) for a in cur}
+            for a, b in sorted(pairs):
+                arc(a, b, int(rng.integers(100, 1000)))
+        arc(sink, sink + 1, 500)
+        for _ in range(n_back):
+            us.append(2 * int(rng.integers(base + 1, sink + 1)))
+            vs.append(2 * base)
+            ls.append(500)
+            dead.append(True)
+        base = sink + 2
+    V = 2 * base
+    u = np.asarray(us)
+    order = np.argsort(u, kind="stable")
+    first = np.searchsorted(u[order], np.arange(V + 1)).astype(np.int64)
+    adel = np.asarray(dead, np.uint8)[order]
+    live_out = np.bincount(u[order][adel == 0], minlength=V)
+    cols = (first, np.asarray(vs, np.int32)[order],
+            np.asarray(ls, np.int32)[order], adel, live_out.astype(np.int32))
+    src = np.flatnonzero(live_out >= 2).astype(np.int32)
+    return cols, src
+
+
+@pytest.mark.parametrize("K", [4, 32, 64, 128, 256])
+@pytest.mark.parametrize("max_dist", [3000, 10**6])
+def test_bubble_bfs_kernel_large_visited_sets(dev, K, max_dist):
+    """Visited sets past 32, 64 and 128 vertices, overflow at every K but
+    the largest, distance and back-arc aborts; at K = 64 and 256 also
+    with the state in global scratch (smem_cap=0)."""
+    from miniasm_tpu_torch.cuda import SMEM_MAX
+    from miniasm_tpu_torch.graph import devbub
+
+    cols, src = layered_arcs(np.random.default_rng(11))
+    args = tuple(torch.from_numpy(x).to(dev) for x in cols) + (
+        torch.from_numpy(src).to(dev), K, max_dist)
+    want = devbub.bubble_bfs_plain(*args)
+    for cap in [SMEM_MAX] + ([0] if K in (64, 256) else []):
+        got = devbub.bubble_bfs(*args, smem_cap=cap)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), cap
+    res = want[0].cpu()
+    if max_dist == 10**6:
+        assert bool(((res[0] & 2) != 0).any()) == (K < 256)
+        assert int(res[1].max()) > min(K - 1, 128)
+        assert bool((res[0] & 1).any()) or K < 64
+    assert bool(((res[0] & 3) == 0).any())  # aborts
+
+
+def _dense_graph(kind):
+    """Few reads, many overlaps: rows past 256 slots ("wide") or past 32
+    ("mid"), many of them to repeated targets."""
+    n_seq, n_pairs = {"wide": (20, 8000), "mid": (40, 1500)}[kind]
+    return random_graph(np.random.default_rng(12), n_seq=n_seq,
+                        n_pairs=n_pairs)
+
+
+@pytest.mark.parametrize("kind", ["wide", "mid"])
+@pytest.mark.parametrize("K", [4, 64])
+def test_bubble_bfs_kernel_multi_arcs(dev, kind, K):
+    """Rows of hundreds of arcs (chunks of 32) with many arcs to one
+    target: the kernel's rounds of revisits against the serial order."""
+    from miniasm_tpu_torch.graph import devbub
+
+    g = _dense_graph(kind)
+    g.adel[::7] = True
+    c = devbub._arc_cols(g, dev)
+    src = torch.nonzero(c["live_out"] >= 2).flatten().to(torch.int32)
+    args = (c["first"], c["av"], c["al"], c["adel"], c["live_out"], src, K,
+            50000)
+    got = devbub.bubble_bfs(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(got, devbub.bubble_bfs_plain(*args)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_bubble_dispatch_on_card_reruns_overflow(dev, seed, monkeypatch):
+    """_dispatch from K = 4 on the card: each re-run takes only the
+    sources that overflowed, and the merged arrays equal one plain run of
+    every source at the final K."""
+    from miniasm_tpu_torch.graph import devbub
+
+    g = random_graph(np.random.default_rng(seed), n_seq=200, n_pairs=500)
+    g.adel[::7] = True
+    c = devbub._arc_cols(g, dev)
+    cands = np.flatnonzero(c["live_out"].cpu().numpy() >= 2).tolist()
+    sizes = []
+    orig = devbub.bubble_bfs
+
+    def spy(*a, **k):
+        sizes.append(a[5].shape[0])
+        return orig(*a, **k)
+
+    monkeypatch.setattr(devbub, "bubble_bfs", spy)
+    ok, nb, ntip, sink, vis, par, K = devbub._dispatch(g, cands, 50000, 4,
+                                                       dev)
+    assert K > 4 and len(sizes) == (K // 4).bit_length()
+    assert sizes[0] == len(cands) and all(0 < n < len(cands)
+                                          for n in sizes[1:])
+    res, v_all, p_all = devbub.bubble_bfs_plain(
+        c["first"], c["av"], c["al"], c["adel"], c["live_out"],
+        torch.tensor(cands, dtype=torch.int32, device=dev), K, 50000)
+    res = res.cpu().numpy()
+    assert np.array_equal(ok, (res[0] & 1).astype(bool))
+    for got, want in ((nb, res[1]), (ntip, res[2]), (sink, res[3]),
+                      (vis, v_all.cpu().numpy()), (par, p_all.cpu().numpy())):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _capped_rows(c, D):
+    """K3's columns of build_arcs(...) c with every row cut to its first D
+    slots (rows stay sorted by length): the longest row becomes D, and so
+    D picks the kernel's lanes per row."""
+    first = c["first"].cpu()
+    keep = (first[1:] - first[:-1]).clamp(max=D)
+    idx = torch.cat([torch.arange(int(f), int(f) + int(k))
+                     for f, k in zip(first[:-1], keep)]).to(c["av"].device)
+    f2 = torch.zeros_like(first)
+    f2[1:] = torch.cumsum(keep, 0)
+    return (f2.to(c["av"].device), c["av"][idx].contiguous(),
+            c["al"][idx].contiguous(), c["sdel_v"], int(keep.max()))
+
+
+def _trans_multi_both(dev, first, av, al, sdel_v, D, do_trans):
+    """K3 against its plain version, whole and through rows=; returns the
+    bits."""
+    from miniasm_tpu_torch.graph import devclean
+
+    args = (first, av, al, sdel_v, D, 1000, do_trans)
+    want = devclean.trans_multi_plain(*args)
+    got = devclean.trans_multi(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    V = first.shape[0] - 1
+    rows = (V // 4, V // 2 + 3)
+    a0, a1 = (int(first[r]) for r in rows)
+    got = devclean.trans_multi(*args, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[a0:a1])
+    return want
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 9, 17, 32])
+@pytest.mark.parametrize("do_trans", [False, True])
+def test_trans_multi_kernel_each_group_size(dev, D, do_trans):
+    """The lanes per row follow the longest row D (1, 2, 4, 8, 16, 32, 32
+    here): every instance of the kernel on a dense random graph whose rows
+    are cut to D slots."""
+    from miniasm_tpu_torch.graph import devclean
+
+    c = devclean.build_arcs(_dense_graph("mid"), dev)
+    first, av, al, sdel_v, Dm = _capped_rows(c, D)
+    assert Dm == D
+    want = _trans_multi_both(dev, first, av, al, sdel_v, D, do_trans)
+    assert bool((want & 1).any()) == (do_trans and D > 1)
+    assert bool((want & 2).any()) or D < 3
+
+
+@pytest.mark.parametrize("kind", ["wide", "mid"])
+@pytest.mark.parametrize("do_trans", [False, True])
+def test_trans_multi_kernel_long_rows(dev, kind, do_trans):
+    """Rows of more than 32 slots ("mid") and more than 256 ("wide"): 32
+    lanes take a row's slots and its neighbours' arcs 32 at a time."""
+    from miniasm_tpu_torch.graph import devclean
+
+    c = devclean.build_arcs(_dense_graph(kind), dev)
+    assert c["D"] > {"wide": 256, "mid": 32}[kind]
+    want = _trans_multi_both(dev, c["first"], c["av"], c["al"], c["sdel_v"],
+                             c["D"], do_trans)
+    assert bool((want & 2).any())
+    assert bool((want & 1).any()) == do_trans
+
+
 @pytest.mark.parametrize("fmt", ["ug", "sg", "bed"])
 def test_run_on_card_matches_cpu(dev, tmp_path, fmt):
     from miniasm_tpu_torch import cuda

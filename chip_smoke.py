@@ -393,8 +393,12 @@ def _cost(name, args, kw, out):
         b = 3 * 4 * n + _nbytes(coords, lanes, tab) + _nbytes(out)
         return b, 110 * n   # ~30 ops of cut, ~35 per hit2arc lane, filter
     if name == "sweep":
-        keys, T = args[0], args[1]
-        return _nbytes(keys) + _nbytes(out), 8 * keys.numel()
+        seg, key, T = args[0], args[1], args[2]
+        # per event: its count, scatter and sweep step (about 12 integer
+        # ops); per read of n valid events a comparison sort's n log2 n
+        n = _read_events(seg, key, T).to(torch.float64)
+        sort = float((n * torch.log2(n.clamp(min=1))).sum())
+        return _nbytes(seg, key) + _nbytes(out), 12 * seg.numel() + sort
     if name == "trans_multi":
         first, av, al, sdel_v = args[:4]
         deg = first[1:] - first[:-1]
@@ -448,6 +452,14 @@ def _cost(name, args, kw, out):
         return (_nbytes(first, av, al, adel, live_out, sources)
                 + _nbytes(*out)), ops
     raise KeyError(name)
+
+
+def _read_events(seg, key, T):
+    """K2's valid events per read: the bucket sizes its sorts take."""
+    from miniasm_tpu_torch.select import fused2
+
+    ok = (seg >= 0) & (seg < T) & (key != fused2.SKIP)
+    return torch.bincount(seg[ok].long(), minlength=T)
 
 
 def _measure(name, fn, plain, args, kw, reps):
@@ -529,7 +541,7 @@ def _kernel_phase(recs, runs, cases):
     plain = {"decode3": pafload.decode3_plain,
              "unpack4": lambda p, n: pafload.unpack4_plain(p[:, :n]),
              "cut_hit2arc": fused2.cut_hit2arc_plain,
-             "sweep": fused2.sweep_plain,
+             "sweep": fused2.sweep_events_plain,
              "trans_multi": devclean.trans_multi_plain,
              "bubble_bfs": devbub.bubble_bfs_plain,
              "hit_cut": cut.hit_cut_plain,
@@ -601,6 +613,19 @@ def _kernel_phase(recs, runs, cases):
         # every timed call on its own: times, bound and shapes
         row["cases"] = {"/".join(k): dict(m, **_sum([m]))
                         for k, m in measured.items()}
+        if name == "sweep":
+            # the largest call of the row: its largest read, and the reads
+            # past a warp's sort (a block sorts them) and past a block's
+            # shared memory (sorted in device memory)
+            args = max((calls[k] for k in calls if k[0] == ROW_PATH[name]),
+                       key=lambda c: c[0])[1]
+            n = _read_events(*args[:3])
+            row["largest_call"] = {
+                "events": args[0].numel(), "reads": args[2],
+                "most_events_a_read": int(n.max()),
+                "block_reads": int((n > fused2.WARP_EVENTS).sum()),
+                "device_memory_reads": int((4 * n > cuda.SMEM_MAX).sum())}
+            _say("[sweep] largest call: %s" % json.dumps(row["largest_call"]))
         if rec.log_tag is not None:
             row["calls"] = _calls(name, rec)
             _say("[calls] %s %s (%s): %s" % (
@@ -901,8 +926,8 @@ def main(argv=None) -> int:
                   log_tag="noisy_ug")
     recs = [Recorder(fused2, "cut_hit2arc", on_path(
                 lambda a_, k: "final" if k["final_pass"] else "relaxed")),
-            Recorder(fused2, "sweep", on_path(
-                lambda a_, k: "fine" if a_[3] else "crude")),
+            Recorder(fused2, "sweep_events", on_path(
+                lambda a_, k: "fine" if a_[4] else "crude"), kernel="sweep"),
             k3,
             Recorder(devbub, "bubble_bfs", on_path(
                 lambda a_, k: "K%d" % a_[6]), log_tag="noisy_ug"),

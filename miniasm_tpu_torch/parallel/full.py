@@ -158,16 +158,15 @@ def select_step(rows, n_seq: int, block: int, opt, g):
                                   | (okm.to(i32) << 1)]).contiguous())
         rpres = (r[3] & 1) != 0
         rok = (r[3] & 2) != 0
-        segq = torch.where(vq, qid, T).to(i64)
-        segr = torch.where(rpres, r[0], T).to(i64)
+        segq = torch.where(vq, qid, T)
+        segr = torch.where(rpres, r[0], T)
         seg = torch.cat([segq, segq, segr, segr])
         key = torch.cat([
             torch.where(okq, esq * 2, fused2.SKIP),
             torch.where(okq, eeq * 2 + 1, fused2.SKIP),
             torch.where(rok, r[1] * 2, fused2.SKIP),
             torch.where(rok, r[2] * 2 + 1, fused2.SKIP)])
-        keys = torch.sort((seg << 32) | (key.to(i64) & 0xFFFFFFFF)).values
-        return fused2.sweep(keys, T, opt.min_dp, end_clip)
+        return fused2.sweep_events(seg, key, T, opt.min_dp, end_clip)
 
     def combine(tab):
         """The JAX step's combine_tab for the trims (owner-masked sum) and

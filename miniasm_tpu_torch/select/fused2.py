@@ -7,8 +7,8 @@ records.  Here every original row carries its implied mirror as a second
 lane ("q-side" = the record, "m-side" = its mirror):
 
   - the coverage sweeps (ma_hit_sub, hit.c:109-160) take 4 events per
-    original, sorted by torch.sort on an int64 key, then walked by the
-    `sweep` kernel (K2, csrc/select.cu);
+    original, unsorted, into the `sweep` kernel (K2, csrc/select.cu),
+    which buckets them by read, sorts each read's and sweeps it;
   - cutting (ma_hit_cut, hit.c:162-193), both hit2arc lanes and the filter
     (hit.c:195-216) run fused per row in the `cut_hit2arc` kernel (K1);
   - torch ops do the containment/used/palindrome marks, the arc compaction
@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cuda import F32, I32, I64, P, Kernel, ptr
+from ..cuda import F32, I32, I64, P, SMEM_MAX, Kernel, ptr
 from ..core.hit2arc import hit2arc, MA_HT_QCONT, MA_HT_TCONT
 from ..utils.u32 import as_i32, as_u32
 from .cut import cut_project
@@ -36,11 +36,16 @@ K_CUT = Kernel(
     "cut_hit2arc", "select.cu", "ma_cut_hit2arc",
     [P, P, P, P, P, P, I64, I64, I32, I32, F32, I32, I32, P],
     replaces="miniasm_tpu/select/fused2.py:254")
-# sweep_events (event sweep, first longest region per read), inside
-# _select2_kernel (fused2.py:305)
+# sweep_events (the event sort and sweep, first longest region per read),
+# inside _select2_kernel (fused2.py:305)
 K_SWEEP = Kernel(
-    "sweep", "select.cu", "ma_sweep", [P, I64, I64, I32, I32, P],
+    "sweep", "select.cu", "ma_sweep_events",
+    [P, P, I64, I64, I32, I32, P, P, I32, P],
     replaces="miniasm_tpu/select/fused2.py:131")
+
+# the largest read whose events one warp sorts (in registers up to 256,
+# then in shared memory); a block sorts a larger one (csrc/select.cu)
+WARP_EVENTS = 1024
 
 # rows of the cut_hit2arc output
 CUT_ROWS_RELAXED = 6   # qs qe ts te lanes dp
@@ -131,12 +136,17 @@ def cut_hit2arc(colmat, coords, lanes, tab, *, min_span, max_hang, int_frac,
     return out
 
 
-def sweep_plain(keys, T: int, min_dp: int, end_clip: int):
-    """Plain PyTorch version of the sweep kernel: per read, the FIRST
-    longest region of depth >= min_dp over its sorted events.  The depth
-    is one global cumsum (every valid side adds a (+1, -1) pair, so each
-    read's depth starts at 0), and crossings alternate start/end globally,
-    so an end crossing's start is the previous crossing."""
+def sweep_events_plain(seg, key, T: int, min_dp: int, end_clip: int):
+    """Plain PyTorch version of the sweep kernel: the events sorted by one
+    torch.sort of the int64 key seg<<32 | key (the in-read order is the
+    unsigned order of the keys; a seg outside [0, T) is an absent side,
+    sorted after every read), then per read the FIRST longest region of
+    depth >= min_dp.  The depth is one global cumsum (every valid side
+    adds a (+1, -1) pair, so each read's depth starts at 0), and crossings
+    alternate start/end globally, so an end crossing's start is the
+    previous crossing."""
+    seg = torch.where((seg >= 0) & (seg < T), seg, T).to(torch.int64)
+    keys = torch.sort((seg << 32) | (key.to(torch.int64) & 0xFFFFFFFF)).values
     dev = keys.device
     i64 = torch.int64
     seg = keys >> 32
@@ -153,7 +163,7 @@ def sweep_plain(keys, T: int, min_dp: int, end_clip: int):
     ti = torch.nonzero(tr).flatten()
     t_pos = pos[ti]
     t_prev = torch.cat([torch.zeros(1, dtype=i64, device=dev), t_pos[:-1]])
-    t_seg = seg[ti].clamp(max=T)
+    t_seg = seg[ti]
     length = torch.where(end_tr[ti], t_pos - t_prev, -1)
     best = torch.full((T + 1,), -1, dtype=i64, device=dev).scatter_reduce(
         0, t_seg, length, "amax")
@@ -162,9 +172,8 @@ def sweep_plain(keys, T: int, min_dp: int, end_clip: int):
     first = torch.full((T + 1,), big, dtype=i64, device=dev).scatter_reduce(
         0, t_seg, torch.where(tie, torch.arange(big, device=dev), big),
         "amin")
-    segc = seg.clamp(max=T)
     n_ev = torch.zeros(T + 1, dtype=i64, device=dev).scatter_add(
-        0, segc, torch.ones_like(segc))
+        0, seg, torch.ones_like(seg))
     has_query = n_ev[:T] > 0
     has_region = has_query & (best[:T] > 0)
     fi = first[:T].clamp(max=max(big - 1, 0))
@@ -177,17 +186,36 @@ def sweep_plain(keys, T: int, min_dp: int, end_clip: int):
                         has_query.to(i64)]).to(torch.int32)
 
 
-def sweep(keys, T: int, min_dp: int, end_clip: int):
-    """K2.  keys: sorted int64 events seg<<32 | (pos*2+is_end), skipped
-    events keyed SKIP, padding rows in segment T.  Returns (4, T) int32
-    [s, e, del, has_query] per read."""
-    if keys.device.type == "cpu":
-        return sweep_plain(keys, T, min_dp, end_clip)
-    if keys.dtype != torch.int64 or keys.dim() != 1:
-        raise TypeError("sweep: 1-D int64 keys expected")
-    out = torch.empty((4, T), dtype=torch.int32, device=keys.device)
-    K_SWEEP(ptr(keys), keys.shape[0], T, int(min_dp), int(end_clip),
-            ptr(out))
+def sweep_events(seg, key, T: int, min_dp: int, end_clip: int, *,
+                 smem_cap: int = SMEM_MAX):
+    """K2.  seg, key: (n,) int32 events, unsorted: seg the read (outside
+    [0, T) for an absent side), key pos*2 + is_end, or SKIP for a skipped
+    event (it still marks its read as having a query: hit.c:115,152).
+    Returns (4, T) int32 [s, e, del, has_query] per read: the first
+    longest region of depth >= min_dp, widened by end_clip (int32 wrap).
+    A read's sort takes at most `smem_cap` bytes of registers or shared
+    memory, else it runs in device memory; the card tests lower the cap
+    to reach the latter."""
+    if seg.device.type == "cpu":
+        return sweep_events_plain(seg, key, T, min_dp, end_clip)
+    if seg.dtype != torch.int32 or key.dtype != torch.int32 \
+            or seg.dim() != 1 or key.shape != seg.shape:
+        raise TypeError("sweep_events: two 1-D int32 columns of one length "
+                        "expected")
+    n = seg.shape[0]
+    if n >= 1 << 31 or T >= 1 << 31:
+        raise ValueError("sweep_events: at most 2**31 - 1 events and reads")
+    dev = seg.device
+    out = torch.empty((4, T), dtype=torch.int32, device=dev)
+    if T == 0:
+        return out
+    buf = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    # csrc/select.cu ma_sweep_events: cnt[T] has[T bytes] nbig total
+    # off[T] cur[T] big[T]
+    aux = torch.empty(4 * T + 2 + (T + 3) // 4, dtype=torch.int32,
+                      device=dev)
+    K_SWEEP(ptr(seg), ptr(key), n, T, int(min_dp), int(end_clip), ptr(buf),
+            ptr(aux), int(smem_cap), ptr(out))
     return out
 
 
@@ -206,14 +234,13 @@ def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):
     eet = cte - end_clip
     okq = okq & (eeq > esq)
     okm = okm & (eet > est)
-    segq = torch.where(vq, qid, T).to(torch.int64)
-    segm = torch.where(vm, tid, T).to(torch.int64)
+    segq = torch.where(vq, qid, T)
+    segm = torch.where(vm, tid, T)
     seg = torch.cat([segq, segq, segm, segm])
     key = torch.cat([
         torch.where(okq, esq * 2, SKIP), torch.where(okq, eeq * 2 + 1, SKIP),
         torch.where(okm, est * 2, SKIP), torch.where(okm, eet * 2 + 1, SKIP)])
-    keys = torch.sort((seg << 32) | (key.to(torch.int64) & 0xFFFFFFFF)).values
-    out = sweep(keys, T, min_dp, end_clip)
+    out = sweep_events(seg, key, T, min_dp, end_clip)
     return out[:3], out[3] != 0
 
 

@@ -4,13 +4,12 @@ the staged selection path.
 Port of miniasm_tpu/select/subregion.py.  The reference walks each query's
 hit group, builds (start<<1, end<<1|1) events, sorts them, and sweeps a
 +-1 depth counter to find the first longest region with depth >= min_dp.
-Here every hit puts its two events in its query's segment, the whole
-file's events are sorted once by torch.sort on the int64 key
-qid<<32 | (pos*2 + is_end), and the `sweep` kernel of the select step (K2,
-csrc/select.cu) walks each read's range.  An event that fails the
-validity test (self match, identity, empty clipped span) is keyed SKIP,
-which sorts last in its read and ends the walk; it still makes its read's
-range non-empty, so the read counts as having hits as query (hit.c:117):
+Here every hit puts its two events (pos*2 + is_end) in its query's
+segment, and the `sweep` kernel of the select step (K2, csrc/select.cu)
+buckets the whole file's events by read, sorts each read's and sweeps
+them.  An event that fails the validity test (self match, identity, empty
+clipped span) is keyed SKIP, which adds nothing to the depth; it still
+marks its read as having hits as query (hit.c:117):
 reads with such hits but no qualifying region are soft-deleted
 (hit.c:152); reads with no hits as query keep {s=0, e=0, del=0}
 (hit.c:115), whose zero-length interval kills their hits at the next cut.
@@ -44,11 +43,11 @@ def hit_sub(hits: Hits, n_seq: int, min_dp: int, min_iden: float,
     evs = hits.qs + end_clip
     eve = hits.qe - end_clip
     valid = (tid != qid) & ~(ml < bl * frac) & (eve > evs)
-    seg = qid.to(torch.int64) << 32
     skip = fused2.SKIP
-    keys = torch.cat([seg | as_u32(torch.where(valid, evs * 2, skip)),
-                      seg | as_u32(torch.where(valid, eve * 2 + 1, skip))])
-    out = fused2.sweep(torch.sort(keys).values, n_seq, min_dp, end_clip)
+    key = torch.cat([torch.where(valid, evs * 2, skip),
+                     torch.where(valid, eve * 2 + 1, skip)])
+    out = fused2.sweep_events(torch.cat([qid, qid]), key, n_seq, min_dp,
+                              end_clip)
     return out[:3]
 
 

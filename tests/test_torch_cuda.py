@@ -84,24 +84,113 @@ def test_cut_hit2arc_kernel_matches_plain(dev, final_pass):
     assert torch.equal(got, fused2.cut_hit2arc_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("end_clip", [0, 1000])
-def test_sweep_kernel_matches_plain(dev, end_clip):
+def sweep_inputs(rng, T, reads, n_sides, lo=0, hi=30000, span=5000,
+                 skip=0.1, pad=50, p=None):
+    """Unsorted, shuffled sweep events: n_sides (start, end) pairs in the
+    given reads (drawn with probabilities p; a tenth of them skipped), then
+    `pad` absent rows."""
     from miniasm_tpu_torch.select import fused2
 
-    rng = np.random.default_rng(2)
-    T, n = 400, 20_000
-    seg = rng.integers(0, T - 1, n)
-    a = rng.integers(0, 30000, n)
-    b = a + rng.integers(1, 5000, n)
-    ok = rng.random(n) < 0.9
-    key_s = np.where(ok, a * 2, fused2.SKIP)
-    key_e = np.where(ok, b * 2 + 1, fused2.SKIP)
-    seg2 = np.concatenate([seg, seg, np.full(50, T)]).astype(np.int64)
-    key = np.concatenate([key_s, key_e, np.full(50, fused2.SKIP)])
-    keys = torch.sort(torch.from_numpy((seg2 << 32) | key).to(dev)).values
-    got = fused2.sweep(keys, T, 3, end_clip)
+    seg = rng.choice(reads, n_sides, p=p)
+    a = rng.integers(lo, hi, n_sides)
+    b = a + rng.integers(1, span, n_sides)
+    ok = rng.random(n_sides) >= skip
+    key = np.concatenate([np.where(ok, a * 2, fused2.SKIP),
+                          np.where(ok, b * 2 + 1, fused2.SKIP),
+                          np.full(pad, fused2.SKIP)])
+    seg = np.concatenate([seg, seg, np.full(pad, T)])
+    perm = rng.permutation(seg.shape[0])
+    return (seg[perm].astype(np.int32),
+            key[perm].astype(np.uint32).view(np.int32))
+
+
+def check_sweep(dev, seg, key, T, min_dp, end_clip, **kw):
+    from miniasm_tpu_torch.select import fused2
+
+    seg = torch.from_numpy(seg).to(dev)
+    key = torch.from_numpy(key).to(dev)
+    got = fused2.sweep_events(seg, key, T, min_dp, end_clip, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got, fused2.sweep_plain(keys, T, 3, end_clip))
+    want = fused2.sweep_events_plain(seg, key, T, min_dp, end_clip)
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("end_clip", [0, 1000])
+def test_sweep_kernel_matches_plain(dev, end_clip):
+    T = 400
+    seg, key = sweep_inputs(np.random.default_rng(2), T, np.arange(T - 1),
+                            10_000)
+    want = check_sweep(dev, seg, key, T, 3, end_clip)
+    assert (want[0] != want[1]).sum() > 300 and want[2].any()
+
+
+@pytest.mark.parametrize("smem_cap", [0, 2048, 8192, None])
+def test_sweep_kernel_smem_cap(dev, smem_cap):
+    """Reads of 60 to 19,000 events (read i drawn with weight 1/(i+1)):
+    with the cap at its default they take every branch (registers up to
+    256 events, a warp's shared memory up to 1024, a block's above); the
+    cap lowered sends every read (0), the reads past 512 events (2048) or
+    past 2048 (8192) to device memory."""
+    T = 300
+    rng = np.random.default_rng(3)
+    w = 1.0 / np.arange(1, T)
+    seg, key = sweep_inputs(rng, T, np.arange(T - 1), 60_000, p=w / w.sum())
+    kw = {} if smem_cap is None else {"smem_cap": smem_cap}
+    want = check_sweep(dev, seg, key, T, 3, 500, **kw)
+    assert (want[0] != want[1]).sum() > 250
+
+
+@pytest.mark.parametrize("n_sides", [50_000, 100_000])
+def test_sweep_kernel_one_huge_read(dev, n_sides):
+    """One read of 2 * n_sides events, past a block's shared memory,
+    beside reads of about 3800 (a block's shared memory)."""
+    from miniasm_tpu_torch.select import fused2
+
+    rng = np.random.default_rng(n_sides)
+    T = 64
+    s1, k1 = sweep_inputs(rng, T, [7], n_sides, hi=2_000_000, span=40_000)
+    s2, k2 = sweep_inputs(rng, T, np.arange(T - 1), 120_000)
+    want = check_sweep(dev, np.concatenate([s1, s2]),
+                       np.concatenate([k1, k2]), T, 5, 0)
+    assert want[0, 7] != want[1, 7]
+    check_sweep(dev, s1, k1, T, 20, 100, smem_cap=fused2.SMEM_MAX // 2)
+
+
+def test_sweep_kernel_many_empty_reads(dev):
+    T = 300_000
+    rng = np.random.default_rng(4)
+    seg, key = sweep_inputs(rng, T, rng.choice(T, 500), 2000, pad=1000)
+    want = check_sweep(dev, seg, key, T, 2, 100)
+    assert 0 < int(want[3].sum()) <= 500
+    seg, key = sweep_inputs(rng, T, [0], 0, pad=1000)  # padding only
+    assert not check_sweep(dev, seg, key, T, 2, 100).any()
+
+
+def test_sweep_kernel_largest_positions(dev):
+    """Positions up to the largest a key holds below SKIP (start keys to
+    0x7FFFFFFE), and keys above it (starts past 2**30 wrap negative as
+    int32): the in-read order is the unsigned one."""
+    T = 40
+    rng = np.random.default_rng(6)
+    top = (0x7FFFFFFF >> 1) - 1
+    seg, key = sweep_inputs(rng, T, np.arange(T - 2), 4000,
+                            lo=top - 300_000, hi=top - 60_000, span=60_000,
+                            pad=0)
+    want = check_sweep(dev, seg, key, T, 3, 1000)
+    assert int(want[1].max()) >= top - 100_000
+    # read T-2 ends at the largest end key, read T-1 starts at the largest
+    # start key and ends past it
+    edge = np.asarray([T - 2, T - 2, T - 1, T - 1], np.int32)
+    ekey = np.asarray([(top - 5) * 2, top * 2 + 1, 0x7FFFFFFE, 0x80000001],
+                      np.uint32)
+    want = check_sweep(dev, np.concatenate([seg, edge]),
+                       np.concatenate([key, ekey.view(np.int32)]), T, 1, 0)
+    assert want[:2, -1].tolist() == [0x3FFFFFFF, 0x40000000]
+    seg, key = sweep_inputs(rng, T, np.arange(T), 4000, lo=(1 << 30) - 5000,
+                            hi=(1 << 30) + 5000, span=3000, pad=0)
+    assert (key < 0).any()
+    check_sweep(dev, seg, key, T, 2, 0)
 
 
 def staged_inputs(rng, n=50_000, T=500):

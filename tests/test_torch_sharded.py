@@ -2,9 +2,11 @@
 JAX package's: run_sharded at world sizes 1, 2 and 4, its ranks started
 by parallel/group.py's launch over gloo on the CPU, must print the bytes
 of the JAX run_sharded on the 8-device virtual mesh (tests/conftest.py)
-and of the JAX single-device pipeline; the step's tables, counters and
-arc set must equal the JAX _make_select_step's; detect(group=) at world
-size 2 must equal detect().  Everything compared is exact.
+and of the JAX single-device pipeline, and at world size 2 with -p bed,
+-S, -f, -R and the oracle clean modes those of the JAX pipeline; the
+step's tables, counters and arc set must equal the JAX
+_make_select_step's; detect(group=) at world size 2 must equal detect().
+Everything compared is exact.
 
 The ranks are spawned processes that import this module: it imports JAX
 only inside the fixtures, so they load PyTorch and the port alone."""
@@ -22,14 +24,39 @@ from miniasm_tpu_torch.parallel import group as grp
 
 RUNS = [("sim_small", "ug"), ("sim_noisy", "ug"), ("sim_noisy", "sg")]
 WORLDS = [1, 2, 4]
+# the flag sets the world-size-2 launch also runs: (name, data, fmt, the
+# pipeline's keywords, environment); "fn_reads" names the data's FASTA,
+# "no_cont" is -R (run_sharded takes its excluded reads)
+FLAG_RUNS = [
+    ("bed", "sim_small", "bed", {}, {}),
+    ("bed", "sim_noisy", "bed", {}, {}),
+    ("S9", "sim_noisy", "ug", {"stage": 9}, {}),
+    ("S7", "sim_noisy", "sg", {"stage": 7}, {}),
+    ("f", "sim_small", "ug", {"fn_reads": True}, {}),
+    ("R", "sim_noisy", "ug", {"no_cont": True}, {}),
+    ("native", "sim_noisy", "ug", {}, {"MINIASM_TPU_CLEAN": "native"}),
+    ("py", "sim_noisy", "sg", {}, {"MINIASM_TPU_CLEAN": "py"})]
+
+
+def flag_id(run):
+    name, data, fmt = run[:3]
+    return "%s_%s_%s" % (name, data, fmt)
+
+
+def _kwargs(kw, data):
+    """FLAG_RUNS keywords for one fixture: the FASTA path for fn_reads."""
+    return {k: (data["fasta"] if k == "fn_reads" else v)
+            for k, v in kw.items()}
 
 
 def rank_job(outdir, runs, extra):
-    """Every rank of a launch: run_sharded for each (tag, paf, fmt) of
-    runs; with `extra` also the step's outputs for each (tag, paf) and the
-    sharded detection of a pickled graph.  Rank 0 writes the results into
-    outdir."""
+    """Every rank of a launch: run_sharded for each (tag, paf, fmt, kw,
+    env) of runs, with the environment `env` set and the keywords `kw`
+    (no_cont: the -R prefilter's excluded reads); with `extra` also the
+    step's outputs for each (tag, paf) and the sharded detection of a
+    pickled graph.  Rank 0 writes the results into outdir."""
     from miniasm_tpu_torch.graph import devclean
+    from miniasm_tpu_torch.io.paf import no_cont_prefilter
     from miniasm_tpu_torch.parallel.full import (gather_arcs, run_sharded,
                                                  select_step, shard_rows)
 
@@ -41,9 +68,19 @@ def rank_job(outdir, runs, extra):
             with open(os.path.join(outdir, name), "w") as f:
                 f.write(text)
 
-    for tag, paf, fmt in runs:
+    for tag, paf, fmt, kw, env in runs:
+        kw = dict(kw)
+        opt = Opt()
+        if kw.pop("no_cont", False):
+            kw["excl"] = no_cont_prefilter(paf, opt.min_span, opt.min_match,
+                                           opt.max_hang, opt.int_frac)
         buf = io.StringIO()
-        run_sharded(paf, Opt(), outfmt=fmt, out=buf)
+        os.environ.update(env)
+        try:
+            run_sharded(paf, opt, outfmt=fmt, out=buf, **kw)
+        finally:
+            for k in env:
+                del os.environ[k]
         save(tag, buf.getvalue())
     if not extra:
         return
@@ -86,24 +123,30 @@ def _noisy_graph(paf):
 def port_runs(sim_small, sim_noisy, tmp_path_factory):
     """The port's outputs at each world size: {(world, data, fmt): text},
     plus the world-size-2 launch's step and detect results."""
-    pafs = {"sim_small": sim_small["paf"], "sim_noisy": sim_noisy["paf"]}
+    sims = {"sim_small": sim_small, "sim_noisy": sim_noisy}
+    pafs = {k: v["paf"] for k, v in sims.items()}
     graph = str(tmp_path_factory.mktemp("graph") / "noisy.pkl")
     with open(graph, "wb") as f:
         pickle.dump(_noisy_graph(sim_noisy["paf"]), f)
     res = {}
     for world in WORLDS:
         d = str(tmp_path_factory.mktemp("ws%d" % world))
-        runs = [("%s_%s" % (data, fmt), pafs[data], fmt)
+        runs = [("%s_%s" % (data, fmt), pafs[data], fmt, {}, {})
                 for data, fmt in RUNS]
         extra = None
         if world == 2:
             extra = {"step": sorted(pafs.items()), "graph": graph}
+            runs += [(flag_id(r), pafs[r[1]], r[2], _kwargs(r[3], sims[r[1]]),
+                      r[4]) for r in FLAG_RUNS]
         grp.launch(world, rank_job, d, runs, extra, device="cpu")
         for data, fmt in RUNS:
             with open(os.path.join(d, "%s_%s" % (data, fmt))) as f:
                 res[(world, data, fmt)] = f.read()
         if world == 2:
             res["dir2"] = d
+            for r in FLAG_RUNS:
+                with open(os.path.join(d, flag_id(r))) as f:
+                    res[flag_id(r)] = f.read()
     res["graph"] = graph
     return res
 
@@ -133,6 +176,25 @@ def test_run_sharded_matches_jax(port_runs, jax_runs, world, data, fmt):
     assert jax_sharded == jax_single
     assert port_runs[(world, data, fmt)] == jax_sharded
     assert jax_sharded.count("\n") > 10
+
+
+@pytest.mark.parametrize("run", FLAG_RUNS, ids=flag_id)
+def test_run_sharded_flags_match_jax(request, port_runs, monkeypatch, run):
+    """-p bed, -S, -f, -R and the oracle clean modes through run_sharded
+    at world size 2: the JAX pipeline's bytes."""
+    from miniasm_tpu.config import Opt as JOpt
+    from miniasm_tpu.pipeline import run as jax_run
+
+    name, data, fmt, kw, env = run
+    sim = request.getfixturevalue(data)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    want = io.StringIO()
+    jax_run(sim["paf"], JOpt(), outfmt=fmt, out=want, **_kwargs(kw, sim))
+    assert port_runs[flag_id(run)] == want.getvalue()
+    assert want.getvalue().count("\n") > 10
+    if name == "f":
+        assert "\tLN:i:" in want.getvalue() and "\t*\t" not in want.getvalue()
 
 
 def _jax_step(paf):

@@ -485,6 +485,42 @@ def _measure(name, fn, plain, args, kw, reps):
     return m
 
 
+def _sweep_tiers(row, calls, cases):
+    """K2's branches, as the kernel counts them: on the row's largest call
+    and on each extra case, the reads sorted by a block and those of them
+    sorted in device memory (every other read by a warp in registers).  An
+    extra case at the default cap must take both large-read branches, one
+    with smem_cap=0 must send every read that holds an event to device
+    memory."""
+    from miniasm_tpu_torch.select import fused2
+
+    def tiers(args, kw):
+        n = _read_events(*args[:3])
+        block, dev = fused2.sweep_events_tiers(*args, **kw)[1].tolist()
+        return {"events": args[0].numel(), "reads": args[2],
+                "most_events_a_read": int(n.max()),
+                "reads_with_events": int((n > 0).sum()),
+                "block_reads": block, "device_memory_reads": dev}
+
+    _size, args, kw = max((calls[k] for k in calls if k[0] == ROW_PATH[
+        "sweep"]), key=lambda c: c[0])
+    row["largest_call"] = tiers(args, kw)
+    _say("[sweep] largest call: %s" % json.dumps(row["largest_call"]))
+    for key, (args, kw) in sorted(cases.items()):
+        t = tiers(args, kw)
+        row["cases"]["/".join(key)].update(t)
+        _say("[sweep] %s %s: %s" % ("/".join(key), json.dumps(kw),
+                                     json.dumps(t)))
+        if kw.get("smem_cap") == 0:
+            ok = t["block_reads"] == t["device_memory_reads"] \
+                == t["reads_with_events"]
+        else:
+            ok = t["block_reads"] > t["device_memory_reads"] > 0
+        if not ok:
+            _fail("sweep[%s] took other branches than it was built for"
+                  % "/".join(key))
+
+
 def _calls(name, rec) -> list:
     """Every call of the run rec.log_tag, read from the recorded calls
     after the runs: K3 [V, A, D, do_trans]; K4 [S, K, the largest visited
@@ -541,7 +577,7 @@ def _kernel_phase(recs, runs, cases):
     plain = {"decode3": pafload.decode3_plain,
              "unpack4": lambda p, n: pafload.unpack4_plain(p[:, :n]),
              "cut_hit2arc": fused2.cut_hit2arc_plain,
-             "sweep": fused2.sweep_events_plain,
+             "sweep": lambda *a, smem_cap=None: fused2.sweep_events_plain(*a),
              "trans_multi": devclean.trans_multi_plain,
              "bubble_bfs": devbub.bubble_bfs_plain,
              "hit_cut": cut.hit_cut_plain,
@@ -614,18 +650,7 @@ def _kernel_phase(recs, runs, cases):
         row["cases"] = {"/".join(k): dict(m, **_sum([m]))
                         for k, m in measured.items()}
         if name == "sweep":
-            # the largest call of the row: its largest read, and the reads
-            # past a warp's sort (a block sorts them) and past a block's
-            # shared memory (sorted in device memory)
-            args = max((calls[k] for k in calls if k[0] == ROW_PATH[name]),
-                       key=lambda c: c[0])[1]
-            n = _read_events(*args[:3])
-            row["largest_call"] = {
-                "events": args[0].numel(), "reads": args[2],
-                "most_events_a_read": int(n.max()),
-                "block_reads": int((n > fused2.WARP_EVENTS).sum()),
-                "device_memory_reads": int((4 * n > cuda.SMEM_MAX).sum())}
-            _say("[sweep] largest call: %s" % json.dumps(row["largest_call"]))
+            _sweep_tiers(row, calls, cases.get(name, {}))
         if rec.log_tag is not None:
             row["calls"] = _calls(name, rec)
             _say("[calls] %s %s (%s): %s" % (
@@ -721,6 +746,38 @@ def _multihost(paf: str, mdir: str) -> dict:
     with open(os.path.join(mdir, "p0.gfa")) as f:
         out = f.read()
     return {"out": out, "wall_s": dt, "stats": stats}
+
+
+def _sweep_cases() -> dict:
+    """K2's calls beyond the recorded ones, whose reads hold at most a few
+    hundred events (all sorted in registers): seeded unsorted events in
+    reads of about 600, 4,000 and 100,000 events beside 959 reads of
+    about 120 and 1,000 absent rows, once at the default cap (a block's
+    shared memory; device memory for the largest) and once with
+    smem_cap=0 (every read in device memory)."""
+    import numpy as np
+
+    from miniasm_tpu_torch.select import fused2
+
+    rng = np.random.default_rng(SEED)
+    sides = [50_000] + [2_000] * 8 + [300] * 32 + [60] * 959
+    T = len(sides)
+    seg, key = [np.full(1000, T)], [np.full(1000, fused2.SKIP)]
+    for r, m in enumerate(sides):
+        hi, span = (2_000_000, 40_000) if m > 10_000 else (30_000, 5_000)
+        a = rng.integers(0, hi, m)
+        b = a + rng.integers(1, span, m)
+        ok = rng.random(m) >= 0.1  # a tenth skipped
+        seg.append(np.full(2 * m, r))
+        key += [np.where(ok, a * 2, fused2.SKIP),
+                np.where(ok, b * 2 + 1, fused2.SKIP)]
+    perm = rng.permutation(sum(x.shape[0] for x in seg))
+    seg = torch.from_numpy(np.concatenate(seg)[perm].astype(np.int32))
+    key = torch.from_numpy(np.concatenate(key)[perm].astype(np.int32))
+    args = (seg.cuda(), key.cuda(), T, 3, 100)
+    return {"sweep": {("cases", "deep_reads"): (args, {}),
+                      ("cases", "deep_reads_smem0"): (args,
+                                                      {"smem_cap": 0})}}
 
 
 def _route_cases(paf: str, mdir: str) -> dict:
@@ -1026,8 +1083,8 @@ def main(argv=None) -> int:
               % (longest, a.genome))
 
     # --- 4. kernels against their plain versions ---
-    rows = _kernel_phase(recs, runs, _route_cases(
-        paf, os.path.join(ddir, "multihost")))
+    rows = _kernel_phase(recs, runs, dict(_sweep_cases(), **_route_cases(
+        paf, os.path.join(ddir, "multihost"))))
 
     # --- 5. the same commands on the CPU ---
     for tag, args, mode, path in plan:

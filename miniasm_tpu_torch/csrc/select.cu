@@ -36,21 +36,21 @@
 //       atomic per run again, four events a thread in flight).  Skipped
 //       keys stay out: they sort last in their read and add nothing to the
 //       depth.
-//   (d) one warp a read of at most WARP_EVENTS events.  Up to REG_EVENTS
-//       sit in registers, E = 1-8 a lane, and are sorted by a bitonic
-//       network (registers within a lane, shuffles across lanes); a larger
-//       read is sorted by the same network in the warp's slice of shared
-//       memory.  The sweep: the depth by a warp scan of +-1, the up and
-//       down crossings of min_dp, each down crossing paired with the last
-//       up crossing before it (crossings alternate, up first, since the
-//       depth starts and ends at 0; the nearest one in a lower lane comes
-//       by ballot), and the FIRST longest region (`len > max`,
-//       hit.c:142) by a (length desc, index asc) warp reduction.  A read
-//       past the warp's share goes on a list.
+//   (d) one warp a read of at most REG_EVENTS events, E = 1-8 a lane in
+//       registers, sorted by a bitonic network (registers within a lane,
+//       shuffles across lanes).  The sweep: the depth by a warp scan of
+//       +-1, the up and down crossings of min_dp, each down crossing
+//       paired with the last up crossing before it (crossings alternate,
+//       up first, since the depth starts and ends at 0; the nearest one in
+//       a lower lane comes by ballot), and the FIRST longest region
+//       (`len > max`, hit.c:142) by a (length desc, index asc) warp
+//       reduction.  A larger read goes on a list.
 //   (e) one block a listed read, a grid of one block per SM walking the
 //       list: the network run by the whole block, in dynamic shared memory
 //       where the read fits `smem_cap` bytes, else in place in its bucket
-//       in device memory; then the warp sweep.
+//       in device memory; then the sweep by one warp.  The host cannot see
+//       the list's length without a sync, so (e) is launched on every
+//       call; with the list empty its blocks read one word and exit.
 // The network compares ascending only (the first step of each merge pairs
 // a slot with its mirror), so slots past n act as +inf: in memory the
 // pairs that reach them are skipped, in registers they hold 0xffffffff.
@@ -59,6 +59,8 @@
 // L2 transactions of (c) where reads arrive in random order (an atomic
 // and a 4-byte store an event: the m-side of the main path), and the
 // sorts' shuffles (n log^2 n / 4 compare-exchanges a read).
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -146,8 +148,7 @@ constexpr int EV_THREADS = 256;    // count and scatter
 constexpr int EV_ITEMS = 4;        // events a thread
 constexpr int ALLOC_THREADS = 256;
 constexpr int SW_WARPS = 8;        // reads a block on the warp path
-constexpr int REG_EVENTS = 256;    // the largest read sorted in registers
-constexpr int WARP_EVENTS = 1024;  // the largest read a warp sorts (4 KB)
+constexpr int REG_EVENTS = 256;    // the largest read a warp sorts
 constexpr int BIG_THREADS = 1024;
 constexpr int SMEM_MAX = 232448;   // an H100 block's shared memory
 
@@ -266,13 +267,10 @@ ev_scatter_kernel(const int32_t* __restrict__ seg,
     }
 }
 
-// Ascending bitonic network over a[0, n), run by threads t of nt (a warp,
-// or the whole block when BLOCK).  Every compare-exchange moves the
-// smaller key to the lower slot, so slots past n act as +inf and the
-// pairs that reach them are skipped.
-template <bool BLOCK>
-__device__ void bitonic_sort(uint32_t* a, uint32_t n, uint32_t t,
-                             uint32_t nt) {
+// Ascending bitonic network over a[0, n), run by the whole block.  Every
+// compare-exchange moves the smaller key to the lower slot, so slots past
+// n act as +inf and the pairs that reach them are skipped.
+__device__ void bitonic_sort(uint32_t* a, uint32_t n) {
     if (n < 2) return;
     const uint32_t P = 1u << (32 - __clz(static_cast<int>(n - 1)));
     const uint32_t half = P >> 1;
@@ -281,7 +279,7 @@ __device__ void bitonic_sort(uint32_t* a, uint32_t n, uint32_t t,
             // the first step of a size-k merge pairs each slot of a k-block's
             // lower half with its mirror, the later ones slot i with i + d
             const uint32_t flip = d == (k >> 1) ? k - 1 : 0;
-            for (uint32_t p = t; p < half; p += nt) {
+            for (uint32_t p = threadIdx.x; p < half; p += blockDim.x) {
                 const uint32_t i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
                 const uint32_t j = flip ? (i ^ flip) : (i + d);
                 if (j < n) {
@@ -292,8 +290,7 @@ __device__ void bitonic_sort(uint32_t* a, uint32_t n, uint32_t t,
                     }
                 }
             }
-            if (BLOCK) __syncthreads();
-            else __syncwarp();
+            __syncthreads();
         }
     }
 }
@@ -492,9 +489,8 @@ __device__ __forceinline__ void write_row(int32_t* __restrict__ out,
     out[3 * T + r] = hq ? 1 : 0;
 }
 
-// (d) one warp a read of at most warp_cap events: up to REG_EVENTS sorted
-// in registers, more in the warp's slice of shared memory; a larger read
-// goes on the list for (e)
+// (d) one warp a read of at most warp_cap (<= REG_EVENTS) events, sorted
+// in registers; a larger read goes on the list for (e)
 __global__ void __launch_bounds__(SW_WARPS * 32)
 ev_sweep_warp_kernel(const uint32_t* __restrict__ buf,
                      const int32_t* __restrict__ off,
@@ -503,10 +499,9 @@ ev_sweep_warp_kernel(const uint32_t* __restrict__ buf,
                      int32_t min_dp, int32_t end_clip, uint32_t warp_cap,
                      int32_t* __restrict__ out, int32_t* __restrict__ big,
                      int32_t* __restrict__ nbig) {
-    __shared__ uint32_t keys[SW_WARPS][WARP_EVENTS];
     const int lane = threadIdx.x & 31;
-    const int wib = threadIdx.x >> 5;
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * SW_WARPS + wib;
+    const int64_t r =
+        static_cast<int64_t>(blockIdx.x) * SW_WARPS + (threadIdx.x >> 5);
     if (r >= T) return;  // the whole warp
     const uint32_t n = static_cast<uint32_t>(cnt[r]);
     if (n > warp_cap) {
@@ -521,27 +516,22 @@ ev_sweep_warp_kernel(const uint32_t* __restrict__ buf,
         g = reg_read<2>(a, n, min_dp, lane);
     } else if (n <= 128) {
         g = reg_read<4>(a, n, min_dp, lane);
-    } else if (n <= REG_EVENTS) {
-        g = reg_read<REG_EVENTS / 32>(a, n, min_dp, lane);
     } else {
-        uint32_t* s = keys[wib];
-        for (uint32_t i = lane; i < n; i += 32) s[i] = a[i];
-        __syncwarp();
-        bitonic_sort<false>(s, n, lane, 32);
-        g = warp_sweep(s, n, min_dp, lane);
+        g = reg_read<REG_EVENTS / 32>(a, n, min_dp, lane);
     }
     if (lane == 0) write_row(out, T, r, n > 0 || has[r], g, end_clip);
 }
 
 // (e) one block a listed read, in dynamic shared memory where it fits
-// smem_keys keys, else in place in its bucket
+// smem_keys keys, else in place in its bucket (counted in ndev)
 __global__ void __launch_bounds__(BIG_THREADS)
 ev_sweep_big_kernel(uint32_t* buf, const int32_t* __restrict__ off,
                     const int32_t* __restrict__ cnt, int64_t T,
                     int32_t min_dp, int32_t end_clip, uint32_t smem_keys,
                     int32_t* __restrict__ out,
                     const int32_t* __restrict__ big,
-                    const int32_t* __restrict__ nbig) {
+                    const int32_t* __restrict__ nbig,
+                    int32_t* __restrict__ ndev) {
     extern __shared__ uint32_t sbuf[];
     const int lane = threadIdx.x & 31;
     const int32_t nb = *nbig;
@@ -553,15 +543,29 @@ ev_sweep_big_kernel(uint32_t* buf, const int32_t* __restrict__ off,
             for (uint32_t i = threadIdx.x; i < n; i += blockDim.x)
                 sbuf[i] = a[i];
             a = sbuf;
+        } else if (threadIdx.x == 0) {
+            atomicAdd(ndev, 1);
         }
         __syncthreads();
-        bitonic_sort<true>(a, n, threadIdx.x, blockDim.x);
+        bitonic_sort(a, n);
         if (threadIdx.x < 32) {
             const Region g = warp_sweep(a, n, min_dp, lane);
             if (lane == 0) write_row(out, T, r, true, g, end_clip);
         }
         __syncthreads();  // before the next read reuses sbuf
     }
+}
+
+// (e)'s dynamic shared memory may reach SMEM_MAX: raised once per device
+cudaError_t allow_big_smem(int dev) {
+    static std::atomic<uint64_t> done{0};
+    const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        ev_sweep_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+    return e;
 }
 
 }  // namespace
@@ -581,12 +585,13 @@ extern "C" int ma_cut_hit2arc(const int32_t* qid, const int32_t* tid,
 }
 
 // seg, key: n int32 events; buf: n int32, the keys bucketed by read; aux:
-// 4T + 2 + ceil(T / 4) int32 of scratch, laid out cnt[T] | has[T] (bytes,
-// padded to words) | nbig | total | off[T] | cur[T] | big[T]; out: (4, T)
-// int32.  smem_cap: the on-chip memory, in bytes, a read's sort may use:
-// a read of more than min(smem_cap / 4, WARP_EVENTS) events goes to (e),
-// which sorts it in device memory when it needs more than
-// min(smem_cap, SMEM_MAX) bytes.
+// 4T + 3 + ceil(T / 4) int32 of scratch, laid out cnt[T] | has[T] (bytes,
+// padded to words) | nbig | ndev | total | off[T] | cur[T] | big[T]; out:
+// (4, T) int32.  smem_cap: the on-chip memory, in bytes, a read's sort may
+// use: a read of more than min(smem_cap / 4, REG_EVENTS) events goes to
+// (e), which sorts it in device memory when it needs more than
+// min(smem_cap, SMEM_MAX) bytes.  After the call aux's nbig and ndev hold
+// the reads that went to (e) and those of them sorted in device memory.
 extern "C" int ma_sweep_events(const int32_t* seg, const int32_t* key,
                                int64_t n, int64_t T, int min_dp,
                                int end_clip, int32_t* buf, int32_t* aux,
@@ -598,13 +603,20 @@ extern "C" int ma_sweep_events(const int32_t* seg, const int32_t* key,
     int32_t* cnt = aux;
     uint8_t* has = reinterpret_cast<uint8_t*>(aux + T);
     int32_t* nbig = aux + T + has_words;
-    int32_t* total = nbig + 1;
+    int32_t* ndev = nbig + 1;
+    int32_t* total = ndev + 1;
     int32_t* off = total + 1;
     int32_t* cur = off + T;
     int32_t* big = cur + T;
     uint32_t* keys = reinterpret_cast<uint32_t*>(buf);
-    cudaError_t e = cudaMemsetAsync(
-        aux, 0, (T + has_words + 2) * sizeof(int32_t), stream);
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = allow_big_smem(dev);
+    if (e == cudaSuccess)
+        e = cudaMemsetAsync(aux, 0, (T + has_words + 3) * sizeof(int32_t),
+                            stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     const uint32_t uT = static_cast<uint32_t>(T);
     const unsigned ev_blocks = n_blocks(n, EV_THREADS * EV_ITEMS);
@@ -621,26 +633,12 @@ extern "C" int ma_sweep_events(const int32_t* seg, const int32_t* key,
     ev_sweep_warp_kernel<<<n_blocks(T, SW_WARPS), SW_WARPS * 32, 0,
                            stream>>>(
         keys, off, cnt, has, T, min_dp, end_clip,
-        cap < WARP_EVENTS ? cap : WARP_EVENTS, out, big, nbig);
+        cap < REG_EVENTS ? cap : REG_EVENTS, out, big, nbig);
     const uint32_t smem_keys = cap < SMEM_MAX / 4 ? cap : SMEM_MAX / 4;
-    const size_t smem = static_cast<size_t>(smem_keys) * 4;
-    if (smem > 48 * 1024) {
-        e = cudaFuncSetAttribute(ev_sweep_big_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        e = cudaGetDevice(&dev);
-        if (e == cudaSuccess)
-            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev);
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
     ev_sweep_big_kernel<<<static_cast<unsigned int>(T < sms ? T : sms),
-                          BIG_THREADS, smem, stream>>>(
-        keys, off, cnt, T, min_dp, end_clip, smem_keys, out, big, nbig);
+                          BIG_THREADS, static_cast<size_t>(smem_keys) * 4,
+                          stream>>>(
+        keys, off, cnt, T, min_dp, end_clip, smem_keys, out, big, nbig,
+        ndev);
     return static_cast<int>(cudaGetLastError());
 }

@@ -43,10 +43,6 @@ K_SWEEP = Kernel(
     [P, P, I64, I64, I32, I32, P, P, I32, P],
     replaces="miniasm_tpu/select/fused2.py:131")
 
-# the largest read whose events one warp sorts (in registers up to 256,
-# then in shared memory); a block sorts a larger one (csrc/select.cu)
-WARP_EVENTS = 1024
-
 # rows of the cut_hit2arc output
 CUT_ROWS_RELAXED = 6   # qs qe ts te lanes dp
 CUT_ROWS_FINAL = 15    # qs qe ts te lanes rq uq vq lq olq rm um vm lm olm
@@ -198,6 +194,18 @@ def sweep_events(seg, key, T: int, min_dp: int, end_clip: int, *,
     to reach the latter."""
     if seg.device.type == "cpu":
         return sweep_events_plain(seg, key, T, min_dp, end_clip)
+    return sweep_events_tiers(seg, key, T, min_dp, end_clip,
+                              smem_cap=smem_cap)[0]
+
+
+def sweep_events_tiers(seg, key, T: int, min_dp: int, end_clip: int, *,
+                       smem_cap: int = SMEM_MAX):
+    """The sweep kernel on CUDA tensors, as sweep_events, and the branches
+    its reads took: returns (out, tiers), tiers a (2,) int32 tensor on the
+    card [the reads sorted by a block, those of them sorted in device
+    memory]; every other read was sorted by a warp in registers."""
+    if seg.device.type != "cuda":
+        raise ValueError("sweep_events_tiers: CUDA tensors expected")
     if seg.dtype != torch.int32 or key.dtype != torch.int32 \
             or seg.dim() != 1 or key.shape != seg.shape:
         raise TypeError("sweep_events: two 1-D int32 columns of one length "
@@ -208,15 +216,15 @@ def sweep_events(seg, key, T: int, min_dp: int, end_clip: int, *,
     dev = seg.device
     out = torch.empty((4, T), dtype=torch.int32, device=dev)
     if T == 0:
-        return out
+        return out, torch.zeros(2, dtype=torch.int32, device=dev)
     buf = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    # csrc/select.cu ma_sweep_events: cnt[T] has[T bytes] nbig total
+    # csrc/select.cu ma_sweep_events: cnt[T] has[T bytes] nbig ndev total
     # off[T] cur[T] big[T]
-    aux = torch.empty(4 * T + 2 + (T + 3) // 4, dtype=torch.int32,
-                      device=dev)
+    has_words = (T + 3) // 4
+    aux = torch.empty(4 * T + 3 + has_words, dtype=torch.int32, device=dev)
     K_SWEEP(ptr(seg), ptr(key), n, T, int(min_dp), int(end_clip), ptr(buf),
             ptr(aux), int(smem_cap), ptr(out))
-    return out
+    return out, aux[T + has_words:T + has_words + 2]
 
 
 def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):

@@ -128,10 +128,13 @@ def test_sweep_kernel_matches_plain(dev, end_clip):
 @pytest.mark.parametrize("smem_cap", [0, 2048, 8192, None])
 def test_sweep_kernel_smem_cap(dev, smem_cap):
     """Reads of 60 to 19,000 events (read i drawn with weight 1/(i+1)):
-    with the cap at its default they take every branch (registers up to
-    256 events, a warp's shared memory up to 1024, a block's above); the
-    cap lowered sends every read (0), the reads past 512 events (2048) or
-    past 2048 (8192) to device memory."""
+    with the cap at its default they take every branch that fits on chip
+    (a warp's registers up to 256 events, a block's shared memory above);
+    the cap lowered sends every read (0), the reads past 512 events (2048)
+    or past 2048 (8192) to device memory.  The kernel's own branch counts
+    say so."""
+    from miniasm_tpu_torch.select import fused2
+
     T = 300
     rng = np.random.default_rng(3)
     w = 1.0 / np.arange(1, T)
@@ -139,6 +142,17 @@ def test_sweep_kernel_smem_cap(dev, smem_cap):
     kw = {} if smem_cap is None else {"smem_cap": smem_cap}
     want = check_sweep(dev, seg, key, T, 3, 500, **kw)
     assert (want[0] != want[1]).sum() > 250
+    _, tiers = fused2.sweep_events_tiers(
+        torch.from_numpy(seg).to(dev), torch.from_numpy(key).to(dev), T, 3,
+        500, **kw)
+    n = np.bincount(seg[(seg < T) & (key != fused2.SKIP)], minlength=T)
+    keys = (fused2.SMEM_MAX if smem_cap is None else smem_cap) // 4
+    # a warp sorts up to 256 events (REG_EVENTS, csrc/select.cu)
+    assert tiers.tolist() == [int((n > min(keys, 256)).sum()),
+                              int((n > min(keys, fused2.SMEM_MAX // 4))
+                                  .sum())]
+    if smem_cap is None:
+        assert tiers[0] > 0 and tiers[1] == 0
 
 
 @pytest.mark.parametrize("n_sides", [50_000, 100_000])

@@ -29,14 +29,17 @@ What it does, in order:
      just after it, and the run fails unless each kernel launched as that
      run requires (EXPECT, and MH_EXPECT for each worker process): K1-K4,
      K9 and K10 on the noisy main-path runs, K2, K5 and K6 on the staged
-     runs, K3, K7 and K8 on the oracle runs, K11, K1-K4 on the sharded
+     runs, K3, K7 and K8 on the oracle runs, K11 (its layout pass once
+     per Layout, its scatter once per payload), K1-K4 on the sharded
      runs;
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events, the
-     wrapper also by torch.profiler's device time; K11 also on an 8-way
-     routing of the clean rows and on each worker process's own
-     repartition call (its inputs, saved by the process); the shapes of
+     wrapper also by torch.profiler's device time; K9 also on seeded
+     pieces with edge-case run tables; K11 also on an 8-way routing of
+     the clean rows, a skewed 1,024-way routing and each worker process's
+     own repartition call (its inputs, saved by the process), and its
+     layout pass against layout_plain on every call's Layout; the shapes of
      every K3 and K4 call of noisy_ug, read from the recorded calls (the
      runs themselves carry no hook that syncs, reduces or copies);
   5. runs the same commands, and the sharded runs on a one-rank gloo
@@ -84,7 +87,8 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
 # another (pafread.cpp) and launches neither.
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
-         "decode3": ">0", "unpack4": "=decode3", "route": 0}
+         "decode3": ">0", "unpack4": "=decode3", "route": 0,
+         "route_layout": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -99,7 +103,8 @@ def _staged(sweep, hit_cut, hit2arc, graph):
     return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
             "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
-            "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0}
+            "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0,
+            "route_layout": 0}
 
 
 def _oracle(symm_calls):
@@ -134,12 +139,17 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           # below E. coli size the switch can come in the first piece
           "long_ug": dict(_CLEAN, decode3="any"),
           # the sharded runs: rank 0 loads on the host (7-row pieces,
-          # nothing to decode: no K9/K10); K11 once per sweep pass, then
-          # the main path's select and clean kernels
-          "sharded_ug": dict(_CLEAN, route=2, decode3=0, unpack4=0),
-          "sharded_ug_2": dict(_CLEAN, route=2, decode3=0, unpack4=0),
-          "sharded_ug_3": dict(_CLEAN, route=2, decode3=0, unpack4=0),
-          "sharded_noisy_ug": dict(_NOISY, route=2, decode3=0, unpack4=0)}
+          # nothing to decode: no K9/K10); K11's layout pass once for the
+          # select step's one Layout and its scatter once per sweep pass,
+          # then the main path's select and clean kernels
+          "sharded_ug": dict(_CLEAN, route=2, route_layout=1, decode3=0,
+                             unpack4=0),
+          "sharded_ug_2": dict(_CLEAN, route=2, route_layout=1, decode3=0,
+                               unpack4=0),
+          "sharded_ug_3": dict(_CLEAN, route=2, route_layout=1, decode3=0,
+                               unpack4=0),
+          "sharded_noisy_ug": dict(_NOISY, route=2, route_layout=1,
+                                   decode3=0, unpack4=0)}
 EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
 # data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
@@ -182,11 +192,13 @@ ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
 # K11's largest call of the run of record (its other calls are listed as
 # cases beside it)
 ROW_CALL = {"route": ("sharded", "sharded_ug")}
-# each worker process of the multi-process run (rank -> launches): K11 for
-# the repartition and both sweep passes, K1 and K2 twice; rank 0 alone
-# cleans (without the group, as the JAX worker does)
+# each worker process of the multi-process run (rank -> launches): K11's
+# scatter for the repartition and both sweep passes, its layout pass for
+# the repartition's and the select step's Layout, K1 and K2 twice; rank 0
+# alone cleans (without the group, as the JAX worker does)
 _MH = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
-       "decode3": 0, "unpack4": 0, "route": 3, "cut_hit2arc": 2, "sweep": 2}
+       "decode3": 0, "unpack4": 0, "route": 3, "route_layout": 2,
+       "cut_hit2arc": 2, "sweep": 2}
 MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0"),
              1: dict(_MH, trans_multi=0, bubble_bfs=0)}
 MH_PROCS = len(MH_EXPECT)
@@ -427,10 +439,9 @@ def _cost(name, args, kw, out):
     if name == "decode3":
         flat = args[0]
         n = out.shape[1]
-        # per record: a binary search over the n/8 run starts (a compare
-        # and a halving per probe), the nibble shift and mask, the or
-        probes = max(n // 8, 1).bit_length()
-        return _nbytes(flat) + _nbytes(out), n * (2 * probes + 6)
+        # per record: its run mark and the max scan, the nibble shift and
+        # mask, the or
+        return _nbytes(flat) + _nbytes(out), 6 * n
     if name == "unpack4":
         n = out.shape[1]
         # 4 words in, 7 out; shifts and masks
@@ -441,6 +452,11 @@ def _cost(name, args, kw, out):
         # integer ops) and R stores
         return (_nbytes(dest, payload) + _nbytes(out),
                 (10 + payload.shape[0]) * dest.numel())
+    if name == "route_layout":
+        # K11's layout pass: dest read once, the bins and offsets written;
+        # per row its bin, match and popcount (about 6 integer ops)
+        dest = args[0]
+        return _nbytes(dest) + 8 * (2 * args[1] + 4), 6 * dest.numel()
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -452,6 +468,26 @@ def _cost(name, args, kw, out):
         return (_nbytes(first, av, al, adel, live_out, sources)
                 + _nbytes(*out)), ops
     raise KeyError(name)
+
+
+def _measure_layout(lay, reps):
+    """K11's layout pass on one call's destinations: a new Layout against
+    layout_plain on the same card tensor (bins, sizes, offsets and total
+    equal), both timed (each ends in its read-back), the pass's device
+    time (memset, kernel, read-back) and its bytes and operations."""
+    from miniasm_tpu_torch.parallel import route as rt
+
+    dest, n_sh = lay.dest, lay.n_sh
+    new = rt.Layout(dest, n_sh)
+    h, off = rt.layout_plain(dest, n_sh)
+    if new.sizes != h[1:n_sh + 1] or new.total != int(off[-1]) \
+            or not torch.equal(new.off, off):
+        _fail("route's layout pass disagrees with layout_plain")
+    b, o = _cost("route_layout", (dest, n_sh), {}, None)
+    return {"ms": _time_ms(lambda: rt.Layout(dest, n_sh), reps),
+            "device_ms": _device_ms(lambda: rt.Layout(dest, n_sh), reps),
+            "plain_ms": _time_ms(lambda: rt.layout_plain(dest, n_sh), reps),
+            "bytes": b, "ops": o, "library_ms": None}
 
 
 def _read_events(seg, key, T):
@@ -608,11 +644,9 @@ def _kernel_phase(recs, runs, cases):
                 args = args[:2]
             m = _measure(name, fn, plain[name], args, kw, reps[name])
             if name == "route":
-                # the call's Layout: its histogram and the read-back, paid
-                # once per destination vector
-                lay = args[0]
-                m["layout_ms"] = _time_ms(
-                    lambda: rt.Layout(lay.dest, lay.n_sh), reps[name])
+                # the call's Layout: K11's layout pass and the read-back,
+                # paid once per destination vector
+                m["layout"] = _measure_layout(args[0], reps[name])
             if m["err"] != 0.0:
                 _fail("kernel %s[%s] disagrees with its plain version "
                       "(max abs err %r)" % (name, key, m["err"]))
@@ -636,8 +670,10 @@ def _kernel_phase(recs, runs, cases):
                "max_abs_err": max(m["err"] for m in measured.values())}
         row.update(_sum(own))
         row["calls_timed"] = len(own)
-        if name in ROW_CALL:
-            row["layout_ms"] = own[0]["layout_ms"]
+        if name == "route":
+            row["layout"] = dict(
+                _sum([own[0]["layout"]]),
+                launches=runs[RUN_OF_RECORD[name]]["launches"]["route_layout"])
         if name in REUSE:
             sub, path, run = REUSE[name]
             parts = [m for k, m in measured.items() if k[0] == path]
@@ -780,11 +816,42 @@ def _sweep_cases() -> dict:
                                                       {"smem_cap": 0})}}
 
 
+def _decode3_cases() -> dict:
+    """K9's calls beyond the recorded ones: seeded pieces of 131,072
+    records with the run tables a query-grouped stream does not give: the
+    first run after record 0, one run over the piece, every run in the
+    last 16 records (most starts repeated), and repeated starts."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    n = 1 << 17
+    m = n // 8
+    tables = {"late_first_run": np.sort(
+                  rng.choice(np.arange(1500, n), m // 3, replace=False)),
+              "one_run": np.zeros(1, np.int64),
+              "runs_in_last_16": np.sort(rng.integers(n - 16, n, m)),
+              "duplicate_starts": np.sort(rng.integers(0, n, m // 2))}
+    cases = {}
+    for name, starts in tables.items():
+        bp = np.full(m, -1, np.int64)
+        bp[:len(starts)] = starts
+        bq = np.where(bp >= 0, rng.integers(0, 2**28, m), 0)
+        flat = np.concatenate([rng.integers(-2**31, 2**31, 3 * n),
+                               rng.integers(0, 2**32, m), bp, bq])
+        flat = (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        cases[("cases", name)] = ((torch.from_numpy(flat).cuda(),), {})
+    return {"decode3": cases}
+
+
 def _route_cases(paf: str, mdir: str) -> dict:
     """K11's calls beyond the recorded ones: an 8-way routing of the clean
     rows (dest = tid // ceil(n_seq / 8), self matches dropped, the four
-    payload rows of the sweep exchange), and each worker process's
-    repartition, on the inputs the process saved (--stats)."""
+    payload rows of the sweep exchange), the same payload to 1,024 shards
+    on seeded skewed destinations (Zipf, exponent 1.3: about 30% of the
+    rows to shard 0, the tail past 1,023 dropped), and each worker
+    process's repartition, on the inputs the process saved (--stats)."""
+    import numpy as np
+
     from miniasm_tpu_torch.config import Opt
     from miniasm_tpu_torch.io.native.pafload import load_hits_mt
     from miniasm_tpu_torch.parallel import full, route as rt
@@ -799,6 +866,9 @@ def _route_cases(paf: str, mdir: str) -> dict:
     dest = full._owner_of(tid, block_size(d.n_seq, 8), 8, qid != tid)
     pay = torch.stack([tid, cm[4], cm[5], cm[6]]).contiguous()
     cases = {("cases", "ecoli_8way"): ((rt.Layout(dest, 8), pay), {})}
+    skew = np.random.default_rng(SEED).zipf(1.3, dest.numel()) - 1
+    skew = torch.from_numpy(np.minimum(skew, 1024).astype(np.int32)).cuda()
+    cases[("cases", "skewed_1024")] = ((rt.Layout(skew, 1024), pay), {})
     for k in range(MH_PROCS):
         x = torch.load(os.path.join(mdir, "p%d.json.route.pt" % k))
         cases[("cases", "multihost_rank%d_repart" % k)] = (
@@ -1083,8 +1153,9 @@ def main(argv=None) -> int:
               % (longest, a.genome))
 
     # --- 4. kernels against their plain versions ---
-    rows = _kernel_phase(recs, runs, dict(_sweep_cases(), **_route_cases(
-        paf, os.path.join(ddir, "multihost"))))
+    cases = dict(_sweep_cases(), **_decode3_cases())
+    cases.update(_route_cases(paf, os.path.join(ddir, "multihost")))
+    rows = _kernel_phase(recs, runs, cases)
 
     # --- 5. the same commands on the CPU ---
     for tag, args, mode, path in plan:

@@ -91,6 +91,9 @@ def decode3(flat):
     if flat.dtype != torch.int32 or flat.dim() != 1 or n % 16 \
             or flat.shape[0] != 3 * n + 3 * (n // 8):
         raise ValueError("decode3: a flat int32 FMT3 piece expected")
+    if flat.data_ptr() % 16:
+        # the kernel moves rows in 16-byte words; a new tensor is aligned
+        flat = flat.clone()
     out = torch.empty((4, n), dtype=torch.int32, device=flat.device)
     if n:
         K_DECODE3(ptr(flat), n, ptr(out))

@@ -303,6 +303,68 @@ def test_route_kernel_matches_plain(dev, n_sh):
                                want)
 
 
+def _route_case(kind, n_sh, rng, R):
+    """(dest, payload) of a route case: random destinations with dropped
+    rows; every row dropped; every row to one bucket; skewed (most rows
+    to a few buckets); random on 1 and 4096 +- 1 rows (tiles of 1024)."""
+    L = int(kind[1:]) if kind.startswith("L") else 50_000
+    if kind == "dropped":
+        dest = np.full(L, n_sh)
+    elif kind == "one_bucket":
+        dest = np.full(L, n_sh // 2)
+    elif kind == "skewed":
+        dest = np.minimum(rng.zipf(1.3, L) - 1, n_sh)
+    else:
+        dest = rng.integers(0, n_sh + 1, L)
+    payload = rng.integers(-2**31, 2**31 - 1, (R, L))
+    return (torch.from_numpy(dest.astype(np.int32)),
+            torch.from_numpy(payload.astype(np.int32)))
+
+
+@pytest.mark.parametrize("R", [4, 7, 11])
+@pytest.mark.parametrize("kind", ["random", "dropped", "one_bucket",
+                                  "skewed", "L1", "L4095", "L4097"])
+@pytest.mark.parametrize("n_sh", [1, 8, 1024])
+def test_route_kernel_cases(dev, n_sh, kind, R):
+    """The layout pass and the scatter against their plain versions: the
+    card's Layout equals the CPU's in sizes, off and total, and route()
+    equals route_plain; the layout launches once per Layout, the scatter
+    once per payload."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.parallel import route as rt
+
+    rng = np.random.default_rng(1000 * n_sh + 10 * R + len(kind))
+    d, p = _route_case(kind, n_sh, rng, R)
+    n0 = cuda.launch_counts()
+    on_card = rt.Layout(d.to(dev), n_sh)
+    on_host = rt.Layout(d, n_sh)
+    assert on_card.sizes == on_host.sizes
+    assert on_card.total == on_host.total
+    assert on_card.off.cpu().tolist() == on_host.off.tolist()
+    h, off = rt.layout_plain(d.to(dev), n_sh)
+    assert h[1:n_sh + 1] == on_card.sizes
+    assert torch.equal(off, on_card.off)
+    for q in (p, p.flip(1).contiguous()):
+        got = rt.route(on_card, q.to(dev))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), rt.route(on_host, q))
+    n1 = cuda.launch_counts()
+    assert n1["route_layout"] - n0["route_layout"] == 1
+    assert n1["route"] - n0["route"] == 2
+
+
+def test_route_layout_raises_on_card(dev):
+    from miniasm_tpu_torch.parallel import route as rt
+
+    d = torch.tensor([0, 1, 1, 1, 2, 0] * 1000, dtype=torch.int32,
+                     device=dev)
+    with pytest.raises(ValueError, match="beyond"):
+        rt.Layout(d + 1, 2)
+    with pytest.raises(ValueError, match="negative"):
+        rt.Layout(d - 1, 2)
+    assert rt.Layout(d, 2).sizes == [2000, 3000]
+
+
 def _noisy_paf(tmp_path):
     """tests/conftest.py's sim_noisy: the 200 kb simulation with half of
     its PAF lines dropped (random.Random(36))."""
@@ -786,24 +848,72 @@ def _fmt3_piece(rng, n, runs):
     return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
-@pytest.mark.parametrize("case", ["sixteen", "padded", "full", "all_zero",
-                                  "large"])
+def _fmt3_with_starts(rng, n, starts):
+    """_fmt3_piece of n records whose run table is `starts` (ascending,
+    repeats allowed), the rest of the table -1."""
+    flat = _fmt3_piece(rng, n, 2).astype(np.int64)
+    m = n // 8
+    bp = np.full(m, -1, np.int64)
+    bp[:len(starts)] = starts
+    flat[3 * n + m:3 * n + 2 * m] = bp
+    flat[3 * n + 2 * m:] = np.where(bp >= 0, rng.integers(0, 2**28, m), 0)
+    return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def _decode3_case(case, rng):
+    """The flat piece of one decode3 case: the seeded pieces, and the edge
+    cases of the run table (the first run after record 0, one run over the
+    piece, every run in the last 16 records, equal starts) on tiles of
+    1024 records and on a whole 131,072-record piece."""
+    runs = {"sixteen": (16, 2), "padded": (4096, 37), "full": (4096, 512),
+            "all_zero": (4096, 0), "large": (1 << 19, 20_000),
+            "piece": (1 << 17, 4000)}
+    if case in runs:
+        n, k = runs[case]
+        return (np.zeros(3 * n + 3 * (n // 8), np.int32) if not k
+                else _fmt3_piece(rng, n, k))
+    n = 1 << 17 if case.endswith("_piece") else 4096 + 16
+    m = n // 8
+    starts = {"late_first_run": lambda: np.sort(
+                  rng.choice(np.arange(1500, n), m // 3, False)),
+              "one_run": lambda: [0],
+              "runs_in_last_16": lambda: np.sort(
+                  rng.integers(n - 16, n, m)),
+              "duplicate_starts": lambda: np.sort(
+                  rng.integers(0, n, m // 2))}[case.replace("_piece", "")]()
+    return _fmt3_with_starts(rng, n, starts)
+
+
+@pytest.mark.parametrize("case", [
+    "sixteen", "padded", "full", "all_zero", "large", "piece",
+    "late_first_run", "one_run", "runs_in_last_16", "duplicate_starts",
+    "late_first_run_piece", "one_run_piece", "runs_in_last_16_piece",
+    "duplicate_starts_piece"])
 def test_decode3_kernel_matches_plain(dev, case):
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.io.native import pafload
 
-    rng = np.random.default_rng(9)
-    n, runs = {"sixteen": (16, 2), "padded": (4096, 37),
-               "full": (4096, 512), "all_zero": (4096, 0),
-               "large": (1 << 19, 20_000)}[case]
-    flat = (np.zeros(3 * n + 3 * (n // 8), np.int32) if not runs
-            else _fmt3_piece(rng, n, runs))
+    flat = _decode3_case(case, np.random.default_rng(9))
     before = cuda.launch_counts()["decode3"]
     got = pafload.decode3(torch.from_numpy(flat).to(dev))
     torch.cuda.synchronize()
     assert cuda.launch_counts()["decode3"] == before + 1
     want = pafload.decode3_plain(torch.from_numpy(flat))
     assert torch.equal(got.cpu(), want)
+
+
+def test_decode3_kernel_unaligned_piece(dev):
+    """A piece that starts 4 bytes past a 16-byte boundary (the kernel
+    moves 16-byte words) decodes as an aligned one."""
+    from miniasm_tpu_torch.io.native import pafload
+
+    flat = torch.from_numpy(_decode3_case("padded",
+                                          np.random.default_rng(4)))
+    buf = torch.empty(flat.shape[0] + 1, dtype=torch.int32, device=dev)
+    buf[1:] = flat.to(dev)
+    got = pafload.decode3(buf[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pafload.decode3_plain(flat))
 
 
 def test_unpack4_kernel_matches_plain(dev):

@@ -38,11 +38,35 @@ def fmt3_piece(rng, n, runs, *, pad_runs=True):
     return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
+def with_starts(rng, n, starts):
+    """fmt3_piece of n records whose run table is `starts` (ascending,
+    repeats allowed) with random qids, the rest of the table -1."""
+    flat = fmt3_piece(rng, n, 2).astype(np.int64)
+    m = n // 8
+    bp = np.full(m, -1, np.int64)
+    bp[:len(starts)] = starts
+    flat[3 * n + m:3 * n + 2 * m] = bp
+    flat[3 * n + 2 * m:] = np.where(bp >= 0, rng.integers(0, 2**28, m), 0)
+    return (flat & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
 PIECES = {
     "grouped": lambda rng: fmt3_piece(rng, 4096, 512, pad_runs=False),
     "padded_runs": lambda rng: fmt3_piece(rng, 4096, 37),
     "all_zero": lambda rng: np.zeros(3 * 4096 + 3 * 512, np.int32),
     "sixteen": lambda rng: fmt3_piece(rng, 16, 2),
+    # the first run starts after record 0: the records before it get qid 0
+    "late_first_run": lambda rng: with_starts(
+        rng, 4096, np.sort(rng.choice(np.arange(700, 4096), 40, False))),
+    "one_run": lambda rng: with_starts(rng, 4096, [0]),
+    # every run starts in the last 16 records, most of them more than once
+    "runs_in_last_16": lambda rng: with_starts(
+        rng, 4096, np.sort(rng.integers(4080, 4096, 512))),
+    # equal run starts resolve to the last of them
+    "duplicate_starts": lambda rng: with_starts(
+        rng, 4096, np.sort(rng.integers(0, 4096, 300))),
+    # a whole piece of the main path's loader, grouped as it writes it
+    "full_piece": lambda rng: fmt3_piece(rng, 131_072, 4000),
 }
 
 

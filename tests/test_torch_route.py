@@ -33,12 +33,20 @@ def jax_send(dest, payload, n_sh, cap):
 def _case(kind, n_sh, rng, L=3000, R=4):
     """(dest, payload): random destinations with dropped rows; 'sparse'
     leaves every other bucket empty and drops most rows; 'ties' sends
-    every kept row to one bucket."""
+    every kept row to one bucket; 'dropped' drops every row; 'one_bucket'
+    sends every row to one bucket; 'L1', 'L4095' and 'L4097' are random
+    destinations on that many rows (the kernels tile by 1024 rows)."""
+    if kind.startswith("L"):
+        kind, L = "random", int(kind[1:])
     if kind == "random":
         dest = rng.integers(0, n_sh + 1, L)
     elif kind == "sparse":
         dest = np.where(rng.random(L) < 0.7, n_sh,
                         2 * rng.integers(0, (n_sh + 1) // 2, L))
+    elif kind == "dropped":
+        dest = np.full(L, n_sh)
+    elif kind == "one_bucket":
+        dest = np.full(L, n_sh // 2)
     else:
         dest = np.where(rng.random(L) < 0.2, n_sh, n_sh - 1)
     payload = rng.integers(-2**31, 2**31 - 1, (R, L))
@@ -52,8 +60,9 @@ def _exact(want, hist):
                           axis=1)
 
 
-@pytest.mark.parametrize("kind", ["random", "sparse", "ties"])
-@pytest.mark.parametrize("n_sh", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "sparse", "ties", "dropped",
+                                  "one_bucket", "L1", "L4095", "L4097"])
+@pytest.mark.parametrize("n_sh", [1, 2, 3, 8, 1024])
 def test_route_plain_matches_jax_bucketing(n_sh, kind):
     rng = np.random.default_rng(100 * n_sh + len(kind))
     dest, payload = _case(kind, n_sh, rng)
@@ -66,6 +75,10 @@ def test_route_plain_matches_jax_bucketing(n_sh, kind):
     assert np.array_equal(got.numpy().T, _exact(want, hist))
     if kind == "sparse" and n_sh > 1:
         assert 0 in layout.sizes
+    if kind == "dropped":
+        assert layout.total == 0 and got.shape == (0, payload.shape[0])
+    if kind == "one_bucket":
+        assert layout.sizes[n_sh // 2] == dest.shape[0]
 
 
 def test_route_repart_rows_match_jax():

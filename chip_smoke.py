@@ -36,7 +36,9 @@ What it does, in order:
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events, the
      wrapper also by torch.profiler's device time; K9 also on seeded
-     pieces with edge-case run tables; K11 also on an 8-way routing of
+     pieces with edge-case run tables; K7 and K8 also on seeded keys
+     with duplicates, with (-1, -1) (all ones, as the hash table's empty
+     slots) and pads, and on 4,194,304 keys (a table past L2); K11 also on an 8-way routing of
      the clean rows, a skewed 1,024-way routing and each worker process's
      own repartition call (its inputs, saved by the process), and its
      layout pass against layout_plain on every call's Layout; the shapes of
@@ -428,14 +430,21 @@ def _cost(name, args, kw, out):
         n = cols.shape[1]
         return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
     if name == "key_member":
-        hay, needles = args[0], args[1]
-        probes = max(int(hay.numel()).bit_length(), 1)
-        # one binary search per needle: a compare and a halving per probe
-        return (_nbytes(hay, needles) + _nbytes(out),
-                2 * probes * needles.numel())
+        # the int32 columns of the hay rows below hay_n (one more for the
+        # pads) and of the live needles read once, the mask written once;
+        # per key its packing, fmix64 hash and slot compare (about 20
+        # integer ops)
+        hay, hay_n, needles, needle_n = args[:4]
+        mh, mq = hay[0].numel(), needles[0].numel()
+        rows = max(min(hay_n, mh), 0)
+        rows += rows < mh
+        live = max(min(needle_n, mq), 0)
+        return 4 * len(hay) * (rows + live) + _nbytes(out), 20 * (rows + live)
     if name == "dup_mark":
-        key, perm = args
-        return _nbytes(key, perm) + _nbytes(out), 2 * key.numel()
+        # u and v read once, the mask written once; each arc packed,
+        # hashed and compared in both passes
+        u, v = args
+        return _nbytes(u, v) + _nbytes(out), 40 * u.numel()
     if name == "decode3":
         flat = args[0]
         n = out.shape[1]
@@ -512,12 +521,22 @@ def _measure(name, fn, plain, args, kw, reps):
          "device_ms": _device_ms(lambda: fn(*args, **kw), reps),
          "plain_ms": _time_ms(lambda: plain(*args, **kw), 2),
          "bytes": b, "ops": o, "library_ms": None,
-         "shapes": [list(x.shape) for x in args if hasattr(x, "shape")]}
-    if name == "key_member" and args[2] >= args[1].numel():
-        if not torch.equal(torch.isin(args[1], args[0]), got):
+         "shapes": [list(x.shape) for a in args
+                    for x in (a if isinstance(a, list) else [a])
+                    if hasattr(x, "shape")]}
+    if name == "key_member" and args[3] >= args[2][0].numel():
+        # every needle live: torch.isin on the packed keys (the hay's pads
+        # masked, the needles xor-ed), packed before the timing
+        from miniasm_tpu_torch.utils import arrays
+
+        hay, hay_n, needles = args[:3]
+        xr = args[4] if len(args) > 4 else kw.get("needle_xor", 0)
+        live = torch.arange(hay[0].numel(), device=hay[0].device) < hay_n
+        hk = arrays.pack_keys([torch.where(live, c, 2**31 - 1) for c in hay])
+        qk = arrays.pack_keys([c ^ xr for c in needles])
+        if not torch.equal(torch.isin(qk, hk), got):
             _fail("key_member disagrees with torch.isin")
-        m["library_ms"] = _time_ms(lambda: torch.isin(args[1], args[0]),
-                                   reps)
+        m["library_ms"] = _time_ms(lambda: torch.isin(qk, hk), reps)
     return m
 
 
@@ -587,13 +606,43 @@ def _sum(parts) -> dict:
             "library_ms": None if None in lib else sum(lib)}
 
 
-def _seeded_dup_input(n: int):
-    """K8's input on seeded keys with many duplicates (the E. coli graphs
-    have none): the stable sort of n keys drawn from n // 3 values."""
+def _symm_cases(n: int) -> dict:
+    """K7's and K8's calls beyond the recorded ones (n: the largest
+    recorded call's arcs), seeded int32 columns: K8 on n arcs drawn from
+    about n / 3 (u, v) pairs (the E. coli graphs have no duplicate), on
+    (-1, -1) arcs among others ((-1, -1) packs to all ones, the pattern of
+    the table's empty slots) and on 4,194,304 arcs (a table of 128 MB, past
+    the 50 MB L2); K7 on n keys with (-1, -1) among hay and needles,
+    INT32_MAX pads (hay_n < mh) and dead needles (needle_n < mq), and on
+    4,194,304 keys (a table of 128 MB) whose needles are half the hay xor
+    1, as del_asymm_mask asks."""
     import numpy as np
 
-    key = np.random.default_rng(SEED).integers(0, max(n // 3, 1), n)
-    return torch.sort(torch.from_numpy(key).cuda(), stable=True)
+    rng = np.random.default_rng(SEED)
+
+    def cols(*cs):
+        return [torch.from_numpy(np.asarray(c).astype(np.int32)).cuda()
+                for c in cs]
+
+    big = 1 << 22
+    dups = cols(rng.integers(0, max(n // 300, 1), n), rng.integers(0, 100, n))
+    marker = cols(rng.integers(-1, 2, n), rng.integers(-1, 1, n))
+    wide = cols(rng.integers(0, 1024, big), rng.integers(0, 1024, big))
+    h = cols(np.concatenate([rng.integers(-1, 200, n), [-1]]),
+             np.concatenate([rng.integers(-1, 200, n), [-1]]))
+    q = cols(np.concatenate([[2**31 - 1, -1], rng.integers(-1, 220, n)]),
+             np.concatenate([[2**31 - 1, -1], rng.integers(-1, 200, n)]))
+    hb = cols(rng.integers(-2**31, 2**31, big), rng.integers(-2**31, 2**31, big))
+    qb = [torch.cat([c[:big // 2] ^ 1, x]) for c, x in zip(hb, cols(
+        rng.integers(-2**31, 2**31, big // 2),
+        rng.integers(-2**31, 2**31, big // 2)))]
+    return {"dup_mark": {("seeded", "dups"): (tuple(dups), {}),
+                         ("seeded", "marker"): (tuple(marker), {}),
+                         ("seeded", "beyond_l2"): (tuple(wide), {})},
+            "key_member": {("seeded", "marker_pads"): (
+                               (h, n - 100, q, n - 50, 0), {}),
+                           ("seeded", "beyond_l2"): (
+                               (hb, big, qb, big, 1), {})}}
 
 
 def _kernel_phase(recs, runs, cases):
@@ -630,9 +679,6 @@ def _kernel_phase(recs, runs, cases):
     for rec in recs:
         name = rec.kernel
         calls = dict(rec.calls)
-        if name == "dup_mark" and calls:
-            n = max(c[1][0].numel() for c in calls.values())
-            calls[("seeded", "dups")] = (0, _seeded_dup_input(n), {})
         for key, (args, kw) in cases.get(name, {}).items():
             calls[key] = (0, args, kw)
         fn = rec.orig
@@ -650,7 +696,8 @@ def _kernel_phase(recs, runs, cases):
             if m["err"] != 0.0:
                 _fail("kernel %s[%s] disagrees with its plain version "
                       "(max abs err %r)" % (name, key, m["err"]))
-            if key[0] == "seeded" and not rec.orig(*args).any():
+            if name == "dup_mark" and key[0] == "seeded" \
+                    and not rec.orig(*args).any():
                 _fail("dup_mark: the seeded input has no duplicate")
             measured[key] = m
         own = [m for k, m in measured.items() if k[0] == ROW_PATH[name]]
@@ -902,7 +949,6 @@ def main(argv=None) -> int:
     from miniasm_tpu_torch.io.native.build import get_lib
     from miniasm_tpu_torch.parallel import full as pfull, group
     from miniasm_tpu_torch.select import cut, fused2
-    from miniasm_tpu_torch.utils import arrays
 
     if a.genome == ECOLI_BP:
         for (tag, name), want in AT_ECOLI.items():
@@ -1062,7 +1108,9 @@ def main(argv=None) -> int:
             Recorder(h2a, "hit2arc_rows", on_path(
                 lambda a_, k: "relaxed" if a_[3] == 0.5 else "final"),
                 kernel="hit2arc"),
-            Recorder(arrays, "key_member", on_path(lambda a_, k: "all")),
+            # del_asymm_mask calls K7 by clean's name for it
+            Recorder(clean, "key_member", on_path(lambda a_, k: "all"),
+                     size_fn=lambda a_, k: a_[2][0].numel()),
             Recorder(clean, "dup_mark", on_path(lambda a_, k: "all")),
             Recorder(pafload, "decode3", on_path(lambda a_, k: "all")),
             # the largest piece: the most columns unpacked
@@ -1153,7 +1201,9 @@ def main(argv=None) -> int:
               % (longest, a.genome))
 
     # --- 4. kernels against their plain versions ---
-    cases = dict(_sweep_cases(), **_decode3_cases())
+    n_arcs = max((c[1][0].numel() for r in recs if r.kernel == "dup_mark"
+                  for c in r.calls.values()), default=1 << 15)
+    cases = dict(_sweep_cases(), **_decode3_cases(), **_symm_cases(n_arcs))
     cases.update(_route_cases(paf, os.path.join(ddir, "multihost")))
     rows = _kernel_phase(recs, runs, cases)
 

@@ -6,10 +6,9 @@ read mid-pass mutations, asg.c), so a data-parallel implementation is
 exactly order-equivalent to the reference's sequential scan:
 
   - del_multi  (asg.c:104-121): keep the first arc per (v, w) in arc order
-    -- one stable torch.sort of the packed (u, v) keys and the K8 dup_mark
-    kernel (csrc/symm.cu);
+    -- the K8 dup_mark kernel (csrc/symm.cu) on the uploaded (u, v);
   - del_asymm  (asg.c:124-138): delete u->v lacking complement v'->u' --
-    member_multi (utils/arrays.py, the K7 key_member kernel);
+    the K7 key_member kernel (utils/arrays.py) on the same columns;
   - del_trans  (asg.c:148-193): Myers transitive reduction -- the K3
     trans_multi kernel of the hybrid cleaner (graph/devclean.py), bit 0;
   - del_short  (asg.c:83-101): per-vertex weak-overlap threshold drop
@@ -26,38 +25,44 @@ import numpy as np
 import torch
 
 from ..cuda import P, I64, Kernel, ptr
-from ..utils.arrays import key_column, member_multi, pack_keys
+from ..utils.arrays import (check_cols, check_cuda_cols, key_column,
+                            key_member, pack_keys, table_slots)
 from ..utils.timers import log
 from .asg import Graph, cleanup
 
 CPU = torch.device("cpu")
 
-K_DUP = Kernel("dup_mark", "symm.cu", "ma_dup_mark", [P, P, I64, P],
+K_DUP = Kernel("dup_mark", "symm.cu", "ma_dup_mark", [P, P, I64, P, I64, P],
                replaces="miniasm_tpu/graph/clean.py:32")
 
 
-def dup_mark_plain(key: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K8: mask[perm[i]] = key[i] == key[i-1]."""
-    n = key.shape[0]
-    dup = torch.zeros(n, dtype=torch.bool, device=key.device)
+def dup_mark_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: the packed (u, v) keys sorted stably,
+    each entry marked when it repeats the key before it in sorted order."""
+    check_cols("dup_mark", [u, v])
+    key, perm = torch.sort(pack_keys([u, v]), stable=True)
+    dup = torch.zeros(key.shape[0], dtype=torch.bool, device=key.device)
     dup[1:] = key[1:] == key[:-1]
-    mask = torch.empty(n, dtype=torch.bool, device=key.device)
+    mask = torch.empty_like(dup)
     mask[perm] = dup
     return mask
 
 
-def dup_mark(key: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """K8.  key (n,) int64 sorted stably, perm (n,) int64 its permutation.
-    Returns (n,) bool in the original order: the entry repeats the key of
-    the entry before it in sorted order."""
-    if key.device.type == "cpu":
-        return dup_mark_plain(key, perm)
-    if key.dtype != torch.int64 or perm.dtype != torch.int64:
-        raise TypeError("dup_mark: int64 keys and permutation expected")
-    n = key.shape[0]
-    mask = torch.empty(n, dtype=torch.bool, device=key.device)
+def dup_mark(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K8.  u, v (n,) int32 arc columns.  Returns (n,) bool: an arc j < i
+    has the same (u, v) as arc i."""
+    check_cols("dup_mark", [u, v])
+    if u.device.type == "cpu" and v.device.type == "cpu":
+        return dup_mark_plain(u, v)
+    dev = check_cuda_cols("dup_mark", [u, v])
+    n = u.shape[0]
+    if n >= 2**31:
+        raise ValueError("dup_mark: at most 2^31 - 1 arcs")
+    mask = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        K_DUP(ptr(key), ptr(perm), n, ptr(mask))
+        cap = table_slots(n)
+        table = torch.empty(cap, dtype=torch.int32, device=dev)
+        K_DUP(ptr(u), ptr(v), n, ptr(table), cap, ptr(mask))
     return mask
 
 
@@ -65,19 +70,17 @@ def del_multi_mask(u, vcol, device: torch.device = CPU) -> np.ndarray:
     """Mask of duplicate arcs: same (u, v) as an earlier arc (the reference
     keeps the first occurrence in arc order, asg.c:108-115).  Any arc
     order."""
-    key = pack_keys([key_column(x, device) for x in (u, vcol)])
-    skey, perm = torch.sort(key, stable=True)
-    return dup_mark(skey, perm).cpu().numpy()
+    return dup_mark(key_column(u, device),
+                    key_column(vcol, device)).cpu().numpy()
 
 
 def del_asymm_mask(u, vcol, device: torch.device = CPU) -> np.ndarray:
     """Mask of arcs u->v with no complement v^1 -> u^1 present
-    (asg.c:124-138)."""
-    n = u.shape[0]
-    u = np.asarray(u).astype(np.int32)
-    vcol = np.asarray(vcol).astype(np.int32)
-    present = member_multi([u, vcol], n, [vcol ^ 1, u ^ 1], n, device=device)
-    return ~present.cpu().numpy()
+    (asg.c:124-138): K7 on the uploaded (u, v), whose needles are the
+    same columns swapped, xor 1."""
+    uc, vc = key_column(u, device), key_column(vcol, device)
+    n = uc.shape[0]
+    return ~key_member([uc, vc], n, [vc, uc], n, needle_xor=1).cpu().numpy()
 
 
 def del_multi(g: Graph, device: torch.device = CPU) -> Graph:

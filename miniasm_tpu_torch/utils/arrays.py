@@ -2,9 +2,9 @@
 
 Set membership over composite keys (`member_multi`, l.81): the JAX program
 sorts hay and needles together with a stable multi-key sort and scans for
-the last hay row.  Here each key tuple is packed into one int64, the hay
-keys are sorted with one `torch.sort`, and the K7 `key_member` kernel
-(csrc/symm.cu) looks each needle up by binary search.
+the last hay row.  Here the K7 `key_member` kernel (csrc/symm.cu) takes
+the int32 key columns on the card as they are, inserts the hay keys into
+a hash table and looks each needle up; no sort runs in front of it.
 
 The sorting and indexing helpers (`argsort_multi`, `sort_rows_multi`,
 `segment_starts`, `csr_index`, `compact`) are plain torch ops with the JAX
@@ -17,12 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..cuda import I64, P, Kernel, ptr
+from ..cuda import I32, I64, P, Kernel, ptr
 
 INT32_MAX = 2**31 - 1
 
 K_MEMBER = Kernel(
-    "key_member", "symm.cu", "ma_key_member", [P, I64, P, I64, I64, P],
+    "key_member", "symm.cu", "ma_key_member",
+    [P, P, I64, I64, P, P, I64, I64, I32, P, I64, P],
     replaces="miniasm_tpu/utils/arrays.py:81")
 
 
@@ -96,47 +97,110 @@ def _pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.int64) << 32) | (b.to(torch.int64) & 0xFFFFFFFF)
 
 
-def pack_keys(cols: list[torch.Tensor]) -> torch.Tensor:
-    """Pack int32 key columns (most significant first) into one int64 per
-    row that is equal exactly when every column is: one column sign-extends,
-    two pack into the high and low words, and longer tuples first fold
-    their leading pair into its dense rank."""
+def fold_keys(cols: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Int32 key columns (most significant first) folded to at most two
+    that are equal exactly when every column is: a longer tuple's leading
+    pair becomes its dense rank, until two columns are left."""
     cols = list(cols)
     while len(cols) > 2:
         rank = torch.unique(_pack2(cols[0], cols[1]), return_inverse=True)[1]
         cols = [rank.to(torch.int32)] + cols[2:]
+    return cols
+
+
+def pack_keys(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Pack int32 key columns into one int64 per row that is equal exactly
+    when every column is: one column sign-extends, two pack into the high
+    and low words (the packing K7 and K8 do in registers), and longer
+    tuples fold first (fold_keys)."""
+    cols = fold_keys(cols)
     if len(cols) == 1:
         return cols[0].to(torch.int64)
     return _pack2(cols[0], cols[1])
 
 
-def key_member_plain(hay_sorted: torch.Tensor, needles: torch.Tensor,
-                     needle_n: int) -> torch.Tensor:
-    """Plain PyTorch version of K7: (mq,) bool, needle i < needle_n found in
-    the sorted (mh,) int64 hay."""
-    mh, mq = hay_sorted.shape[0], needles.shape[0]
-    live = torch.arange(mq, device=needles.device) < needle_n
+def check_cols(fn: str, *groups) -> None:
+    """K7's and K8's key columns: one or two per group, equally long."""
+    for cols in groups:
+        if not 1 <= len(cols) <= 2:
+            raise ValueError("%s: 1 or 2 key columns expected, got %d"
+                             % (fn, len(cols)))
+        if len({c.shape for c in cols}) != 1 or cols[0].dim() != 1:
+            raise ValueError("%s: key columns of one length expected" % fn)
+    if len({len(cols) for cols in groups}) != 1:
+        raise ValueError("%s: as many needle as hay columns expected" % fn)
+
+
+def check_cuda_cols(fn: str, cols) -> torch.device:
+    """Raise unless every column is a contiguous int32 tensor on one CUDA
+    device; returns the device."""
+    dev = cols[0].device
+    for c in cols:
+        if c.dtype != torch.int32:
+            raise TypeError("%s: int32 key columns expected, got %s"
+                            % (fn, c.dtype))
+        if c.device != dev:
+            raise ValueError("%s: key columns on different devices" % fn)
+        ptr(c)  # a contiguous CUDA tensor
+    return dev
+
+
+# K7's and K8's hash table: slots per key, so the load factor is at most
+# its inverse.  A pass lasts as long as its longest probe chain (about 6
+# slots at 1/8 and 31,000 keys, 27 at 1/2); 8 beat 2, 4 and 16 on the
+# E. coli calls, measured on the card
+SLOTS_PER_KEY = 8
+
+
+def table_slots(n: int) -> int:
+    """The hash table's capacity for n keys: the least power of two of at
+    least SLOTS_PER_KEY * n, and at least 2."""
+    return 1 << max(SLOTS_PER_KEY * n - 1, 1).bit_length()
+
+
+def key_member_plain(hay, hay_n, needles, needle_n,
+                     needle_xor: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K7: the packed hay keys (rows >= hay_n as
+    INT32_MAX in every column) sorted, each packed needle (its columns
+    xor needle_xor) looked up by searchsorted; needles >= needle_n are
+    False.  Returns (mq,) bool."""
+    check_cols("key_member", hay, needles)
+    mh, mq = hay[0].shape[0], needles[0].shape[0]
+    dev = needles[0].device
+    live = torch.arange(mq, device=dev) < needle_n
     if mh == 0:
-        return torch.zeros(mq, dtype=torch.bool, device=needles.device)
-    pos = torch.searchsorted(hay_sorted, needles).clamp(max=mh - 1)
-    return (hay_sorted[pos] == needles) & live
+        return torch.zeros(mq, dtype=torch.bool, device=dev)
+    h = torch.sort(pack_keys([_masked_i32(c, hay_n) for c in hay])).values
+    q = pack_keys([c ^ needle_xor for c in needles])
+    pos = torch.searchsorted(h, q).clamp(max=mh - 1)
+    return (h[pos] == q) & live
 
 
-def key_member(hay_sorted: torch.Tensor, needles: torch.Tensor,
-               needle_n: int) -> torch.Tensor:
-    """K7.  hay_sorted (mh,) int64 ascending, needles (mq,) int64.  Returns
-    (mq,) bool: needle i < needle_n equals some hay key."""
-    if needles.device.type == "cpu":
-        return key_member_plain(hay_sorted, needles, needle_n)
-    if hay_sorted.dtype != torch.int64 or needles.dtype != torch.int64:
-        raise TypeError("key_member: int64 keys expected")
-    if hay_sorted.device != needles.device:
-        raise ValueError("key_member: hay and needles on different devices")
-    mq = needles.shape[0]
-    found = torch.empty(mq, dtype=torch.bool, device=needles.device)
+def key_member(hay, hay_n, needles, needle_n,
+               needle_xor: int = 0) -> torch.Tensor:
+    """K7.  hay and needles: lists of 1 or 2 int32 key columns (most
+    significant first); hay rows >= hay_n take INT32_MAX in every column;
+    each needle's columns are xor-ed with needle_xor.  Returns (mq,) bool:
+    needle i < needle_n equals some hay key."""
+    check_cols("key_member", hay, needles)
+    cols = list(hay) + list(needles)
+    if all(c.device.type == "cpu" for c in cols):
+        return key_member_plain(hay, hay_n, needles, needle_n, needle_xor)
+    dev = check_cuda_cols("key_member", cols)
+    mh, mq = hay[0].shape[0], needles[0].shape[0]
+    if max(mh, mq) >= 2**31:
+        raise ValueError("key_member: at most 2^31 - 1 keys")
+    found = torch.empty(mq, dtype=torch.bool, device=dev)
     if mq:
-        K_MEMBER(ptr(hay_sorted), hay_sorted.shape[0], ptr(needles), mq,
-                 max(min(int(needle_n), mq), 0), ptr(found))
+        hay_n = max(min(int(hay_n), mh), 0)
+        rows = hay_n + (hay_n < mh)  # one row stands for all the pads
+        cap = table_slots(rows)
+        table = torch.empty(cap, dtype=torch.int32, device=dev)
+        two = len(hay) == 2
+        K_MEMBER(ptr(hay[0]), ptr(hay[1]) if two else None, rows, hay_n,
+                 ptr(needles[0]), ptr(needles[1]) if two else None, mq,
+                 max(min(int(needle_n), mq), 0), int(needle_xor),
+                 ptr(table), cap, ptr(found))
     return found
 
 
@@ -145,14 +209,16 @@ def member_multi(hay_keys, hay_n, needle_keys, needle_n,
     """Is each needle tuple among the hay tuples?  Numpy key columns are
     cast to int32; hay rows >= hay_n take INT32_MAX in every
     column (so an all-INT32_MAX needle is found there) and needles >=
-    needle_n are False, as in the JAX program.  Returns (mq,) bool on
-    `device`."""
+    needle_n are False, as in the JAX program.  One or two columns go
+    to K7 as they are; longer tuples are masked and folded to two
+    columns first (fold_keys over hay and needles together).  Returns
+    (mq,) bool on `device`."""
     assert len(hay_keys) == len(needle_keys)
     h = [key_column(k, device) for k in hay_keys]
     q = [key_column(k, device) for k in needle_keys]
-    mh = h[0].shape[0]
-    h = [_masked_i32(k, hay_n) for k in h]
-    q = [_masked_i32(k, needle_n) for k in q]
-    keys = pack_keys([torch.cat([a, b]) for a, b in zip(h, q)])
-    hay = torch.sort(keys[:mh]).values
-    return key_member(hay, keys[mh:].contiguous(), needle_n)
+    if len(h) > 2:
+        mh = h[0].shape[0]
+        cols = fold_keys([torch.cat([_masked_i32(a, hay_n), b])
+                          for a, b in zip(h, q)])
+        h, q, hay_n = [c[:mh] for c in cols], [c[mh:] for c in cols], mh
+    return key_member(h, hay_n, q, needle_n)

@@ -729,62 +729,164 @@ def test_staged_run_on_card_matches_cpu(dev, tmp_path, args):
     assert n["cut_hit2arc"] == 0 and n["hit2arc"] > 0
 
 
+I32MAX = 2**31 - 1
+
+
 def _member_inputs(case, rng):
-    """(sorted hay, needles, needle_n) int64 keys for K7."""
+    """(hay columns, hay_n, needle columns, needle_n, needle_xor) as int32
+    numpy columns for K7."""
     if case == "empty_hay":
-        return np.zeros(0, np.int64), rng.integers(0, 9, 100), 100
+        h = [np.zeros(0, np.int32)] * 2
+        return h, 0, [rng.integers(-1, 3, 100)] * 2, 100, 0
     if case == "empty_needles":
-        return np.sort(rng.integers(0, 9, 100)), np.zeros(0, np.int64), 0
+        return [rng.integers(0, 9, 100)], 100, [np.zeros(0, np.int32)], 0, 0
     if case == "one":
-        return np.array([7]), np.array([7]), 1
+        return [np.array([7]), np.array([-1])], 1, \
+            [np.array([7]), np.array([-1])], 1, 0
+    if case == "marker":
+        # (-1, -1) packs to all ones, the bytes of an empty table slot: in
+        # the hay and among the needles, and -1 alone in one column
+        h = [np.array([-1, 2, -1]), np.array([-1, -1, 3])]
+        q = [np.array([-1, -1, 2, -1, -1]), np.array([-1, 3, 0, -1, -1])]
+        return h, 3, q, 4, 0
+    if case == "marker_absent":
+        h = [rng.integers(-3, 3, 5000), rng.integers(0, 3, 5000)]
+        q = [np.full(3000, -1), np.full(3000, -1)]
+        return h, 5000, q, 3000, 0
+    if case == "marker_one_col":
+        return [np.array([-1, 4])], 2, [np.array([-1, 4, 5, -1])], 3, 0
+    if case == "pads":
+        # INT32_MAX pads (hay_n < mh), dead needles (needle_n < mq), and
+        # (-1, -1) beside them
+        h = [np.concatenate([rng.integers(-5, 5, 3000), [-1, I32MAX]]),
+             np.concatenate([rng.integers(-5, 5, 3000), [-1, I32MAX]])]
+        q = [np.concatenate([[I32MAX, I32MAX, -1], rng.integers(-6, 6, 4000)]),
+             np.concatenate([[I32MAX, 0, -1], rng.integers(-6, 6, 4000)])]
+        return h, 2500, q, 3500, 0
+    if case == "pads_one_col":
+        h = [np.concatenate([rng.integers(-50, 50, 300), [I32MAX]])]
+        q = [np.concatenate([[I32MAX], rng.integers(-60, 60, 500)])]
+        return h, 200, q, 450, 0
     if case == "all_dups":
-        return np.full(5000, 42), rng.integers(40, 45, 8000), 6000
-    if case == "sentinel":
-        # the packed all-INT32_MAX tuple of masked hay rows and needles
-        smax = ((2**31 - 1) << 32) | (2**31 - 1)
-        hay = np.sort(np.concatenate([rng.integers(-2**62, 2**62, 3000),
-                                      np.full(40, smax)]))
-        q = np.concatenate([hay[rng.integers(0, hay.size, 2000)],
-                            rng.integers(-2**62, 2**62, 2000),
-                            np.full(30, smax)])
-        return hay, q, q.size - 10
-    hay = np.sort(rng.integers(-2**40, 2**40, 200_000))
-    q = np.concatenate([hay[rng.integers(0, hay.size, 100_000)],
-                        rng.integers(-2**40, 2**40, 100_000)])
-    return hay, rng.permutation(q), 150_000
+        h = [np.full(5000, 42), np.full(5000, 42)]
+        q = [rng.integers(40, 45, 8000), rng.integers(41, 44, 8000)]
+        return h, 5000, q, 6000, 0
+    if case == "extremes":
+        vals = np.array([-2**31, -2**31 + 1, I32MAX, -1, -2, 0, 1])
+        h = [rng.choice(vals, 4000), rng.choice(vals, 4000)]
+        q = [rng.choice(vals, 4000), rng.choice(vals, 4000)]
+        return h, 3900, q, 4000, 1
+    if case == "complements":  # del_asymm's call: (u, v) against (v^1, u^1)
+        u, v = rng.integers(0, 40_000, 100_000), rng.integers(0, 40_000, 100_000)
+        return [u, v], 100_000, [v, u], 100_000, 1
+    if case == "beyond_l2":
+        # 4,194,304 hay keys: the table (128 MB) leaves L2
+        n = 1 << 22
+        h = [rng.integers(-2**31, 2**31, n), rng.integers(-2**31, 2**31, n)]
+        q = [np.concatenate([h[0][:n // 2], rng.integers(-2**31, 2**31, n // 2)]),
+             np.concatenate([h[1][:n // 2], rng.integers(-2**31, 2**31, n // 2)])]
+        return h, n - 1000, q, n - 10, 0
+    assert case == "random"
+    h = [rng.integers(-2**31, 2**31, 200_000), rng.integers(0, 9, 200_000)]
+    q = [np.concatenate([h[0][:100_000], rng.integers(-2**31, 2**31, 100_000)]),
+         np.concatenate([h[1][:100_000], rng.integers(0, 9, 100_000)])]
+    return h, 200_000, q, 150_000, 0
+
+
+def _cols(cols, dev):
+    return [torch.from_numpy(np.asarray(c).astype(np.int32)).to(dev)
+            for c in cols]
 
 
 @pytest.mark.parametrize("case", ["empty_hay", "empty_needles", "one",
-                                  "all_dups", "sentinel", "random"])
+                                  "marker", "marker_absent",
+                                  "marker_one_col", "pads", "pads_one_col",
+                                  "all_dups", "extremes", "complements",
+                                  "beyond_l2", "random"])
 def test_key_member_kernel_matches_plain(dev, case):
     from miniasm_tpu_torch.utils import arrays
 
-    hay, q, qn = _member_inputs(case, np.random.default_rng(7))
-    args = (torch.from_numpy(np.asarray(hay, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(q, np.int64)).to(dev), qn)
+    h, hn, q, qn, xr = _member_inputs(case, np.random.default_rng(7))
+    args = (_cols(h, dev), hn, _cols(q, dev), qn, xr)
+    n0 = arrays.K_MEMBER.launches
     got = arrays.key_member(*args)
     torch.cuda.synchronize()
     want = arrays.key_member_plain(*args)
     assert torch.equal(got, want)
-    if case in ("sentinel", "random"):
+    assert arrays.K_MEMBER.launches == n0 + (len(q[0]) > 0)
+    if case in ("marker", "marker_one_col"):
+        assert got.tolist() == {"marker": [True, True, False, True, False],
+                                "marker_one_col": [True, True, False,
+                                                   False]}[case]
+    if case in ("pads", "pads_one_col", "extremes", "complements",
+                "beyond_l2", "random"):
         assert want.any() and not want.all()
+    if case == "marker_absent":
+        assert not want.any()
 
 
-@pytest.mark.parametrize("case", ["empty", "one", "all_dups", "random"])
+def _dup_inputs(case, rng):
+    """(u, v) int32 numpy arc columns for K8."""
+    n = {"empty": 0, "one": 1, "one_marker": 1, "marker": 20_000,
+         "all_dups": 100_000, "far_dups": 300_000, "extremes": 50_000,
+         "beyond_l2": 1 << 22, "random": 300_000}[case]
+    if case == "one_marker":
+        return np.full(1, -1), np.full(1, -1)
+    if case == "marker":  # (-1, -1), all ones as an empty slot, a third
+        u, v = rng.integers(-1, 2, n), rng.integers(-1, 1, n)
+        return u, v
+    if case == "all_dups":  # every arc the same key
+        return np.full(n, 5), np.full(n, 6)
+    if case == "far_dups":
+        # every key twice, the copies half an array apart
+        u, v = rng.integers(0, 2**30, n // 2), rng.integers(0, 2**30, n // 2)
+        p = rng.permutation(n // 2)
+        return np.concatenate([u, u[p]]), np.concatenate([v, v[p]])
+    if case == "extremes":
+        vals = np.array([-2**31, -2**31 + 1, I32MAX, -1, -2, 0, 1])
+        return rng.choice(vals, n), rng.choice(vals, n)
+    if case == "beyond_l2":
+        # 4,194,304 arcs from a million pairs: the table (128 MB) leaves L2
+        return rng.integers(0, 1024, n), rng.integers(0, 1024, n)
+    return rng.integers(0, max(n // 50, 1), n), rng.integers(0, 50, n)
+
+
+@pytest.mark.parametrize("case", ["empty", "one", "one_marker", "marker",
+                                  "all_dups", "far_dups", "extremes",
+                                  "beyond_l2", "random"])
 def test_dup_mark_kernel_matches_plain(dev, case):
     from miniasm_tpu_torch.graph import clean
 
-    rng = np.random.default_rng(8)
-    n = {"empty": 0, "one": 1, "all_dups": 10_000, "random": 300_000}[case]
-    key = (np.full(n, 5) if case == "all_dups"
-           else rng.integers(0, max(n // 3, 1), n))
-    skey, perm = torch.sort(torch.from_numpy(key.astype(np.int64)).to(dev),
-                            stable=True)
-    got = clean.dup_mark(skey, perm)
+    u, v = _dup_inputs(case, np.random.default_rng(8))
+    uc, vc = _cols([u, v], dev)
+    n0 = clean.K_DUP.launches
+    got = clean.dup_mark(uc, vc)
     torch.cuda.synchronize()
-    want = clean.dup_mark_plain(skey, perm)
+    want = clean.dup_mark_plain(uc, vc)
     assert torch.equal(got, want)
-    assert int(want.sum()) == n - len(set(key.tolist()))
+    assert clean.K_DUP.launches == n0 + (len(u) > 0)
+    pairs = set(zip(np.asarray(u, np.int32).tolist(),
+                    np.asarray(v, np.int32).tolist()))
+    assert int(want.sum()) == len(u) - len(pairs)
+    if case == "far_dups":
+        h = len(u) // 2
+        assert not want[:h].any() and want[h:].sum() > 0
+
+
+def test_symm_wrappers_raise_on_card(dev):
+    """K7 and K8 take contiguous int32 columns on one card; anything else
+    raises, nothing falls back to the plain version."""
+    from miniasm_tpu_torch.graph import clean
+    from miniasm_tpu_torch.utils import arrays
+
+    c = torch.arange(8, dtype=torch.int32, device=dev)
+    bad = [c.to(torch.int64), c.view(4, 2)[:, 0], c.cpu()]
+    for b in bad:
+        with pytest.raises((TypeError, ValueError)):
+            clean.dup_mark(c, b) if b.numel() == 8 else \
+                clean.dup_mark(c[:4], b)
+        with pytest.raises((TypeError, ValueError)):
+            arrays.key_member([c], 8, [b], 8)
 
 
 @pytest.mark.parametrize("mode,args", [

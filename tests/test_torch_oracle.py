@@ -67,13 +67,71 @@ def _member_case(case, rng):
         h = [rng.integers(0, 3, 120) for _ in range(3)]
         q = [rng.integers(0, 4, 100) for _ in range(3)]
         return h, 110, q, 95
+    if case == "marker":
+        # (-1, -1) packs to all ones, the bytes of K7's empty slots; present
+        # in the hay, and as needles inside and past needle_n
+        h = [np.array([-1, 3, -1, 0]), np.array([-1, 3, 0, -1])]
+        q = [np.array([-1, 0, -1, -1, 3, -1]), np.array([-1, -1, 0, 5, 3, -1])]
+        return h, 4, q, 5
+    if case == "marker_absent":  # (-1, -1) needles, no (-1, -1) hay row
+        h = [np.array([-1, 0, 7]), np.array([0, -1, 7])]
+        q = [np.array([-1, -1, 7]), np.array([-1, -1, 7])]
+        return h, 3, q, 3
+    if case == "marker_one_col":  # -1 in one column is the same pattern
+        h = [np.array([4, -1, 2, 9, 9])]
+        q = [np.array([-1, -1, 9, 3, 2, -1])]
+        return h, 3, q, 6
+    if case == "marker_pads":
+        # (-1, -1) and INT32_MAX pads together: hay_n < mh, needle_n < mq
+        h = [np.array([-1, 5, I32MAX, -1, 8]), np.array([-1, 5, I32MAX, 2, 8])]
+        q = [np.array([-1, I32MAX, 8, -1, I32MAX, -1]),
+             np.array([-1, I32MAX, 8, 2, I32MAX, -1])]
+        return h, 2, q, 5
+    if case == "all_equal":  # one key in every hay and needle row
+        h = [np.full(90, 6), np.full(90, -3)]
+        q = [np.full(70, 6), np.full(70, -3)]
+        return h, 90, q, 60
+    if case == "extremes":  # INT32_MIN / INT32_MAX and -1 in both columns
+        vals = np.array([-2**31, 2**31 - 1, -1, 0, 1])
+        h = [rng.choice(vals, 40), rng.choice(vals, 40)]
+        q = [rng.choice(vals, 60), rng.choice(vals, 60)]
+        return h, 33, q, 55
+    if case == "n0":  # no hay row and no needle
+        return [np.zeros(0, np.int32)] * 2, 0, [np.zeros(0, np.int32)] * 2, 0
+    if case == "n1":
+        return [np.array([3]), np.array([1])], 1, \
+            [np.array([3]), np.array([1])], 1
+    if case == "n_out_of_range":
+        # hay_n and needle_n past the lengths: no pad, every needle live;
+        # a negative hay_n pads every hay row
+        h = [rng.integers(0, 4, 30), rng.integers(0, 4, 30)]
+        q = [np.concatenate([rng.integers(0, 5, 20), [I32MAX]]),
+             np.concatenate([rng.integers(0, 4, 20), [I32MAX]])]
+        return h, 45, q, 30
+    if case == "negative_n":
+        h = [rng.integers(0, 4, 30), rng.integers(0, 4, 30)]
+        q = [np.array([I32MAX, 1, I32MAX]), np.array([I32MAX, 1, 0])]
+        return h, -3, q, 3
     assert case == "empty_hay"
     return [np.zeros(0, np.int32)] * 2, 0, [rng.integers(0, 3, 10)] * 2, 10
 
 
+MEMBER_EXPECT = {"marker": [True, True, True, False, True, False],
+                 "marker_absent": [False, False, True],
+                 "marker_one_col": [True, True, False, False, True, True],
+                 "marker_pads": [True, True, False, False, True, False],
+                 "all_equal": [True] * 60 + [False] * 10,
+                 "n1": [True],
+                 "negative_n": [True, False, False]}
+
+
 @pytest.mark.parametrize("case", ["tail", "dups", "sentinel",
                                   "sentinel_full", "wrap", "one_col",
-                                  "three_cols", "empty_hay"])
+                                  "three_cols", "empty_hay", "marker",
+                                  "marker_absent", "marker_one_col",
+                                  "marker_pads", "all_equal", "extremes",
+                                  "n0", "n1", "n_out_of_range",
+                                  "negative_n"])
 def test_member_multi_matches_jax(case):
     h, hn, q, qn = _member_case(case, np.random.default_rng(11))
     want = np.asarray(jmember(h, hn, q, qn))
@@ -81,6 +139,8 @@ def test_member_multi_matches_jax(case):
     assert got.dtype == bool and np.array_equal(got, want)
     if case == "sentinel":
         assert got.tolist() == [True, False, False, True, False]
+    if case in MEMBER_EXPECT:
+        assert got.tolist() == MEMBER_EXPECT[case]
 
 
 def _arc_cols(seed, n=400, span=30):
@@ -105,12 +165,84 @@ def test_del_multi_and_asymm_masks_match_jax(seed):
     assert np.array_equal(got_a, want_a) and 0 < got_a.sum() < len(u)
 
 
+def _symm_case(case):
+    """(u, v) arc columns for the symm masks' edge cases."""
+    if case == "n0":
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    if case == "n1":
+        return np.array([4], np.int32), np.array([6], np.int32)
+    if case == "n1_marker":
+        return np.array([-1], np.int32), np.array([-1], np.int32)
+    if case == "marker":
+        # (-1, -1) repeated (all ones, as K8's empty slots) beside its
+        # complement (-2, -2) and ordinary arcs
+        u = np.array([3, -1, -2, -1, 7, -1, -2, 2], np.int32)
+        v = np.array([6, -1, -2, -1, 2, -1, -2, 6], np.int32)
+        return u, v
+    if case == "all_equal":
+        return np.full(500, 9, np.int32), np.full(500, 8, np.int32)
+    if case == "far_dups":
+        # each pair occurs at the start and again near the end, in
+        # another order: the first index stays
+        rng = np.random.default_rng(5)
+        u = rng.integers(0, 1000, 300).astype(np.int32)
+        v = rng.integers(0, 1000, 300).astype(np.int32)
+        p = rng.permutation(300)[:100]
+        return np.concatenate([u, u[p]]), np.concatenate([v, v[p]])
+    assert case == "extremes"
+    # INT32_MIN / MAX and values that wrap from uint32; x ^ 1 keeps them
+    vals = np.array([-2**31, -2**31 + 1, 2**31 - 1, 2**31 - 2, -1, -2, 0, 1])
+    rng = np.random.default_rng(6)
+    return (rng.choice(vals, 200).astype(np.int32),
+            rng.choice(vals, 200).astype(np.int32))
+
+
+SYMM_EXPECT = {"n1": ([False], [True]), "n1_marker": ([False], [True]),
+               "marker": ([False, False, False, True, False, True, True,
+                           False],
+                          [False] * 7 + [True])}
+
+
+@pytest.mark.parametrize("case", ["n0", "n1", "n1_marker", "marker",
+                                  "all_equal", "far_dups", "extremes"])
+def test_symm_masks_edge_cases_match_jax(case):
+    u, v = _symm_case(case)
+    got_m = tclean.del_multi_mask(u, v, CPU)
+    got_a = tclean.del_asymm_mask(u, v, CPU)
+    assert got_m.dtype == bool and got_m.shape == u.shape
+    assert np.array_equal(got_m, jclean.del_multi_mask(u, v))
+    assert np.array_equal(got_a, jclean.del_asymm_mask(u, v))
+    if case in SYMM_EXPECT:
+        assert (got_m.tolist(), got_a.tolist()) == SYMM_EXPECT[case]
+    if case == "all_equal":
+        assert got_m.tolist() == [False] + [True] * 499
+    if case == "far_dups":
+        assert not got_m[:300].any() and got_m[300:].all()
+
+
 def test_dup_mark_keeps_first_in_index_order():
     """K8's twin on keys that repeat far apart: the first index stays."""
-    key = torch.tensor([5, 3, 5, 5, 3, 9], dtype=torch.int64)
-    skey, perm = torch.sort(key, stable=True)
-    got = tclean.dup_mark(skey, perm)
+    u = torch.tensor([5, 3, 5, 5, 3, 9], dtype=torch.int32)
+    v = torch.tensor([1, 2, 1, 1, 2, 1], dtype=torch.int32)
+    got = tclean.dup_mark(u, v)
     assert got.tolist() == [False, False, True, True, True, False]
+
+
+@pytest.mark.parametrize("fn", ["key_member", "dup_mark"])
+def test_symm_wrappers_refuse_what_the_kernels_do_not_take(fn):
+    """K7 and K8 take one or two equally long int32 key columns, as many
+    for the needles as for the hay; anything else raises on every device."""
+    from miniasm_tpu_torch.utils import arrays as tarrays
+
+    c = torch.zeros(4, dtype=torch.int32)
+    if fn == "dup_mark":
+        with pytest.raises(ValueError):
+            tclean.dup_mark(c, torch.zeros(5, dtype=torch.int32))
+        return
+    for hay, needles in (([c] * 3, [c] * 3), ([c, c], [c]),
+                         ([c, c[:3]], [c, c]), ([], [])):
+        with pytest.raises(ValueError):
+            tarrays.key_member(hay, 4, needles, 4)
 
 
 def _graph(kind, seed):

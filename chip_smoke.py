@@ -46,7 +46,21 @@ What it does, in order:
      runs themselves carry no hook that syncs, reduces or copies);
   5. runs the same commands, and the sharded runs on a one-rank gloo
      group, with MINIASM_TPU_TORCH_DEVICE=cpu (the plain versions only)
-     and requires byte-identical stdout.
+     and requires byte-identical stdout;
+  6. the graft entry's forward step (eval/dryrun.py `entry`: K2, K5, K6
+     over 4,096 padded columns, one launch each, no other kernel; run
+     after the sharded runs of 3, so that its calls join the kernel phase
+     of 4 as cases), bit-equal to its CPU run;
+  7. the panel (eval/panel.py `run_one`, all 11 members, 10Mb-drop40
+     included) on the card and on the CPU: equal result dicts and GFA
+     bytes, tests/test_panel.py's assertions on its three members, and the
+     10 Mb member's launches held to the noisy main path's;
+  8. the dry run (`dryrun_multichip`) on a one-rank NCCL group and on two
+     gloo ranks on the card, each GFA the CPU single run's bytes; the
+     scaling harness (eval/scaling.py `measure`) on the clean PAF at 1 and
+     2 ranks, on the card and, for its keys and overlap count, on the CPU;
+     minidot, paftop, paf2mhap and ref2ovlp on the clean PAF or the
+     simulator's truth.
 
 It prints one JSON line per kernel and one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {"platform": "gpu", ...}}.  Any
@@ -925,6 +939,235 @@ def _route_cases(paf: str, mdir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the tool surfaces: the graft entry, the panel, the dry run, scaling and
+# the host tools
+
+def _entry_card():
+    """The graft entry's forward step on the card, its launches counted
+    (run among the recorders: its K2, K5 and K6 calls join the kernel
+    phase as cases of their rows)."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.eval import dryrun
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        fwd, (cm,) = dryrun.entry(device="cuda")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.time()
+    got = fwd(cm)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = cuda.launch_counts()
+    expect = {k: 0 for k in launches}
+    expect.update(sweep=1, hit_cut=1, hit2arc=1)
+    _check_launches("dryrun_entry", launches, expect)
+    return got, {"wall_s": dt, "launches": launches,
+                 "columns": cm.shape[1]}
+
+
+def _entry_check(got, info) -> dict:
+    """The card's forward step against the same step on the CPU (the plain
+    versions), bit for bit on every column."""
+    from miniasm_tpu_torch.eval import dryrun
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        pfwd, (pcm,) = dryrun.entry(device="cpu")
+    t0 = time.time()
+    want = pfwd(pcm)
+    info["cpu_wall_s"] = time.time() - t0
+    names = ("good", "u", "v", "l", "ol", "sub_s", "sub_e", "sub_del")
+    for name, g, w in zip(names, got, want):
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            _fail("dryrun_entry: %s differs between the card and the CPU"
+                  % name)
+    info["good"] = int(want[0].sum())
+    if not info["good"]:
+        _fail("dryrun_entry: no good arc")
+    _say("[card] dryrun_entry: %.4f s (CPU %.4f s), %d columns, %d valid, "
+         "%d good arcs, %d reads; launches %s; the eight outputs bit-equal "
+         "to the CPU's" % (info["wall_s"], info["cpu_wall_s"],
+                           info["columns"], int(pcm[9].sum()), info["good"],
+                           want[5].shape[0], json.dumps(info["launches"])))
+    return info
+
+
+PANEL_QUICK = ("clean20x", "drop30", "circular")  # tests/test_panel.py:15
+
+
+def _panel_phase() -> list:
+    """Every PANEL member through run_one on the card and on the CPU: the
+    result dicts equal and the GFAs (captured from pipeline.run) byte-
+    equal; the QUICK members meet tests/test_panel.py's assertions; the
+    10 Mb member launches as the noisy main path does (_NOISY)."""
+    import hashlib
+
+    from miniasm_tpu_torch import cuda, pipeline
+    from miniasm_tpu_torch.eval import panel
+
+    cap: dict = {}
+    orig = pipeline.run
+
+    def capture(paf, opt, **kw):
+        t0 = time.time()
+        r = orig(paf, opt, **kw)
+        cap["assembly_s"] = time.time() - t0
+        cap["gfa"] = kw["out"].getvalue()
+        return r
+
+    rows = []
+    pipeline.run = capture
+    try:
+        for cfg in panel.PANEL:
+            name = cfg[0]
+            got = {}
+            for device in ("cuda", "cpu"):
+                cap.clear()
+                cuda.reset_launches()
+                t0 = time.time()
+                with contextlib.redirect_stderr(io.StringIO()):
+                    res = panel.run_one(*cfg, device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                dt = time.time() - t0
+                if "gfa" not in cap:
+                    _fail("panel %s: run_one did not call pipeline.run"
+                          % name)
+                got[device] = dict(res=res, gfa=cap["gfa"], wall_s=dt,
+                                   assembly_s=cap["assembly_s"],
+                                   launches=cuda.launch_counts())
+            card, cpu = got["cuda"], got["cpu"]
+            if card["res"] != cpu["res"]:
+                _fail("panel %s: card %s, CPU %s" % (name, card["res"],
+                                                     cpu["res"]))
+            if card["gfa"] != cpu["gfa"]:
+                _fail("panel %s: card and CPU GFAs differ" % name)
+            want = dict(_NOISY) if name == "10Mb-drop40" else dict(
+                _MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
+                bubble_bfs="any", decode3="any", unpack4="any")
+            _check_launches("panel " + name, card["launches"], want)
+            r = card["res"]
+            if name in PANEL_QUICK and not (
+                    r["unitigs"] == 1 and r["layout_errors"] == 0
+                    and r["reads_in_layout"] > 20):
+                _fail("panel %s fails tests/test_panel.py's assertions: %s"
+                      % (name, r))
+            row = {"dataset": name, "config": list(cfg), "result": r,
+                   "gfa_bytes": len(card["gfa"]),
+                   "gfa_sha256": hashlib.sha256(
+                       card["gfa"].encode()).hexdigest(),
+                   "card_wall_s": card["wall_s"],
+                   "card_assembly_s": card["assembly_s"],
+                   "cpu_wall_s": cpu["wall_s"],
+                   "cpu_assembly_s": cpu["assembly_s"],
+                   "launches": card["launches"]}
+            _say("[panel] %s: run_one card %.3f s (pipeline.run %.3f s), "
+                 "CPU %.3f s (%.3f s); %s; GFA %d bytes, sha256 %s, equal on "
+                 "both; launches %s"
+                 % (name, card["wall_s"], card["assembly_s"], cpu["wall_s"],
+                    cpu["assembly_s"], json.dumps(r), row["gfa_bytes"],
+                    row["gfa_sha256"][:16], json.dumps(card["launches"])))
+            rows.append(row)
+    finally:
+        pipeline.run = orig
+    return rows
+
+
+def _dryrun_phase(ddir: str) -> dict:
+    """dryrun_multichip on a one-rank NCCL group and on two gloo ranks on
+    the one card (each asserts its sharded GFA equals its single-card run
+    and prints its line), both GFAs held to the CPU single run."""
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval import dryrun
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = os.path.join(ddir, "dryrun.paf")
+    dryrun.dryrun_paf(paf)
+    want = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(io.StringIO()):
+        run(paf, Opt(), out=want, device="cpu")
+    out = {"cpu_single_wall_s": time.time() - t0,
+           "gfa_bytes": len(want.getvalue())}
+    for tag, n, backend in (("dryrun_nccl_1", 1, None),
+                            ("dryrun_gloo_2", 2, "gloo")):
+        t0 = time.time()
+        gfa = dryrun.dryrun_multichip(n, backend=backend)
+        dt = time.time() - t0
+        if gfa != want.getvalue():
+            _fail("%s: the GFA differs from the CPU single run" % tag)
+        _say("[card] %s: %.3f s from launch to exit (spawn, group init, "
+             "rank 0's single-card run, run_sharded on every rank); GFA %d "
+             "bytes, the CPU single run's (%.3f s)"
+             % (tag, dt, len(gfa), out["cpu_single_wall_s"]))
+        out[tag] = {"wall_s": dt, "ranks": n,
+                    "backend": backend or "nccl"}
+    return out
+
+
+def _scaling_phase(paf: str) -> dict:
+    """measure on the clean PAF at 1 and 2 ranks on the card (NCCL at 1,
+    gloo at 2), printed as one line; the CPU run of the same call (one
+    round, gloo) gives the same keys and overlap count."""
+    from miniasm_tpu_torch.eval.scaling import measure
+
+    t0 = time.time()
+    r = measure(paf, [1, 2])
+    dt = time.time() - t0
+    _say("[scaling] %s" % json.dumps(r))
+    t0 = time.time()
+    c = measure(paf, [1, 2], repeats=1, device="cpu")
+    cpu_dt = time.time() - t0
+    if set(c) != set(r) or c["overlaps"] != r["overlaps"]:
+        _fail("scaling: the CPU run gives other keys or overlaps (%s, %s)"
+              % (sorted(c), c["overlaps"]))
+    _say("[scaling] %.3f s on the card (3 rounds), %.3f s on the CPU (1 "
+         "round): %d overlaps on both; CPU overlaps/s %s"
+         % (dt, cpu_dt, r["overlaps"], json.dumps(c["overlaps_per_s"])))
+    return {"card": r, "cpu": c, "wall_s": dt, "cpu_wall_s": cpu_dt}
+
+
+def _tools_phase(paf: str, fa: str, sim, ddir: str) -> dict:
+    """The host tools where there is no jax: minidot and paf2mhap on the
+    clean PAF, paftop and ref2ovlp on the simulator's truth mapping (by
+    name, and by reference position); each one's wall, output bytes and
+    sha256."""
+    import hashlib
+
+    from miniasm_tpu_torch import dotter
+    from miniasm_tpu_torch.eval import panel, ref2ovlp
+    from miniasm_tpu_torch.interop import paf2mhap, paftop
+
+    rows = panel.truth_paf(sim).splitlines(True)
+    truth = os.path.join(ddir, "truth.paf")
+    truth_pos = os.path.join(ddir, "truth_pos.paf")
+    with open(truth, "w") as f:
+        f.writelines(rows)
+    with open(truth_pos, "w") as f:
+        f.writelines(sorted(rows, key=lambda r: int(r.split("\t")[7])))
+    jobs = [("minidot", dotter.main, [paf]),
+            ("paf2mhap", paf2mhap.main, [fa, paf]),
+            ("paftop", paftop.main, [truth]),
+            ("ref2ovlp", ref2ovlp.main, [truth_pos])]
+    out = {}
+    for name, fn, argv in jobs:
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = fn(argv)
+        dt = time.time() - t0
+        text = buf.getvalue().encode()
+        if rc != 0 or not text:
+            sys.stderr.write(err.getvalue()[-2000:])
+            _fail("%s exited %d with %d bytes" % (name, rc, len(text)))
+        out[name] = {"wall_s": dt, "bytes": len(text),
+                     "sha256": hashlib.sha256(text).hexdigest()}
+        _say("[tools] %s %s: %.3f s, %d bytes, sha256 %s"
+             % (name, " ".join(os.path.basename(a) for a in argv), dt,
+                len(text), out[name]["sha256"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1163,7 +1406,10 @@ def main(argv=None) -> int:
                 _check_launches(tag, launches)
         finally:
             group.destroy()
+        PATH["now"], PATH["tag"] = "dryrun", "dryrun_entry"
+        entry_out = _entry_card()
     report["group_init_s"] = t_group
+    report["dryrun_entry"] = _entry_check(*entry_out)
 
     # --- 3b. the multi-process worker: two processes on the one card,
     #     over gloo (NCCL refuses two ranks on one card) ---
@@ -1235,6 +1481,12 @@ def main(argv=None) -> int:
                 _fail("%s: card and CPU outputs differ" % tag)
     finally:
         group.destroy()
+
+    # --- 6. the tool surfaces: the panel, the dry run, scaling, the tools ---
+    report["panel"] = _panel_phase()
+    report["dryrun"] = _dryrun_phase(ddir)
+    report["scaling"] = _scaling_phase(paf)
+    report["tools"] = _tools_phase(paf, fa, sim, ddir)
 
     if a.json:
         for r in runs.values():

@@ -50,6 +50,43 @@ def simulate(genome_len=200_000, coverage=20.0, mean_read=8000, sd_read=2000,
     }
 
 
+def _proj(gs, ge, ori, s, e):
+    """Project genome interval [s,e) onto a read's forward-strand coords."""
+    if ori == 0:
+        return s - gs, e - gs
+    return ge - e, ge - s
+
+
+def paf_records(sim):
+    """Yield PAF tuples for every overlapping read pair (each unordered pair
+    once, smaller sweep index as query)."""
+    gs, ge, ori = sim["gs"], sim["ge"], sim["ori"]
+    names, lens = sim["names"], sim["lens"]
+    order = sim["order"]
+    min_emit = sim["min_ovlp_emit"]
+    n = len(order)
+    active: list[int] = []
+    for oi in range(n):
+        i = order[oi]
+        new_active = []
+        for j in active:
+            if ge[j] > gs[i]:
+                new_active.append(j)
+        active = new_active
+        for j in active:
+            s = max(gs[i], gs[j])
+            e = min(ge[i], ge[j])
+            if e - s < min_emit:
+                continue
+            qs, qe = _proj(gs[j], ge[j], ori[j], s, e)
+            ts, te = _proj(gs[i], ge[i], ori[i], s, e)
+            rev = "-" if ori[i] != ori[j] else "+"
+            ml = bl = e - s
+            yield (names[j], int(lens[j]), int(qs), int(qe), rev,
+                   names[i], int(lens[i]), int(ts), int(te), int(ml), int(bl))
+        active.append(i)
+
+
 def paf_arrays(sim):
     """Every overlapping read pair (each unordered pair once, smaller sweep
     index as query) as parallel numpy arrays (qi, qs, qe, rev, ti, ts, te,

@@ -14,15 +14,35 @@ hit.c:70-107 filter+intern), kept exactly:
 
 The parse is the native C++ tokenizer (io/native/pafread.cpp), and the -R
 prefilter is its C++ pass (io/native/fastx.cpp); a failed build raises.
+`open_text` opens a text input for the host tools (minidot, interop, eval).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import io as _io
+import sys
 
 import numpy as np
 
 from .seqdict import SeqDict
+
+
+def open_text(fn: str):
+    """Open a possibly-gzipped text file ('-' = stdin), like gzopen/gzdopen
+    in the reference (paf.c:14)."""
+    if fn == "-" or fn is None:
+        raw = sys.stdin.buffer
+        head = raw.peek(2) if hasattr(raw, "peek") else b""
+        if head[:2] == b"\x1f\x8b":
+            return gzip.open(raw, "rt")
+        return _io.TextIOWrapper(raw)
+    with open(fn, "rb") as f:
+        head = f.read(2)
+    if head == b"\x1f\x8b":
+        return gzip.open(fn, "rt")
+    return open(fn, "rt")
 
 
 @dataclasses.dataclass

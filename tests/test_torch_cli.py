@@ -74,10 +74,12 @@ def test_gz_stdin_and_empty_inputs(sim_noisy, tmp_path):
 
 def test_port_imports_no_jax(sim_small, tmp_path):
     """A main-path run, a staged (-1) run, -p paf, a snapshot save and
-    restore, both oracle clean modes, -f -R, and the parallel package
-    (run_sharded on a one-rank group, the multi-process worker) load no
-    module of JAX or of the JAX package (exact names: miniasm_tpu_torch
-    shares the prefix)."""
+    restore, both oracle clean modes, -f -R, the parallel package
+    (run_sharded on a one-rank group, the multi-process worker), and the
+    tools (minidot, the interop converters, the eval tools, the panel, the
+    scaling harness and the graft entry points, imported, and minidot and
+    the forward step run) load no module of JAX or of the JAX package
+    (exact names: miniasm_tpu_torch shares the prefix)."""
     paf, fa = sim_small["paf"], sim_small["fasta"]
     snap = str(tmp_path / "snap")
     code = (
@@ -87,8 +89,17 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "from miniasm_tpu_torch.config import Opt\n"
         "from miniasm_tpu_torch.parallel import group, multihost, route\n"
         "from miniasm_tpu_torch.parallel.full import run_sharded\n"
+        "from miniasm_tpu_torch import dotter\n"
+        "from miniasm_tpu_torch.io import fastx\n"
+        "from miniasm_tpu_torch.interop import (da2paf, mhap2paf, paf2mhap,\n"
+        "    paftop, sam2paf, wt2paf)\n"
+        "from miniasm_tpu_torch.eval import (dryrun, order_eval, ovsen,\n"
+        "    paf_srtcmp, panel, ref2ovlp, scaling, testsen)\n"
         "with redirect_stdout(io.StringIO()):\n"
-        "    rc = cli.main(['-p', 'ug', %r])\n"
+        "    rc = dotter.main([%r])\n"
+        "    fwd, args = dryrun.entry(device='cpu')\n"
+        "    fwd(*args)\n"
+        "    rc |= cli.main(['-p', 'ug', %r])\n"
         "    rc |= cli.main(['-1', '-p', 'ug', %r])\n"
         "    rc |= cli.main(['-p', 'paf', %r])\n"
         "    rc |= cli.main(['-R', '-f', %r, %r])\n"
@@ -104,7 +115,7 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'miniasm_tpu.')))\n"
-        "print(json.dumps([rc, bad]))\n" % (paf, paf, paf, fa, paf, snap,
+        "print(json.dumps([rc, bad]))\n" % (paf, paf, paf, paf, fa, paf, snap,
                                              paf, paf, snap, snap, snap,
                                              paf))
     env = dict(os.environ, **{ENV: "cpu"})

@@ -1122,3 +1122,45 @@ def test_snapshot_restore_on_card(dev, tmp_path):
     assert outs[0] == outs[1] and outs[0]
     assert all(n[k] == 0 for k in ("cut_hit2arc", "sweep", "decode3",
                                    "unpack4"))
+
+
+def test_entry_forward_step_matches_plain(dev):
+    """The graft entry's forward step on the card (K2 `sweep`, K5
+    `hit_cut`, K6 `hit2arc`, one launch each) against the same step on
+    the CPU (their plain versions), bit for bit on all 4,096 columns."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.eval import dryrun
+
+    fwd, (cm,) = dryrun.entry(device="cuda")
+    cuda.reset_launches()
+    got = fwd(cm)
+    torch.cuda.synchronize()
+    n = cuda.launch_counts()
+    pfwd, (pcm,) = dryrun.entry(device="cpu")
+    want = pfwd(pcm)
+    assert torch.equal(cm.cpu(), pcm)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert int(want[0].sum()) > 0
+    assert {k: v for k, v in n.items() if v} == {
+        "sweep": 1, "hit_cut": 1, "hit2arc": 1}
+
+
+def test_dryrun_multichip_nccl_one_rank(dev, capfd):
+    """dryrun_multichip(1) on a one-rank NCCL group: the sharded GFA is the
+    single-card run's bytes (the function asserts it) and the CPU run's."""
+    import os
+    import tempfile
+
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval.dryrun import dryrun_multichip, dryrun_paf
+    from miniasm_tpu_torch.pipeline import run
+
+    gfa = dryrun_multichip(1)
+    assert "dryrun_multichip: n_devices=1 " in capfd.readouterr().out
+    with tempfile.TemporaryDirectory() as td:
+        paf = os.path.join(td, "reads.paf")
+        dryrun_paf(paf)
+        want = io.StringIO()
+        run(paf, Opt(), out=want, device="cpu")
+    assert gfa == want.getvalue() and gfa

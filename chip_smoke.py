@@ -60,7 +60,17 @@ What it does, in order:
      scaling harness (eval/scaling.py `measure`) on the clean PAF at 1 and
      2 ranks, on the card and, for its keys and overlap count, on the CPU;
      minidot, paftop, paf2mhap and ref2ovlp on the clean PAF or the
-     simulator's truth.
+     simulator's truth;
+  9. the run switches: the v2 loader (MINIASM_TPU_LOADER=v2) on -p ug, sg,
+     bed and paf, each byte-equal to its default-loader twin of 3 and to
+     the CPU, launching no K9 or K10 (-p paf takes the staged path of
+     both passes); MINIASM_TPU_TIMING on ecoli_ug (its [T::] lines are
+     LAST_TIMING's stages); MINIASM_TPU_PROFILE on noisy_ug and a warm
+     ecoli_ug (each the second run of a process of its own), whose
+     traces must hold the kernels by name, and from which it prints the
+     device's busy and idle share of each run and its three longest idle
+     gaps with the stage that holds each; and 8 seeded cases of the
+     port's fuzz (eval/fuzz.py), the card against the CPU.
 
 It prints one JSON line per kernel and one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {"platform": "gpu", ...}}.  Any
@@ -165,7 +175,18 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "sharded_ug_3": dict(_CLEAN, route=2, route_layout=1, decode3=0,
                                unpack4=0),
           "sharded_noisy_ug": dict(_NOISY, route=2, route_layout=1,
-                                   decode3=0, unpack4=0)}
+                                   decode3=0, unpack4=0),
+          # the v2 loader: one copy of the colmat, no K9 or K10; -p paf
+          # runs the staged path of both passes (_run_staged: K2 per
+          # hit_sub pass, K5 per cut, K6 in the filter and the
+          # containment)
+          "ecoli_v2_ug": dict(_CLEAN, decode3=0, unpack4=0),
+          "noisy_v2_ug": dict(_NOISY, decode3=0, unpack4=0),
+          "noisy_v2_sg": dict(_NOISY, decode3=0, unpack4=0),
+          "ecoli_v2_bed": dict(_MAIN, cut_hit2arc=2, sweep=2,
+                               trans_multi=0, bubble_bfs=0, decode3=0,
+                               unpack4=0),
+          "noisy_v2_paf": _staged(2, 2, 2, False)}
 EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
 # data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
@@ -181,7 +202,8 @@ AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
 # K3 detections and 11 K4 launches (6 dispatches, 5 of which overflow K =
 # 64 and run again at 128)
 for _tag in ("noisy_ug", "noisy_sg", "noisy_s2_ug", "noisy_s12_sg",
-             "noisy_R_ug", "noisy_s1_R_f_ug", "sharded_noisy_ug"):
+             "noisy_R_ug", "noisy_s1_R_f_ug", "sharded_noisy_ug",
+             "noisy_v2_ug", "noisy_v2_sg"):
     AT_ECOLI[(_tag, "trans_multi")] = 19
     AT_ECOLI[(_tag, "bubble_bfs")] = 11
 for _tag, _want in EXPECT.items():
@@ -289,12 +311,13 @@ class Recorder:
         setattr(self.mod, self.name, self.orig)
 
 
-def _cli(args, device: str, clean: str = "hybrid", snapshot=None
+def _cli(args, device: str, clean: str = "hybrid", snapshot=None, env=None
          ) -> tuple[str, str, float, dict, dict]:
     """One CLI run with stdout and stderr captured, MINIASM_TPU_CLEAN=
-    `clean` and MINIASM_TPU_SNAPSHOT=`snapshot` (when given), its launch
-    counts set to 0 just before it and read just after it; returns
-    (stdout, stderr, seconds, stage timing, launches)."""
+    `clean`, MINIASM_TPU_SNAPSHOT=`snapshot` (when given) and the
+    variables of `env`, its launch counts set to 0 just before it and read
+    just after it; returns (stdout, stderr, seconds, stage timing,
+    launches)."""
     from miniasm_tpu_torch import cli, cuda, pipeline
     from miniasm_tpu_torch.device import ENV
     from miniasm_tpu_torch.utils import timers
@@ -303,6 +326,7 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None
     os.environ["MINIASM_TPU_CLEAN"] = clean
     if snapshot:
         os.environ["MINIASM_TPU_SNAPSHOT"] = snapshot
+    os.environ.update(env or {})
     buf, err = io.StringIO(), io.StringIO()
     cuda.reset_launches()
     t0 = time.time()
@@ -314,6 +338,8 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None
     finally:
         os.environ.pop("MINIASM_TPU_CLEAN")
         os.environ.pop("MINIASM_TPU_SNAPSHOT", None)
+        for k in env or {}:
+            os.environ.pop(k)
     dt = time.time() - t0
     launches = cuda.launch_counts()
     if rc != 0:
@@ -1169,6 +1195,242 @@ def _tools_phase(paf: str, fa: str, sim, ddir: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the run switches: the v2 loader, the timing lines, the profiler trace,
+# the Python streams, and the fuzz
+
+# (tag, flags, input, the default-loader run of the plan it must equal)
+V2_RUNS = [("ecoli_v2_ug", ["-p", "ug"], "clean", "ecoli_ug"),
+           ("noisy_v2_ug", ["-p", "ug"], "noisy", "noisy_ug"),
+           ("noisy_v2_sg", ["-p", "sg"], "noisy", "noisy_sg"),
+           ("ecoli_v2_bed", ["-p", "bed"], "clean", "ecoli_bed"),
+           ("noisy_v2_paf", ["-p", "paf"], "noisy", "noisy_paf")]
+TICK_LINE = r"^\[T::([^\]]+)\] \+(\d+\.\d{3})$"
+# the device functions of each kernel, as a trace names them
+DEVICE_FUNCS = {"cut_hit2arc": ("cut_hit2arc_kernel",),
+                "sweep": ("ev_count_kernel", "ev_alloc_kernel",
+                          "ev_scatter_kernel", "ev_sweep_warp_kernel",
+                          "ev_sweep_big_kernel"),
+                "trans_multi": ("trans_multi_kernel",),
+                "bubble_bfs": ("bubble_bfs_kernel",),
+                "decode3": ("decode3_kernel",),
+                "unpack4": ("unpack4_kernel",)}
+# the kernels each profiled run must show in its trace
+PROFILED = {"noisy_ug": ("cut_hit2arc", "sweep", "trans_multi",
+                         "bubble_bfs", "decode3", "unpack4"),
+            "ecoli_ug": ("cut_hit2arc", "sweep", "trans_multi", "decode3",
+                         "unpack4")}
+FUZZ_CASES = 8
+
+
+def _stage_line(stages) -> str:
+    return ", ".join("%s %.3f" % (k, v) for k, v in stages.items()
+                     if not k.startswith("extra."))
+
+
+def _v2_phase(inputs: dict, runs: dict) -> None:
+    """Each V2_RUNS run on the card and on the CPU under
+    MINIASM_TPU_LOADER=v2: both print the bytes of the default-loader run
+    of the plan, and the card run launches as EXPECT says."""
+    v2 = {"MINIASM_TPU_LOADER": "v2"}
+    for tag, flags, data, twin in V2_RUNS:
+        args = flags + [inputs[data]]
+        out, err, dt, stages, launches = _cli(args, "cuda", env=v2)
+        _check_launches(tag, launches)
+        if out != runs[twin]["out"]:
+            _fail("%s printed other bytes than %s" % (tag, twin))
+        cpu_out, _, cpu_dt, _, _ = _cli(args, "cpu", env=v2)
+        if cpu_out != out:
+            _fail("%s: card and CPU outputs differ" % tag)
+        runs[tag] = {"wall_s": dt, "stages": stages, "out": out,
+                     "launches": launches, "cpu_wall_s": cpu_dt,
+                     "path": "v2", "twin": twin}
+        _say("[v2] %s: %.3f s (%s %.3f s), CPU %.3f s, stdout = %s's and "
+             "the CPU run's; launches %s; stages %s; %s stages %s"
+             % (tag, dt, twin, runs[twin]["wall_s"], cpu_dt, twin,
+                json.dumps(launches), _stage_line(stages), twin,
+                _stage_line(runs[twin]["stages"])))
+
+
+def _timing_phase(paf: str, runs: dict) -> dict:
+    """MINIASM_TPU_TIMING=1 on ecoli_ug: one [T::<stage>] +s line per
+    stage of LAST_TIMING, in its order and at its times, and the run's
+    bytes."""
+    import re
+
+    out, err, dt, stages, launches = _cli(
+        ["-p", "ug", paf], "cuda", env={"MINIASM_TPU_TIMING": "1"})
+    _check_launches("ecoli_ug_timing", launches, EXPECT["ecoli_ug"])
+    if out != runs["ecoli_ug"]["out"]:
+        _fail("ecoli_ug_timing printed other bytes than ecoli_ug")
+    ticks = [re.match(TICK_LINE, ln) for ln in err.splitlines()
+             if ln.startswith("[T::")]
+    names = [k for k in stages if not k.startswith("extra.")]
+    if not ticks or not all(ticks) \
+            or [m.group(1) for m in ticks] != names \
+            or [m.group(2) for m in ticks] != ["%.3f" % stages[k]
+                                               for k in names]:
+        _fail("ecoli_ug_timing: [T::] lines %r, LAST_TIMING %r"
+              % ([ln for ln in err.splitlines() if ln.startswith("[T::")],
+                 names))
+    _say("[timing] ecoli_ug: %.3f s, %d [T::] lines = LAST_TIMING: %s"
+         % (dt, len(ticks), "; ".join(m.group(0) for m in ticks)))
+    return {"wall_s": dt, "lines": [m.group(0) for m in ticks]}
+
+
+def _busy_share(events) -> dict:
+    """The device's busy share of a profiled run: the union of its
+    kernel, memcpy and memset intervals over the run's window (from the
+    first stage range's start to the last one's end), the idle share,
+    and the three longest idle gaps with the stage range that holds each
+    (the one around the gap's middle)."""
+    stages = sorted((e["ts"], e["ts"] + e["dur"], e["name"][6:])
+                    for e in events if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("stage:"))
+    if not stages:
+        _fail("the trace holds no stage: range")
+    w0, w1 = stages[0][0], max(s[1] for s in stages)
+    spans = sorted((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] < w1 and e["ts"] + e["dur"] > w0)
+    busy, gaps, end = 0.0, [], w0
+    for a, b in spans:
+        if a > end:
+            gaps.append((a - end, end))
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if w1 > end:
+        gaps.append((w1 - end, end))
+
+    def holder(t):
+        return next((n for a, b, n in stages if a <= t <= b),
+                    "(between stages)")
+
+    top = sorted(gaps, reverse=True)[:3]
+    window = w1 - w0
+    return {"window_s": window / 1e6, "busy_s": busy / 1e6,
+            "busy_share": busy / window, "idle_share": 1 - busy / window,
+            "device_intervals": len(spans),
+            "gaps": [{"ms": g / 1e3, "stage": holder(t + g / 2)}
+                     for g, t in top]}
+
+
+# one process of the profile phase: a first run, which loads the CUDA
+# libraries and kernels, then the profiled run (the CLI under
+# MINIASM_TPU_PROFILE, as a user runs it)
+_PROFILE_PROC = """
+import contextlib, io, json, os, sys, time
+import torch
+from miniasm_tpu_torch import cli, cuda, pipeline
+src, pdir, res = sys.argv[1:]
+runs = []
+for prof in (None, pdir):
+    if prof:
+        os.environ["MINIASM_TPU_PROFILE"] = prof
+    cuda.reset_launches()
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(["-p", "ug", src])
+    torch.cuda.synchronize()
+    runs.append({"rc": rc, "out": buf.getvalue(), "err": err.getvalue(),
+                 "wall_s": time.time() - t0,
+                 "launches": cuda.launch_counts(),
+                 "stages": dict(pipeline.LAST_TIMING)})
+with open(res, "w") as f:
+    json.dump(runs, f)
+"""
+
+
+def _profile_phase(inputs: dict, ddir: str, runs: dict) -> dict:
+    """MINIASM_TPU_PROFILE on noisy_ug and on ecoli_ug, each the second
+    run of a process of its own (a profiler in this process, after the
+    runs above, recorded no K9 launch of the loader's side stream): the
+    run's bytes, JAX's stderr line, a trace that loads and holds
+    PROFILED's kernels by name, and the device's busy and idle share
+    over the run."""
+    from miniasm_tpu_torch.device import ENV
+
+    env = dict(os.environ)
+    env.pop(ENV, None)  # the card
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    report = {}
+    for tag, data in (("noisy_ug", "noisy"), ("ecoli_ug", "clean")):
+        pdir = os.path.join(ddir, "profile_" + tag)
+        shutil.rmtree(pdir, ignore_errors=True)
+        res = pdir + ".json"
+        r = subprocess.run([sys.executable, "-c", _PROFILE_PROC,
+                            inputs[data], pdir, res], cwd=HERE, env=env,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            sys.stderr.write(r.stderr[-3000:])
+            _fail("%s_profile: the process exited %d" % (tag, r.returncode))
+        with open(res) as f:
+            first, prof = json.load(f)
+        for k, run in (("first", first), ("profile", prof)):
+            if run["rc"] != 0 or run["out"] != runs[tag]["out"]:
+                _fail("%s_profile: the %s run printed other bytes than %s"
+                      % (tag, k, tag))
+            # a kernel whose module the process never imported never ran
+            _check_launches("%s_%s" % (tag, k),
+                            dict(dict.fromkeys(EXPECT[tag], 0),
+                                 **run["launches"]), EXPECT[tag])
+        if "[M::main] profiler trace written to %s\n" % pdir \
+                not in prof["err"]:
+            _fail("%s_profile: no 'profiler trace written' line" % tag)
+        t0 = time.time()
+        with open(os.path.join(pdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        funcs = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                funcs[e["name"]] = funcs.get(e["name"], 0) + 1
+        seen = {}
+        for k in PROFILED[tag]:
+            seen[k] = sum(n for f, n in funcs.items()
+                          if any(d in f for d in DEVICE_FUNCS[k]))
+            if not seen[k]:
+                _fail("%s_profile: the trace holds no %s kernel (it holds "
+                      "%s)" % (tag, k, sorted(f[:60] for f in funcs)))
+        share = _busy_share(events)
+        share.update(wall_s=prof["wall_s"], first_wall_s=first["wall_s"],
+                     trace_bytes=os.path.getsize(
+                         os.path.join(pdir, "trace.json")),
+                     kernel_events=seen, parse_s=time.time() - t0,
+                     stages=prof["stages"], first_stages=first["stages"])
+        _say("[profile] %s: %.3f s with the profiler (the process's first "
+             "run %.3f s, without it), trace %d bytes; kernel events %s; "
+             "window %.4f s, device busy %.4f s: busy share %.4f, idle share "
+             "%.4f; longest idle gaps %s; stages %s"
+             % (tag, prof["wall_s"], first["wall_s"], share["trace_bytes"],
+                json.dumps(seen), share["window_s"], share["busy_s"],
+                share["busy_share"], share["idle_share"],
+                json.dumps(share["gaps"]), _stage_line(prof["stages"])))
+        report[tag] = share
+    return report
+
+
+def _fuzz_phase() -> dict:
+    """FUZZ_CASES seeded cases of eval/fuzz.py, each on the card against
+    the port on the CPU."""
+    from miniasm_tpu_torch.eval import fuzz
+
+    rng = random.Random(SEED)
+    t0 = time.time()
+    recs = []
+    for k in range(FUZZ_CASES):
+        rec = fuzz.run_case(fuzz.draw_case(rng), "cuda")
+        recs.append(rec)
+        _say("[fuzz] case %d: %s" % (k, json.dumps(rec)))
+        if not rec["ok"]:
+            _fail("fuzz case %d: card and CPU differ: %s" % (k, rec))
+    dt = time.time() - t0
+    _say("[fuzz] %d cases, each card = CPU, %.3f s" % (FUZZ_CASES, dt))
+    return {"cases": recs, "seconds": dt}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome", type=int, default=ECOLI_BP)
@@ -1487,6 +1749,16 @@ def main(argv=None) -> int:
     report["dryrun"] = _dryrun_phase(ddir)
     report["scaling"] = _scaling_phase(paf)
     report["tools"] = _tools_phase(paf, fa, sim, ddir)
+
+    # --- 7. the run switches and the fuzz ---
+    inputs = {"clean": paf, "noisy": noisy}
+    _v2_phase(inputs, runs)
+    for row in rows:
+        row["launches_noisy_v2_ug"] = runs["noisy_v2_ug"]["launches"].get(
+            row["name"])
+    report["timing"] = _timing_phase(paf, runs)
+    report["profile"] = _profile_phase(inputs, ddir, runs)
+    report["fuzz"] = _fuzz_phase()
 
     if a.json:
         for r in runs.values():

@@ -5,8 +5,10 @@ rules (-o defaults to -s, main.c:74; -r parses "max[,min]", main.c:68-72;
 -n stores rounds-1, main.c:60).  Runs on the GPU; set
 MINIASM_TPU_TORCH_DEVICE=cpu to run on the CPU.  -1, -2 and -S below 5
 take the staged selection path.  MINIASM_TPU_CLEAN=native|py swaps the
-hybrid cleaner for an oracle, and MINIASM_TPU_SNAPSHOT=DIR saves and
-restores the Step 3/4 boundary state, as in the JAX package.
+hybrid cleaner for an oracle, MINIASM_TPU_SNAPSHOT=DIR saves and
+restores the Step 3/4 boundary state, and MINIASM_TPU_PROFILE=DIR writes
+a torch.profiler trace of the run to DIR/trace.json, as in the JAX
+package (its other switches are read where they act: pipeline.py).
 
     python -m miniasm_tpu_torch.cli in.paf > out.gfa
 """
@@ -58,6 +60,10 @@ Environment:
     MINIASM_TPU_SNAPSHOT=DIR       save the state after Step 3 in DIR, and
                                    restore it on a later run with the same
                                    input and options (not with -R)
+    MINIASM_TPU_LOADER=v2          load with the single-pass v2 loader
+    MINIASM_TPU_TIMING=1           write [T::stage] +seconds to stderr
+    MINIASM_TPU_PROFILE=DIR        write a profiler trace to DIR/trace.json
+    MINIASM_TPU_NATIVE_SO=FILE     load this host library, do not build
 """ % ENV
 
 
@@ -141,9 +147,11 @@ def main(argv=None) -> int:
     liftrlimit()
     from .pipeline import run
 
-    # an environment variable, as in the JAX package: the getopt string
-    # is the reference's
+    # environment variables, as in the JAX package: the getopt string is
+    # the reference's
     snapshot_dir = os.environ.get("MINIASM_TPU_SNAPSHOT")
+    prof_dir = os.environ.get("MINIASM_TPU_PROFILE")
+    prof = _profiler(device) if prof_dir else None
     try:
         run(args[0], opt, outfmt=outfmt, fn_reads=fn_reads, stage=stage,
             no_first=no_first, no_second=no_second, bi_dir=bi_dir,
@@ -151,11 +159,32 @@ def main(argv=None) -> int:
     except FileNotFoundError as e:
         sys.stderr.write("[E::main] could not open file %s\n" % e.filename)
         return 1
+    finally:
+        if prof is not None:
+            prof.stop()
+            os.makedirs(prof_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+            sys.stderr.write("[M::main] profiler trace written to %s\n"
+                             % prof_dir)
     sys.stderr.write("[M::main] Version: %s\n" % VERSION)
     sys.stderr.write("[M::main] CMD: miniasm-tpu-torch %s\n" % " ".join(argv))
     sys.stderr.write("[M::main] Real time: %.3f sec; CPU: %.3f sec\n"
                      % (realtime(), cputime()))
     return 0
+
+
+def _profiler(device):
+    """A started torch.profiler over the host, and the card when the run
+    is on one (JAX cli.py:131-157 traces the XLA ops); the pipeline's
+    stages are its `stage:<name>` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

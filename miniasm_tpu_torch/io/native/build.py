@@ -4,7 +4,10 @@ Compiles every .cpp in this directory (the PAF loaders, the exact radix
 argsort they and the finalizer link, the FASTA/-R streams and the native
 graph finalizer) into one shared object with g++ (-O3, zlib).
 The result is cached next to the sources and rebuilt when a source is
-newer.  A failed build raises: the port has no fallback path."""
+newer.  MINIASM_TPU_NATIVE_SO names a prebuilt library to load instead
+(the sanitizer builds of io/native/sanitize.py).  A failed build, or a
+named library that does not load, raises: the port has no fallback
+path."""
 
 from __future__ import annotations
 
@@ -36,6 +39,14 @@ def get_lib():
     global _lib
     with _lock:
         if _lib is not None:
+            return _lib
+        override = os.environ.get("MINIASM_TPU_NATIVE_SO")
+        if override:
+            try:
+                _lib = ctypes.CDLL(override)
+            except OSError as e:
+                raise RuntimeError("MINIASM_TPU_NATIVE_SO=%s does not load: "
+                                   "%s" % (override, e)) from e
             return _lib
         if _needs_build():
             tmp = "%s.%d.tmp" % (_SO, os.getpid())

@@ -26,8 +26,11 @@ converted on the host (_fmt3_to_cols), so colmat columns stay aligned
 with the C++ g_* arrays that arc_ranks and print_paf address.  On the
 CPU the same ladder runs through the kernels' plain versions.
 
-pafread.cpp (staged path): one single-threaded pass to the filtered
-records' SoA columns on the host (`load_paf_native`)."""
+pafread.cpp: one single-threaded pass to the filtered records' SoA
+columns on the host (`load_paf_native`, the staged path), and the v2
+loader over it (`load_hits_v2`, the main path under
+MINIASM_TPU_LOADER=v2): the (7, n) colmat and the exact rank table built
+on the host, then one pinned copy to the card, with no K9/K10."""
 
 from __future__ import annotations
 
@@ -501,3 +504,124 @@ def load_paf_native(fn, min_span, min_match, excl=None):
             rev=_arr(r.rev, n, np.uint8), d=d, n_lines=int(r.n_lines))
     finally:
         lib.ma_paf_free(res)
+
+
+class _MaHits3(ctypes.Structure):
+    _fields_ = [
+        ("n_orig", ctypes.c_int64),
+        ("n_mirror", ctypes.c_int64),
+        ("n_seq", ctypes.c_int64),
+        ("n_lines", ctypes.c_int64),
+        ("names_bytes", ctypes.c_int64),
+        ("max_len", ctypes.c_int64),
+        ("colmat", ctypes.POINTER(ctypes.c_int32)),
+        ("rank", ctypes.POINTER(ctypes.c_int64)),
+        ("seq_len", ctypes.POINTER(ctypes.c_uint32)),
+        ("names", ctypes.POINTER(ctypes.c_char)),
+        ("raw", ctypes.c_void_p),
+        ("bi_dir", ctypes.c_int64),
+    ]
+
+
+class HitsV2:
+    """Handle over the v2 loader's result (ma_paf_load_hits3): the host
+    colmat of the unmirrored originals in parse order, and the lazily
+    built exact rank table of the implied mirrored array (hit.c:100,
+    ksort.h).  The interface of HitsMt that the main path uses."""
+
+    def __init__(self, lib, res):
+        self._lib = lib
+        self._res = res
+        r = res.contents
+        self.n_orig = int(r.n_orig)
+        self.n_mirror = int(r.n_mirror)
+        self.n_lines = int(r.n_lines)
+        self.max_len = int(r.max_len)
+        self._ranked = False
+
+    def colmat(self):
+        """The (7, n_orig) int32 columns [qid qs qe tid ts te flags], a
+        numpy view over the native buffer (copy before free)."""
+        return np.ctypeslib.as_array(self._res.contents.colmat,
+                                     shape=(7, self.n_orig))
+
+    def build_rank(self):
+        """CPU-bound exact-permutation build."""
+        if not self._ranked:
+            self._lib.ma_hits3_rank(self._res)
+            self._ranked = True
+
+    def arc_ranks(self, idx):
+        """Map select arc indices (j for q-side rows, n_orig + j for
+        mirrors, as select_build2 numbers them) to positions in the
+        reference's sorted mirrored hit array.  The rank table is indexed
+        (j<<1)|side."""
+        self.build_rank()
+        idx = np.asarray(idx, dtype=np.int64)
+        rank = np.ctypeslib.as_array(self._res.contents.rank,
+                                     shape=(2 * self.n_orig,))
+        side = (idx >= self.n_orig).astype(np.int64)
+        j = idx - side * self.n_orig
+        return rank[(j << 1) | side]
+
+    def seqdict(self):
+        r = self._res.contents
+        ns = int(r.n_seq)
+        names_blob = ctypes.string_at(r.names, int(r.names_bytes))
+        names = names_blob.decode("latin-1").split("\0")[:ns]
+        return SeqDict.from_arrays(names, _arr(r.seq_len, ns,
+                                               np.uint32).tolist())
+
+    def free(self):
+        if self._res:
+            self._lib.ma_hits3_free(self._res)
+            self._res = None
+
+    def __del__(self):
+        self.free()
+
+
+def load_hits_v2(fn, min_span, min_match, *, excl=None, bi_dir=True,
+                 min_iden=0.05, device=torch.device("cpu"), upload=True):
+    """The v2 loader (JAX pafload.py:163): parse, filter and intern `fn`
+    in one host pass (hit.c:70-107 without the mirror and sort), keeping
+    the exact mirrored-order rank table on the host; lines naming a read
+    of `excl` are dropped.  Returns (colmat, SeqDict, HitsV2): the (7, n)
+    int32 colmat on `device`, one pinned copy on a card; with
+    upload=False the host view HitsV2.colmat() (copy it before free)."""
+    from .build import get_lib
+
+    lib = get_lib()
+    lib.ma_paf_load_hits3.restype = ctypes.POINTER(_MaHits3)
+    lib.ma_paf_load_hits3.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_char_p,
+                                      ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_double]
+    lib.ma_hits3_rank.argtypes = [ctypes.POINTER(_MaHits3)]
+    lib.ma_hits3_free.argtypes = [ctypes.POINTER(_MaHits3)]
+    blob = _excl_blob(excl)
+    res = lib.ma_paf_load_hits3(fn.encode(), min_span, min_match, blob,
+                                len(blob), 1 if bi_dir else 0,
+                                float(min_iden))
+    if not res:
+        raise FileNotFoundError(2, "could not open PAF file", fn)
+    h = HitsV2(lib, res)
+    try:
+        host = h.colmat()
+        d = h.seqdict()
+        if not upload:
+            return host, d, h
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            staging = torch.empty(host.shape, dtype=torch.int32,
+                                  pin_memory=True)
+            staging.numpy()[:] = host
+            # the caching host allocator reuses the pinned block only
+            # after this copy has run
+            colmat = staging.to(dev, non_blocking=True)
+        else:
+            colmat = torch.from_numpy(host.copy())
+    except BaseException:
+        h.free()
+        raise
+    return colmat, d, h

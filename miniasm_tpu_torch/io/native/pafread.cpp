@@ -259,3 +259,113 @@ void ma_paf_free(MaPafLoad* p) {
 }
 
 }  // extern "C"
+
+extern "C" void ma_radix_argsort_u64(uint64_t*, int64_t*, int64_t);
+
+extern "C" {
+
+// ---- v2 loader: ORIGINALS ONLY, in parse order.  The device select kernel
+// (select/fused2.py) processes each original hit together with its implied
+// mirror (reference hit.c:92-98) as a dual-sided row — no mirrored array is
+// ever materialized or uploaded.  The reference's exact radix order of the
+// mirrored hit array (ksort.h tie permutation, needed downstream for the
+// byte-identical arc insertion order of ma_sg_gen, asm.c:20-36) is captured
+// host-side as a rank table: rank[(orig<<1)|is_mirror] = position the row
+// would have had in the sorted mirrored array.  The host applies it to the
+// handful of surviving arcs after the device kernel returns.  The colmat
+// holds exactly the n_orig originals: the port's tables are sized exactly,
+// so no column is padded.
+
+struct MaHits3 {
+    int64_t n_orig, n_mirror, n_seq, n_lines, names_bytes, max_len;
+    int32_t* colmat;   // (7, n_orig) [qid qs qe tid ts te flags], parse order
+    int64_t* rank;     // (2*n_orig): rank[(j<<1)|side], -1 when side absent
+    uint32_t* seq_len;
+    char* names;
+    void* raw;         // MaPafLoad kept alive until ranks are built
+    int64_t bi_dir;
+};
+
+MaHits3* ma_paf_load_hits3(const char* fn, int64_t min_span, int64_t min_match,
+                           const char* excl_names, int64_t excl_bytes,
+                           int bi_dir, double min_iden) {
+    MaPafLoad* raw = ma_paf_load(fn, min_span, min_match, excl_names, excl_bytes);
+    if (!raw) return nullptr;
+    int64_t n = raw->n_rec;
+
+    auto* out = new MaHits3();
+    out->n_orig = n;
+    out->n_seq = raw->n_seq;
+    out->n_lines = raw->n_lines;
+    out->colmat = static_cast<int32_t*>(std::malloc(7 * n * 4 + 4));
+    out->rank = nullptr;
+    out->bi_dir = bi_dir;
+    int32_t* C = out->colmat;
+    float iden_f = static_cast<float>(min_iden);
+    int64_t m = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint32_t iden_ok = !(static_cast<float>(raw->ml[i]) <
+                             static_cast<float>(raw->bl[i]) * iden_f);
+        C[0 * n + i] = raw->qid[i];
+        C[1 * n + i] = static_cast<int32_t>(raw->qs[i]);
+        C[2 * n + i] = static_cast<int32_t>(raw->qe[i]);
+        C[3 * n + i] = raw->tid[i];
+        C[4 * n + i] = static_cast<int32_t>(raw->ts[i]);
+        C[5 * n + i] = static_cast<int32_t>(raw->te[i]);
+        C[6 * n + i] = static_cast<int32_t>(
+            1u | (static_cast<uint32_t>(raw->rev[i]) << 1) | (iden_ok << 2));
+        m += (bi_dir && raw->qid[i] != raw->tid[i]) ? 2 : 1;
+    }
+    out->n_mirror = m;
+    uint32_t max_len = 0;
+    for (int64_t i = 0; i < raw->n_seq; ++i)
+        if (raw->seq_len[i] > max_len) max_len = raw->seq_len[i];
+    out->max_len = max_len;
+    out->seq_len = raw->seq_len;
+    raw->seq_len = nullptr;
+    out->names = raw->names;
+    out->names_bytes = raw->names_bytes;
+    raw->names = nullptr;
+    out->raw = raw;
+    return out;
+}
+
+// phase 2 (CPU-bound; run while the device chews on the uploaded columns):
+// reproduce the reference's mirrored key sequence + exact radix argsort and
+// invert it into the rank table.
+void ma_hits3_rank(MaHits3* h) {
+    if (h->rank) return;
+    auto* raw = static_cast<MaPafLoad*>(h->raw);
+    int64_t n = h->n_orig;
+    std::vector<uint64_t> keys;
+    std::vector<int64_t> src;
+    keys.reserve(h->n_mirror);
+    src.reserve(h->n_mirror);
+    for (int64_t i = 0; i < n; ++i) {
+        keys.push_back(static_cast<uint64_t>(raw->qid[i]) << 32 | raw->qs[i]);
+        src.push_back(i << 1);
+        if (h->bi_dir && raw->qid[i] != raw->tid[i]) {
+            keys.push_back(static_cast<uint64_t>(raw->tid[i]) << 32 | raw->ts[i]);
+            src.push_back((i << 1) | 1);
+        }
+    }
+    int64_t m = static_cast<int64_t>(keys.size());
+    ma_radix_argsort_u64(keys.data(), src.data(), m);
+    h->rank = static_cast<int64_t*>(std::malloc(2 * n * 8 + 8));
+    for (int64_t k = 0; k < 2 * n; ++k) h->rank[k] = -1;
+    for (int64_t p = 0; p < m; ++p) h->rank[src[p]] = p;
+    ma_paf_free(raw);
+    h->raw = nullptr;
+}
+
+void ma_hits3_free(MaHits3* h) {
+    if (!h) return;
+    if (h->raw) ma_paf_free(static_cast<MaPafLoad*>(h->raw));
+    std::free(h->colmat);
+    std::free(h->rank);
+    std::free(h->seq_len);
+    std::free(h->names);
+    delete h;
+}
+
+}  // extern "C"

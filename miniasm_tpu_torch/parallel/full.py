@@ -33,7 +33,6 @@ choice and go, as in select/fused2.py), and the buffers are exact-size
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
@@ -41,7 +40,7 @@ import torch
 from ..config import Opt
 from ..core.hit2arc import MA_HT_QCONT, MA_HT_TCONT
 from ..select import fused2
-from ..utils.timers import log
+from ..utils.timers import StageClock, log
 from . import group as grp
 from .route import Layout, route
 
@@ -312,27 +311,28 @@ def log_select(counts):
 
 
 def finish(d, meta, arcs, m_cont, opt, *, outfmt, fn_reads, stage, out,
-           dev, group=None, tick=lambda name: None):
+           dev, clock, group=None):
     """Rank 0's tail: the graph from the ordered arcs, then -p bed, or the
     clean (detection shared with `group` when given) and -p ug|sg;
-    tick(stage) marks the end of each stage."""
+    `clock` (utils/timers.py StageClock) times each stage."""
     from ..graph.asg import graph_from_arcs
     from ..gfa.writer import print_subs
     from ..pipeline import _clean_and_print
 
-    g, sub_s, sub_e, _ = graph_from_arcs(
-        d, meta[0].astype(np.uint32), meta[1].astype(np.uint32),
-        meta[2].astype(bool), meta[3].astype(bool), meta[4].astype(bool),
-        meta[5].astype(bool), arcs, m_hits=m_cont)
-    tick("graph_build")
+    with clock.stage("graph_build"):
+        g, sub_s, sub_e, _ = graph_from_arcs(
+            d, meta[0].astype(np.uint32), meta[1].astype(np.uint32),
+            meta[2].astype(bool), meta[3].astype(bool),
+            meta[4].astype(bool), meta[5].astype(bool), arcs,
+            m_hits=m_cont)
     if outfmt == "bed":
-        print_subs(d, sub_s, sub_e, out)
-        tick("print")
+        with clock.stage("print"):
+            print_subs(d, sub_s, sub_e, out)
         return None
     sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
     return _clean_and_print(g, d, sub_s, sub_e, opt=opt, stage=stage,
                             outfmt=outfmt, fn_reads=fn_reads, out=out,
-                            dev=dev, tick=tick, group=group)
+                            dev=dev, clock=clock, group=group)
 
 
 def run_sharded(paf_fn, opt: Opt, *, outfmt: str = "ug", fn_reads=None,
@@ -349,25 +349,16 @@ def run_sharded(paf_fn, opt: Opt, *, outfmt: str = "ug", fn_reads=None,
         raise ValueError("run_sharded prints -p ug, sg or bed, not %r"
                          % outfmt)
     g = group or grp.current()
-    t0 = time.time()
-    LAST_TIMING.clear()
-
-    def tick(name):
-        # the stage's device work ends inside its tick
-        if g.device.type == "cuda":
-            torch.cuda.synchronize(g.device)
-        LAST_TIMING[name] = time.time() - t0
-
-    rows, n_seq, block, host = shard_rows(paf_fn, opt, excl, g, tick)
-    tick("scatter")
+    clock = StageClock(LAST_TIMING, g.device)
+    rows, n_seq, block, host = shard_rows(paf_fn, opt, excl, g, clock)
     if host is not None:
         sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read "
                          "selection <===\n")
-    arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
-    del rows
-    tick("select")
-    allarcs = gather_arcs(arcmat, g)
-    tick("gather")
+    with clock.stage("select"):
+        arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
+        del rows
+    with clock.stage("gather"):
+        allarcs = gather_arcs(arcmat, g)
     if host is None:
         # serve the cleaner's detections until rank 0 releases the group
         devclean.follow(g)
@@ -375,32 +366,35 @@ def run_sharded(paf_fn, opt: Opt, *, outfmt: str = "ug", fn_reads=None,
     cols, d = host
     try:
         log_select(counts)
-        arcs, _ = order_arcs(allarcs, lambda: _mirror_ranks(cols, d))
-        tick("order")
+        with clock.stage("order"):
+            arcs, _ = order_arcs(allarcs, lambda: _mirror_ranks(cols, d))
         return finish(d, meta, arcs, counts[5], opt, outfmt=outfmt,
                       fn_reads=fn_reads, stage=stage, out=out or sys.stdout,
-                      dev=g.device, group=g, tick=tick)
+                      dev=g.device, group=g, clock=clock)
     finally:
         devclean.release(g)
 
 
-def shard_rows(paf_fn, opt, excl, g, tick=lambda name: None):
+def shard_rows(paf_fn, opt, excl, g, clock):
     """Rank 0 loads the PAF and scatters each rank its rows.  Returns, on
     every rank, (rows (8, n) on the rank's device, n_seq, block, host):
-    host is (cols, SeqDict) on rank 0, None on the others."""
+    host is (cols, SeqDict) on rank 0, None on the others.  `clock`
+    times the load, partition and scatter stages."""
     parts = head = host = None
     if g.rank == 0:
         sys.stderr.write("[M::main] ===> Step 1: reading read mappings "
                          "<===\n")
-        cols, d, n_lines, n_mirror = _load_originals(paf_fn, opt, excl)
-        log("hit_read", "read %d hits; stored %d hits and %d sequences "
-            "(%d bp)", n_lines, n_mirror, d.n_seq,
-            int(np.sum(d.lens_array(), dtype=np.uint64)))
-        tick("load")
-        parts, block = _partition(cols, d.n_seq, g.size)
-        parts = [torch.from_numpy(p) for p in parts]
-        tick("partition")
+        with clock.stage("load"):
+            cols, d, n_lines, n_mirror = _load_originals(paf_fn, opt, excl)
+            log("hit_read", "read %d hits; stored %d hits and %d sequences "
+                "(%d bp)", n_lines, n_mirror, d.n_seq,
+                int(np.sum(d.lens_array(), dtype=np.uint64)))
+        with clock.stage("partition"):
+            parts, block = _partition(cols, d.n_seq, g.size)
+            parts = [torch.from_numpy(p) for p in parts]
         head = (d.n_seq, block)
         host = (cols, d)
-    n_seq, block = g.broadcast_object(head)
-    return g.scatter_cols(parts), n_seq, block, host
+    with clock.stage("scatter"):
+        n_seq, block = g.broadcast_object(head)
+        rows = g.scatter_cols(parts)
+    return rows, n_seq, block, host

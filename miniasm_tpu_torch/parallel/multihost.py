@@ -43,7 +43,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -198,74 +197,78 @@ def worker(paf_fn: str, out_fn: str, *, coordinator: str, num_procs: int,
     from ..graph import clean, devbub, devclean  # noqa: F401
     from ..select import cut  # noqa: F401
     from ..utils import arrays  # noqa: F401
-    from ..utils.timers import log
+    from ..utils.timers import StageClock, log
     from . import group as grp
     from .full import (_mirror_ranks, _owner_of, finish, gather_arcs,
                        log_select, order_arcs, select_step)
     from .route import Layout, route
 
     opt = Opt()
-    t0 = time.time()
     stages = {}
     route_in = None
-    g = grp.init(proc_id, num_procs, _init_method(coordinator),
-                 backend=backend)
-    stages["init"] = time.time() - t0
+    # the device is the group's: the clock starts on the host and
+    # synchronizes the card from the first stage after the init
+    clock = StageClock(stages, torch.device("cpu"))
+    with clock.stage("init"):
+        g = grp.init(proc_id, num_procs, _init_method(coordinator),
+                     backend=backend)
+    clock.dev = g.device
     try:
         me, procs, dev = g.rank, g.size, g.device
         cuda.reset_launches()
         import tempfile
 
-        with tempfile.TemporaryDirectory() as td:
+        with clock.stage("load"), tempfile.TemporaryDirectory() as td:
             src_fn = spool_gz(paf_fn, td) if paf_fn.endswith(".gz") \
                 else paf_fn
             rng = split_ranges(src_fn, procs)[me]
             cols, dloc, n_lines_l = _load_local(src_fn, opt, rng, td)
-        stages["load"] = time.time() - t0
 
-        d, gmap = _gather_name_tables(dloc.names, dloc.lens, g)
-        n_seq = d.n_seq
-        n_local = cols.shape[1]
-        not_self = cols[0] != cols[3]
-        per = np.array(g.all_gather_object(
-            (n_local, n_local + int(np.sum(not_self)), n_lines_l)))
-        g_off = int(per[:me, 0].sum())
-        n_mirror, n_lines = int(per[:, 1].sum()), int(per[:, 2].sum())
-        if n_local:
-            cols[0] = gmap[cols[0]]
-            cols[3] = gmap[cols[3]]
-        gid = ((g_off + np.arange(n_local, dtype=np.int64)) * 2
-               ).astype(np.int32)
-        cols = np.vstack([cols, gid[None, :]])
-        if me == 0:
-            sys.stderr.write("[M::main] ===> Step 1: reading read mappings "
-                             "(multi-host, %d processes) <===\n" % procs)
-            log("hit_read",
-                "read %d hits; stored %d hits and %d sequences (%d bp)",
-                n_lines, n_mirror, n_seq,
-                int(np.sum(d.lens_array(), dtype=np.uint64)))
+        # ---- the name tables, then upload + repartition by query owner
+        #      (K11 + all_to_all) ----
+        with clock.stage("repart"):
+            d, gmap = _gather_name_tables(dloc.names, dloc.lens, g)
+            n_seq = d.n_seq
+            n_local = cols.shape[1]
+            not_self = cols[0] != cols[3]
+            per = np.array(g.all_gather_object(
+                (n_local, n_local + int(np.sum(not_self)), n_lines_l)))
+            g_off = int(per[:me, 0].sum())
+            n_mirror, n_lines = int(per[:, 1].sum()), int(per[:, 2].sum())
+            if n_local:
+                cols[0] = gmap[cols[0]]
+                cols[3] = gmap[cols[3]]
+            gid = ((g_off + np.arange(n_local, dtype=np.int64)) * 2
+                   ).astype(np.int32)
+            cols = np.vstack([cols, gid[None, :]])
+            if me == 0:
+                sys.stderr.write("[M::main] ===> Step 1: reading read "
+                                 "mappings (multi-host, %d processes) "
+                                 "<===\n" % procs)
+                log("hit_read",
+                    "read %d hits; stored %d hits and %d sequences (%d bp)",
+                    n_lines, n_mirror, n_seq,
+                    int(np.sum(d.lens_array(), dtype=np.uint64)))
 
-        # ---- upload + repartition by query owner (K11 + all_to_all) ----
-        block = grp.block_size(n_seq, procs)
-        local = torch.from_numpy(cols).to(dev)
-        layout = Layout(_owner_of(local[0], block, procs,
-                                  (local[6] & 1) != 0), procs)
-        send = route(layout, local)
-        if stats_fn:
-            route_in = (layout.dest, local)
-        del local
-        recv, _ = g.all_to_all_rows(send, layout.sizes)
-        rows = recv.t().contiguous()
-        del send, recv
-        stages["repart"] = time.time() - t0
+            block = grp.block_size(n_seq, procs)
+            local = torch.from_numpy(cols).to(dev)
+            layout = Layout(_owner_of(local[0], block, procs,
+                                      (local[6] & 1) != 0), procs)
+            send = route(layout, local)
+            if stats_fn:
+                route_in = (layout.dest, local)
+            del local
+            recv, _ = g.all_to_all_rows(send, layout.sizes)
+            rows = recv.t().contiguous()
+            del send, recv
 
         if me == 0:
             sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read "
                              "selection <===\n")
-        arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
-        del rows
-        allarcs = gather_arcs(arcmat, g)
-        stages["select"] = time.time() - t0
+        with clock.stage("select"):
+            arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
+            del rows
+            allarcs = gather_arcs(arcmat, g)
 
         def rank_fn():
             # every record's key columns, gathered (a collective: the
@@ -278,7 +281,8 @@ def worker(paf_fn: str, out_fn: str, *, coordinator: str, num_procs: int,
             return _mirror_ranks(np.vstack([gcols[0], gcols[1], gcols[1],
                                             gcols[2], gcols[3]]), d)
 
-        arcs, fell_back = order_arcs(allarcs, rank_fn)
+        with clock.stage("order"):
+            arcs, fell_back = order_arcs(allarcs, rank_fn)
         if fell_back and me == 0:
             sys.stderr.write("[W::multihost] duplicate graph AND hit keys; "
                              "falling back to the full exact-rank "
@@ -287,10 +291,8 @@ def worker(paf_fn: str, out_fn: str, *, coordinator: str, num_procs: int,
             log_select(counts)
             with open(out_fn, "w") as out:
                 finish(d, meta, arcs, counts[5], opt, outfmt="ug",
-                       fn_reads=None, stage=100, out=out, dev=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stages["done"] = time.time() - t0
+                       fn_reads=None, stage=100, out=out, dev=dev,
+                       clock=clock)
     finally:
         grp.destroy()
     if stats_fn:

@@ -37,6 +37,13 @@ sequential passes, graph/finalize_native.py) or any other value but
 graph/seqclean.py), as in the JAX package's _emit (pipeline.py:372-462).
 
 Outputs -p ug|sg|bed|paf, -f and -R on both paths.
+
+Run switches, as in the JAX package: MINIASM_TPU_LOADER=v2 loads the main
+path's colmat with the single-pass v2 loader (io/native/pafload.py
+load_hits_v2; one copy, no K9/K10) and sends -p paf down the staged path
+(pipeline.py:58-61,178); each stage is a profiler range `stage:<name>`,
+and MINIASM_TPU_TIMING writes its cumulative end time to stderr
+(utils/timers.py StageClock), on every path.
 """
 
 from __future__ import annotations
@@ -72,38 +79,33 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
     """Assemble `paf_fn` and write -p `outfmt` to `out` (default stdout).
     Runs on `device`: `cuda` unless the caller asks for `cpu`.  -1, -2 or
     a stage below 5 take the staged path, as in the JAX package
-    (pipeline.py:58-61).  `snapshot_dir` saves and restores the main
-    path's Step 3/4 boundary state."""
+    (pipeline.py:58-61), and so does -p paf under MINIASM_TPU_LOADER=v2.
+    `snapshot_dir` saves and restores the main path's Step 3/4 boundary
+    state."""
     out = out or sys.stdout
-    staged = no_first or no_second or stage < 5
+    v2 = os.environ.get("MINIASM_TPU_LOADER") == "v2"
+    staged = (no_first or no_second or stage < 5
+              or (v2 and outfmt == "paf"))
     if outfmt not in ("ug", "sg", "bed", "paf"):
         raise ValueError("unknown output format %r" % outfmt)
     dev = get_device(device)
 
-    t0 = time.time()
-    LAST_TIMING.clear()
     timers.EXTRA.clear()
-
-    def tick(name):
-        # the stage's device work ends inside its tick
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        LAST_TIMING[name] = time.time() - t0
-
+    clock = timers.StageClock(LAST_TIMING, dev)
     emit = dict(opt=opt, stage=stage, outfmt=outfmt, fn_reads=fn_reads,
-                out=out, dev=dev, tick=tick)
+                out=out, dev=dev, clock=clock)
     if not staged and snapshot_dir and not no_cont and outfmt != "paf":
         from .io.snapshot import load_graph_state
 
-        st = load_graph_state(snapshot_dir, paf_fn, opt, bi_dir=bi_dir)
+        with clock.stage("restore"):
+            st = load_graph_state(snapshot_dir, paf_fn, opt, bi_dir=bi_dir)
         if st is not None:
             d, g, sub_s, sub_e, _sub_del = st
             sys.stderr.write("[M::main] ===> Steps 1-3 restored from "
                              "snapshot <===\n")
-            tick("snapshot")
             if outfmt == "bed":
-                print_subs(d, sub_s, sub_e, out)
-                tick("print")
+                with clock.stage("print"):
+                    print_subs(d, sub_s, sub_e, out)
                 return None
             sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
             return _clean_and_print(g, d, sub_s, sub_e, **emit)
@@ -113,37 +115,44 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
 
         sys.stderr.write("[M::main] ===> Step 0: removing contained reads "
                          "<===\n")
-        excl = no_cont_prefilter(paf_fn, opt.min_span, opt.min_match,
-                                 opt.max_hang, opt.int_frac)
-        tick("no_cont")
+        with clock.stage("no_cont"):
+            excl = no_cont_prefilter(paf_fn, opt.min_span, opt.min_match,
+                                     opt.max_hang, opt.int_frac)
     if staged:
         return _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit)
     return _run_main(paf_fn, excl, bi_dir, emit,
-                     None if no_cont else snapshot_dir)
+                     None if no_cont else snapshot_dir, v2)
 
 
-def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir):
-    """The main path: Steps 2-3 fused on the device (select/fused2.py)."""
-    from .io.native.pafload import load_hits_mt
+def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir, v2=False):
+    """The main path: Steps 2-3 fused on the device (select/fused2.py),
+    on the colmat of the streamed loader, or of the v2 loader."""
+    from .io.native.pafload import load_hits_mt, load_hits_v2
     from .select.fused2 import select_build2
 
-    opt, outfmt, out, tick = (emit[k] for k in ("opt", "outfmt", "out",
-                                                "tick"))
+    opt, outfmt, out, clock = (emit[k] for k in ("opt", "outfmt", "out",
+                                                 "clock"))
     sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
-    colmat, d, h3 = load_hits_mt(
-        paf_fn, opt.min_span, opt.min_match, excl=excl, bi_dir=bi_dir,
-        min_iden=float(opt.min_iden), device=emit["dev"],
-        retain_full=outfmt == "paf")
-    tick("load+upload")
+    with clock.stage("load+upload"):
+        if v2:
+            colmat, d, h3 = load_hits_v2(
+                paf_fn, opt.min_span, opt.min_match, excl=excl,
+                bi_dir=bi_dir, min_iden=float(opt.min_iden),
+                device=emit["dev"])
+        else:
+            colmat, d, h3 = load_hits_mt(
+                paf_fn, opt.min_span, opt.min_match, excl=excl,
+                bi_dir=bi_dir, min_iden=float(opt.min_iden),
+                device=emit["dev"], retain_full=outfmt == "paf")
     log("hit_read", "read %d hits; stored %d hits and %d sequences (%d bp)",
         h3.n_lines, h3.n_mirror, d.n_seq,
         int(np.sum(d.lens_array(), dtype=np.uint64)))
 
     sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read selection <===\n")
-    arcs, md, counts = select_build2(colmat, d, opt, bi_dir=bi_dir,
-                                     paf_tables=outfmt == "paf")
-    del colmat
-    tick("select+fetch")
+    with clock.stage("select+fetch"):
+        arcs, md, counts = select_build2(colmat, d, opt, bi_dir=bi_dir,
+                                         paf_tables=outfmt == "paf")
+        del colmat
     n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_cont = counts[:6]
     log("hit_sub", "%d query sequences remain after sub", n_rem1)
     log("hit_cut", "%d hits remain after cut", n_cut1)
@@ -157,17 +166,17 @@ def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir):
     if outfmt == "bed":
         # sub-interval dump (-p bed): merged trim tables + containment
         # deletions straight from the select step; no arc ordering needed
-        d.mark_deleted(md["sub_del"] | md["cont"])
-        d.mark_deleted(~md["used"])
-        h3.free()
-        log("hit_contained", "%d sequences and %d hits remain after "
-            "containment removal", int(np.sum(~d.del_array())), m_cont)
-        print_subs(d, md["sub_s"], md["sub_e"], out)
-        tick("emit_done")
+        with clock.stage("emit_done"):
+            d.mark_deleted(md["sub_del"] | md["cont"])
+            d.mark_deleted(~md["used"])
+            h3.free()
+            log("hit_contained", "%d sequences and %d hits remain after "
+                "containment removal", int(np.sum(~d.del_array())), m_cont)
+            print_subs(d, md["sub_s"], md["sub_e"], out)
         return None
     if outfmt == "paf":
-        _print_paf(h3, d, md, m_cont, opt, out)
-        tick("emit_done")
+        with clock.stage("emit_done"):
+            _print_paf(h3, d, md, m_cont, opt, out)
         return None
 
     # Restore the reference's arc insertion order (the exact ksort radix
@@ -180,30 +189,30 @@ def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir):
     # their side), in which select_build2 returns them, is still exact as
     # long as no two surviving arcs share a hit key.  Only the double
     # collision falls back to the full exact permutation.
-    t_rank = time.time()
-    ul = ((arcs["u"].astype(np.uint64) << np.uint64(32))
-          | arcs["l"].astype(np.uint64))
-    sk = np.sort(ul)
-    has_dup = bool(np.any(sk[1:] == sk[:-1])) if sk.size > 1 else False
-    if has_dup and counts[7]:
-        timers.add_extra("rank.fallback", 1)
-        h3.build_rank()
-        order = np.argsort(h3.arc_ranks(arcs["idx"]), kind="stable")
-        arcs = {k: arcs[k][order] for k in ("u", "l", "v", "ol")}
-    h3.free()
-    timers.add_extra("rank.join_s", time.time() - t_rank)
-    tick("order")
+    with clock.stage("order"):
+        t_rank = time.time()
+        ul = ((arcs["u"].astype(np.uint64) << np.uint64(32))
+              | arcs["l"].astype(np.uint64))
+        sk = np.sort(ul)
+        has_dup = bool(np.any(sk[1:] == sk[:-1])) if sk.size > 1 else False
+        if has_dup and counts[7]:
+            timers.add_extra("rank.fallback", 1)
+            h3.build_rank()
+            order = np.argsort(h3.arc_ranks(arcs["idx"]), kind="stable")
+            arcs = {k: arcs[k][order] for k in ("u", "l", "v", "ol")}
+        h3.free()
+        timers.add_extra("rank.join_s", time.time() - t_rank)
 
-    g, sub_s, sub_e, sub_del = graph_from_arcs(
-        d, md["sub_s"], md["sub_e"], md["sub_del"], md["cont"],
-        md["used"], md["pal"], arcs, m_hits=m_cont)
-    tick("graph_build")
+    with clock.stage("graph_build"):
+        g, sub_s, sub_e, sub_del = graph_from_arcs(
+            d, md["sub_s"], md["sub_e"], md["sub_del"], md["cont"],
+            md["used"], md["pal"], arcs, m_hits=m_cont)
     if snapshot_dir:
         from .io.snapshot import save_graph_state
 
-        save_graph_state(snapshot_dir, paf_fn, opt, d, g, sub_s, sub_e,
-                         sub_del, bi_dir=bi_dir)
-        tick("snapshot")
+        with clock.stage("snapshot"):
+            save_graph_state(snapshot_dir, paf_fn, opt, d, g, sub_s, sub_e,
+                             sub_del, bi_dir=bi_dir)
     sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
     return _clean_and_print(g, d, sub_s, sub_e, **emit)
 
@@ -253,52 +262,54 @@ def _print_paf(h3, d, md, m_cont, opt, out):
 
 
 def _clean_and_print(g, d, sub_s, sub_e, *, opt, stage, outfmt, fn_reads,
-                     out, dev, tick, group=None):
+                     out, dev, clock, group=None):
     """Steps 4.1-5 of both paths: the clean MINIASM_TPU_CLEAN names
     (hybrid by default), then -p ug (with -f sequences) or sg.  `group`
     (rank 0 of a sharded run) shares the hybrid cleaner's detections with
-    the group's ranks; the oracle modes run on rank 0 alone."""
+    the group's ranks; the oracle modes run on rank 0 alone.  `clock`
+    (utils/timers.py StageClock) times each stage."""
     mode = os.environ.get("MINIASM_TPU_CLEAN", "hybrid")
     ug = None
-    if mode == "hybrid":
-        # production path: every pass detected on the device, the
-        # order-dependent candidates committed on the host in reference
-        # scan order (graph/hybrid.py)
-        from .graph.hybrid import clean_graph
+    with clock.stage("clean"):
+        if mode == "hybrid":
+            # production path: every pass detected on the device, the
+            # order-dependent candidates committed on the host in
+            # reference scan order (graph/hybrid.py)
+            from .graph.hybrid import clean_graph
 
-        g = clean_graph(g, opt, stage, device=dev, group=group)
-    else:
-        from .graph.clean import del_trans
-
-        if stage >= 6:
-            sys.stderr.write("[M::main] ===> Step 4.1: transitive reduction "
-                             "<===\n")
-            g = del_trans(g, opt.gap_fuzz, device=dev)
-        if mode == "native":
-            # the host C++ sequential oracle (graph/finalize_native.py)
-            from .graph.finalize_native import finalize_native
-
-            sys.stderr.write("[M::main] ===> Steps 4.2-4.5: graph cleaning "
-                             "(native) <===\n")
-            g, ug = finalize_native(g, opt, stage, do_ug=(outfmt == "ug"))
+            g = clean_graph(g, opt, stage, device=dev, group=group)
         else:
-            g = _clean_py(g, opt, stage, dev)
-    tick("clean")
+            from .graph.clean import del_trans
+
+            if stage >= 6:
+                sys.stderr.write("[M::main] ===> Step 4.1: transitive "
+                                 "reduction <===\n")
+                g = del_trans(g, opt.gap_fuzz, device=dev)
+            if mode == "native":
+                # the host C++ sequential oracle (graph/finalize_native.py)
+                from .graph.finalize_native import finalize_native
+
+                sys.stderr.write("[M::main] ===> Steps 4.2-4.5: graph "
+                                 "cleaning (native) <===\n")
+                g, ug = finalize_native(g, opt, stage,
+                                        do_ug=(outfmt == "ug"))
+            else:
+                g = _clean_py(g, opt, stage, dev)
     if outfmt != "ug":
-        sg_print(g, d, sub_s, sub_e, out)
-        tick("print")
+        with clock.stage("print"):
+            sg_print(g, d, sub_s, sub_e, out)
         return g
     sys.stderr.write("[M::main] ===> Step 5: generating unitigs <===\n")
-    if ug is None:
-        ug = ug_gen(g)
-    tick("unitig")
+    with clock.stage("unitig"):
+        if ug is None:
+            ug = ug_gen(g)
     if fn_reads:
         from .unitig.seq import ug_seq
 
-        ug_seq(ug, d, sub_s, sub_e, fn_reads)
-        tick("seq")
-    ug_print(ug, d, sub_s, sub_e, out)
-    tick("print")
+        with clock.stage("seq"):
+            ug_seq(ug, d, sub_s, sub_e, fn_reads)
+    with clock.stage("print"):
+        ug_print(ug, d, sub_s, sub_e, out)
     return ug
 
 
@@ -353,19 +364,53 @@ def _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit):
     from .core.hits import build_hits
     from .graph.asg import graph_from_hits
     from .io.paf import load_paf
+
+    opt, stage, outfmt, out, dev, clock = (
+        emit[k] for k in ("opt", "stage", "outfmt", "out", "dev", "clock"))
+    sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
+    with clock.stage("load+upload"):
+        load = load_paf(paf_fn, opt.min_span, opt.min_match, excl=excl)
+        d = load.d
+        hits = build_hits(load, bi_dir=bi_dir, device=dev)
+        del load
+
+    with clock.stage("select"):
+        hits, sub = _select_staged(hits, d, opt, stage, no_first, no_second)
+
+    if outfmt in ("bed", "paf") and sub is None:
+        # the flag combination never ran a selection pass (-1 with -S<4,
+        # or -1 -2): the reference dereferences a NULL sub table here
+        # (main.c print_subs/print_hits); the JAX package warns instead
+        sys.stderr.write("[W::main] no selection pass ran (-1/-2/-S); "
+                         "nothing to print for -p %s\n" % outfmt)
+        return None
+    sub_s = sub_e = None
+    if sub is not None:
+        s, e = sub[:2].cpu().numpy()
+        sub_s, sub_e = s.view(np.uint32), e.view(np.uint32)
+    if outfmt in ("bed", "paf"):
+        with clock.stage("print"):
+            if outfmt == "bed":
+                print_subs(d, sub_s, sub_e, out)
+            else:
+                print_hits(hits, d, sub_s, sub_e, out)
+        return None
+
+    sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
+    with clock.stage("graph_build"):
+        g = graph_from_hits(opt, d.lens_array(), d.del_array(), sub, hits)
+        del hits
+    return _clean_and_print(g, d, sub_s, sub_e, **emit)
+
+
+def _select_staged(hits, d, opt, stage, no_first, no_second):
+    """Steps 2-3 of the staged path, pass by pass as -1, -2 and -S gate
+    them; returns (hits, sub): the surviving hits and the (3, n_seq)
+    trim tables, None when no selection pass ran."""
     from .select.contained import hit_contained
     from .select.cut import apply_cut
     from .select.filter import flt_coverage, hit_flt
     from .select.subregion import hit_sub, log_sub
-
-    opt, stage, outfmt, out, dev, tick = (
-        emit[k] for k in ("opt", "stage", "outfmt", "out", "dev", "tick"))
-    sys.stderr.write("[M::main] ===> Step 1: reading read mappings <===\n")
-    load = load_paf(paf_fn, opt.min_span, opt.min_match, excl=excl)
-    d = load.d
-    hits = build_hits(load, bi_dir=bi_dir, device=dev)
-    del load
-    tick("load+upload")
 
     sub = None
     if not no_first:
@@ -402,30 +447,4 @@ def _run_staged(paf_fn, excl, no_first, no_second, bi_dir, emit):
                 sub = sub2
         if stage >= 5:
             hits, sub = hit_contained(opt, d, sub, hits)
-    tick("select")
-
-    if outfmt in ("bed", "paf") and sub is None:
-        # the flag combination never ran a selection pass (-1 with -S<4,
-        # or -1 -2): the reference dereferences a NULL sub table here
-        # (main.c print_subs/print_hits); the JAX package warns instead
-        sys.stderr.write("[W::main] no selection pass ran (-1/-2/-S); "
-                         "nothing to print for -p %s\n" % outfmt)
-        return None
-    sub_s = sub_e = None
-    if sub is not None:
-        s, e = sub[:2].cpu().numpy()
-        sub_s, sub_e = s.view(np.uint32), e.view(np.uint32)
-    if outfmt == "bed":
-        print_subs(d, sub_s, sub_e, out)
-        tick("print")
-        return None
-    if outfmt == "paf":
-        print_hits(hits, d, sub_s, sub_e, out)
-        tick("print")
-        return None
-
-    sys.stderr.write("[M::main] ===> Step 4: graph cleaning <===\n")
-    g = graph_from_hits(opt, d.lens_array(), d.del_array(), sub, hits)
-    del hits
-    tick("graph_build")
-    return _clean_and_print(g, d, sub_s, sub_e, **emit)
+    return hits, sub

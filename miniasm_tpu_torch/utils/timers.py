@@ -8,6 +8,8 @@ pipeline pass. Log lines go to stderr only; stdout is reserved for data
 
 from __future__ import annotations
 
+import contextlib
+import os
 import sys
 import time
 
@@ -45,6 +47,38 @@ EXTRA: dict = {}
 
 def add_extra(key: str, val: float) -> None:
     EXTRA[key] = round(EXTRA.get(key, 0.0) + val, 4)
+
+
+class StageClock:
+    """The cumulative stage clock of one run (pipeline.LAST_TIMING,
+    parallel.full.LAST_TIMING, the worker's `stages_s` in
+    parallel/multihost.py).  `with clock.stage(name):` runs one stage
+    inside a profiler range `stage:<name>`, which a torch.profiler trace
+    records (MINIASM_TPU_PROFILE) and which costs nothing otherwise.  At
+    the stage's end the card is synchronized, so that its device work
+    ends inside the stage, and `timing[name]` is set to the seconds since
+    the clock started.  With MINIASM_TPU_TIMING set, each end also writes
+    `[T::<name>] +<s>` to stderr, the JAX package's line
+    (pipeline.py:84-88)."""
+
+    def __init__(self, timing: dict, dev):
+        timing.clear()
+        self.timing, self.dev = timing, dev
+        self.echo = bool(os.environ.get("MINIASM_TPU_TIMING"))
+        self.t0 = time.time()
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        import torch
+
+        with torch.profiler.record_function("stage:" + name):
+            yield
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        t = time.time() - self.t0
+        self.timing[name] = t
+        if self.echo:
+            sys.stderr.write("[T::%s] +%.3f\n" % (name, t))
 
 
 def liftrlimit() -> None:

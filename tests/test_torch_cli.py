@@ -78,8 +78,10 @@ def test_port_imports_no_jax(sim_small, tmp_path):
     (run_sharded on a one-rank group, the multi-process worker), and the
     tools (minidot, the interop converters, the eval tools, the panel, the
     scaling harness and the graft entry points, imported, and minidot and
-    the forward step run) load no module of JAX or of the JAX package
-    (exact names: miniasm_tpu_torch shares the prefix)."""
+    the forward step run), the run switches (the v2 loader, the timing
+    lines and the profiler trace) and the fuzz and sanitizer modules load
+    no module of JAX or of the JAX package (exact names: miniasm_tpu_torch
+    shares the prefix)."""
     paf, fa = sim_small["paf"], sim_small["fasta"]
     snap = str(tmp_path / "snap")
     code = (
@@ -93,8 +95,9 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "from miniasm_tpu_torch.io import fastx\n"
         "from miniasm_tpu_torch.interop import (da2paf, mhap2paf, paf2mhap,\n"
         "    paftop, sam2paf, wt2paf)\n"
-        "from miniasm_tpu_torch.eval import (dryrun, order_eval, ovsen,\n"
-        "    paf_srtcmp, panel, ref2ovlp, scaling, testsen)\n"
+        "from miniasm_tpu_torch.eval import (dryrun, fuzz, order_eval,\n"
+        "    ovsen, paf_srtcmp, panel, ref2ovlp, scaling, testsen)\n"
+        "from miniasm_tpu_torch.io.native import sanitize\n"
         "with redirect_stdout(io.StringIO()):\n"
         "    rc = dotter.main([%r])\n"
         "    fwd, args = dryrun.entry(device='cpu')\n"
@@ -103,6 +106,12 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "    rc |= cli.main(['-1', '-p', 'ug', %r])\n"
         "    rc |= cli.main(['-p', 'paf', %r])\n"
         "    rc |= cli.main(['-R', '-f', %r, %r])\n"
+        "    os.environ.update(MINIASM_TPU_LOADER='v2',\n"
+        "                      MINIASM_TPU_TIMING='1',\n"
+        "                      MINIASM_TPU_PROFILE=%r + '_prof')\n"
+        "    rc |= cli.main(['-R', '-f', %r, %r])\n"
+        "    for k in ('LOADER', 'TIMING', 'PROFILE'):\n"
+        "        del os.environ['MINIASM_TPU_' + k]\n"
         "    group.init(0, 1, 'file://' + %r + '_rdv', device='cpu')\n"
         "    run_sharded(%r, Opt())\n"
         "    group.destroy()\n"
@@ -116,8 +125,8 @@ def test_port_imports_no_jax(sim_small, tmp_path):
         "'miniasm_tpu') or m.startswith(('jax.', 'jaxlib.', "
         "'miniasm_tpu.')))\n"
         "print(json.dumps([rc, bad]))\n" % (paf, paf, paf, paf, fa, paf, snap,
-                                             paf, paf, snap, snap, snap,
-                                             paf))
+                                             fa, paf, snap, paf, paf, snap,
+                                             snap, snap, paf))
     env = dict(os.environ, **{ENV: "cpu"})
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)

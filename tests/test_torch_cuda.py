@@ -1164,3 +1164,71 @@ def test_dryrun_multichip_nccl_one_rank(dev, capfd):
         want = io.StringIO()
         run(paf, Opt(), out=want, device="cpu")
     assert gfa == want.getvalue() and gfa
+
+
+@pytest.mark.parametrize("fmt", ["ug", "sg", "bed"])
+def test_v2_loader_on_card_matches_cpu(dev, tmp_path, monkeypatch, fmt):
+    """MINIASM_TPU_LOADER=v2: one copy of the colmat, no K9 or K10, the
+    select and clean kernels as on the default loader, and the bytes of
+    the CPU run and of the default loader."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.pipeline import run
+
+    paf = _ladder_paf(tmp_path, "grouped")
+    outs = {}
+    for loader in ("mt", "v2"):
+        if loader == "v2":
+            monkeypatch.setenv("MINIASM_TPU_LOADER", "v2")
+        for d in ("cpu", "cuda"):
+            cuda.reset_launches()
+            buf = io.StringIO()
+            run(paf, Opt(), outfmt=fmt, out=buf, device=d)
+            outs[loader, d] = buf.getvalue()
+        n = cuda.launch_counts()
+        assert n["cut_hit2arc"] == 2 and n["sweep"] == 2
+        assert (n["decode3"] > 0) == (loader == "mt")
+        assert (n["unpack4"] > 0) == (loader == "mt")
+    assert len(set(outs.values())) == 1 and outs["v2", "cpu"]
+
+
+def test_profile_trace_holds_kernels(dev, tmp_path, monkeypatch, capsys):
+    """MINIASM_TPU_PROFILE on the card: the trace holds the kernels of the
+    run under their names, on the card's streams, beside the stage
+    ranges; stdout is the run's without the profiler."""
+    import json
+    import os
+
+    from miniasm_tpu_torch import cli
+    from miniasm_tpu_torch.device import ENV
+
+    paf = _ladder_paf(tmp_path, "grouped")
+    monkeypatch.setenv(ENV, "cuda")
+    assert cli.main(["-p", "ug", paf]) == 0
+    want = capsys.readouterr().out
+    prof = str(tmp_path / "prof")
+    monkeypatch.setenv("MINIASM_TPU_PROFILE", prof)
+    assert cli.main(["-p", "ug", paf]) == 0
+    cap = capsys.readouterr()
+    assert cap.out == want and "profiler trace written" in cap.err
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    for name in ("cut_hit2arc_kernel", "ev_sweep", "trans_multi_kernel",
+                 "decode3_kernel", "unpack4_kernel"):
+        assert any(name in k for k in kernels), (name, sorted(kernels))
+    assert any(str(e.get("name")).startswith("stage:") for e in events)
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_fuzz_cases_on_card(dev, k):
+    """Two seeded fuzz cases, the port on the card against the port on
+    the CPU."""
+    import random
+
+    from miniasm_tpu_torch.eval import fuzz
+
+    rng = random.Random(5)
+    cases = [fuzz.draw_case(rng) for _ in range(2)]
+    rec = fuzz.run_case(cases[k], "cuda")
+    assert rec["ok"], rec

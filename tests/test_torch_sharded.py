@@ -59,6 +59,7 @@ def rank_job(outdir, runs, extra):
     from miniasm_tpu_torch.io.paf import no_cont_prefilter
     from miniasm_tpu_torch.parallel.full import (gather_arcs, run_sharded,
                                                  select_step, shard_rows)
+    from miniasm_tpu_torch.utils.timers import StageClock
 
     g = grp.current()
     root = g.rank == 0
@@ -85,7 +86,8 @@ def rank_job(outdir, runs, extra):
     if not extra:
         return
     for tag, paf in extra["step"]:
-        rows, n_seq, block, _ = shard_rows(paf, Opt(), None, g)
+        rows, n_seq, block, _ = shard_rows(paf, Opt(), None, g,
+                                           StageClock({}, g.device))
         arcmat, meta, counts = select_step(rows, n_seq, block, Opt(), g)
         allarcs = gather_arcs(arcmat, g)
         if root:

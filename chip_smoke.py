@@ -28,14 +28,20 @@ What it does, in order:
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
      run requires (EXPECT, and MH_EXPECT for each worker process): K1-K4,
-     K9 and K10 on the noisy main-path runs, K2, K5 and K6 on the staged
-     runs, K3, K7 and K8 on the oracle runs, K11 (its layout pass once
-     per Layout, its scatter once per payload), K1-K4 on the sharded
-     runs;
+     K9, K10, K12 and K13 on the noisy main-path runs, K2, K5 and K6 on
+     the staged runs, K3, K7 and K8 on the oracle runs, K11 (its layout
+     pass once per Layout, its scatter once per payload), K1-K4 and K12
+     on the sharded runs, and K14 and K15 once per detection of every
+     run's hybrid clean (clean.detect_n);
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events, the
-     wrapper also by torch.profiler's device time; K9 also on seeded
+     wrapper also by torch.profiler's device time, each timed call alone
+     after a write of 128 MB that evicts the 50 MB L2 (the main path's
+     caller finds a kernel's inputs cold); beside K13 and K14 it times
+     the PyTorch calls that do their costly part (a stable int64
+     torch.sort; a torch.sort and searchsorted), and runs K13's largest
+     call again with every read sorted in device memory; K9 also on seeded
      pieces with edge-case run tables; K7 and K8 also on seeded keys
      with duplicates, with (-1, -1) (all ones, as the hash table's empty
      slots) and pads, and on 4,194,304 keys (a table past L2); K11 also on an 8-way routing of
@@ -111,10 +117,14 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # and only the oracle clean modes launch K7 and K8.
 # The loader launches K9 once per FMT3 piece and K10 once per FMT3 or
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
-# another (pafread.cpp) and launches neither.
+# another (pafread.cpp) and launches neither.  The main path's select
+# launches K12 and K13 once; every detection of the hybrid clean launches
+# K14 and K15 once (each run is also held to its clean.detect_n,
+# _check_detects).
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
          "decode3": ">0", "unpack4": "=decode3", "route": 0,
-         "route_layout": 0}
+         "route_layout": 0, "read_marks": 1, "arc_order": 1,
+         "clean_arcs": "=clean_ends", "clean_ends": "any"}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -130,7 +140,8 @@ def _staged(sweep, hit_cut, hit2arc, graph):
             "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
             "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0,
-            "route_layout": 0}
+            "route_layout": 0, "read_marks": 0, "arc_order": 0,
+            "clean_arcs": "=clean_ends", "clean_ends": ">0" if graph else 0}
 
 
 def _oracle(symm_calls):
@@ -138,7 +149,8 @@ def _oracle(symm_calls):
     # and one K7 launch per symm: after del_trans, and in py mode after
     # each del_short that drops arcs; the oracles never run K4
     return dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=1, bubble_bfs=0,
-                key_member=symm_calls, dup_mark=symm_calls)
+                key_member=symm_calls, dup_mark=symm_calls, clean_arcs=0,
+                clean_ends=0)
 
 
 EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
@@ -159,7 +171,8 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "ecoli_snap_ug": _CLEAN,
           # the restore skips Steps 1-3: no loader or select kernel
           "ecoli_snap_ug_restore": dict(_CLEAN, cut_hit2arc=0, sweep=0,
-                                        decode3=0, unpack4=0),
+                                        decode3=0, unpack4=0, read_marks=0,
+                                        arc_order=0),
           # the sideband overflows in the first piece: no FMT3 piece
           "shuffled_ug": dict(_CLEAN, decode3=0, unpack4=">0"),
           # below E. coli size the switch can come in the first piece
@@ -167,15 +180,16 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           # the sharded runs: rank 0 loads on the host (7-row pieces,
           # nothing to decode: no K9/K10); K11's layout pass once for the
           # select step's one Layout and its scatter once per sweep pass,
-          # then the main path's select and clean kernels
+          # then the main path's select kernels but K13 (the step compacts
+          # with torch ops) and its clean kernels
           "sharded_ug": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                             unpack4=0),
+                             unpack4=0, arc_order=0),
           "sharded_ug_2": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0),
+                               unpack4=0, arc_order=0),
           "sharded_ug_3": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0),
+                               unpack4=0, arc_order=0),
           "sharded_noisy_ug": dict(_NOISY, route=2, route_layout=1,
-                                   decode3=0, unpack4=0),
+                                   decode3=0, unpack4=0, arc_order=0),
           # the v2 loader: one copy of the colmat, no K9 or K10; -p paf
           # runs the staged path of both passes (_run_staged: K2 per
           # hit_sub pass, K5 per cut, K6 in the filter and the
@@ -204,20 +218,24 @@ AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
 for _tag in ("noisy_ug", "noisy_sg", "noisy_s2_ug", "noisy_s12_sg",
              "noisy_R_ug", "noisy_s1_R_f_ug", "sharded_noisy_ug",
              "noisy_v2_ug", "noisy_v2_sg"):
-    AT_ECOLI[(_tag, "trans_multi")] = 19
+    for _k in ("trans_multi", "clean_arcs", "clean_ends"):
+        AT_ECOLI[(_tag, _k)] = 19
     AT_ECOLI[(_tag, "bubble_bfs")] = 11
 for _tag, _want in EXPECT.items():
     if _want["decode3"] == ">0" and _tag != "noisy_R_ug":
         AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
 # the run whose counts the kernels line reports for each kernel: the main
-# path's run in which K1-K4 all launch, the staged -1 run for K5, K6, the
-# py oracle run for K7, K8, and the clean set's warm run for K9, K10
+# path's run in which K1-K4 all launch (and K14, K15 once per detection),
+# the staged -1 run for K5, K6, the py oracle run for K7, K8, and the clean
+# set's warm run for K9, K10, K12, K13
 RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
                  "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug",
                  "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
                  "decode3": "ecoli_ug", "unpack4": "ecoli_ug",
-                 "route": "sharded_ug"}
+                 "route": "sharded_ug", "read_marks": "ecoli_ug",
+                 "arc_order": "ecoli_ug", "clean_arcs": "noisy_ug",
+                 "clean_ends": "noisy_ug"}
 # the path whose calls each kernel's row times; a kernel reused on another
 # path gets a sub-row of its own there, with the launches of a run that
 # makes those calls: K2 in the staged hit_sub (crude and fine, both of
@@ -225,20 +243,23 @@ RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
 ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
             "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "staged",
             "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
-            "unpack4": "main", "route": "sharded"}
+            "unpack4": "main", "route": "sharded", "read_marks": "main",
+            "arc_order": "main", "clean_arcs": "main", "clean_ends": "main"}
 # a kernel whose row times one call, not the sum of its path's variants:
 # K11's largest call of the run of record (its other calls are listed as
 # cases beside it)
 ROW_CALL = {"route": ("sharded", "sharded_ug")}
 # each worker process of the multi-process run (rank -> launches): K11's
 # scatter for the repartition and both sweep passes, its layout pass for
-# the repartition's and the select step's Layout, K1 and K2 twice; rank 0
-# alone cleans (without the group, as the JAX worker does)
+# the repartition's and the select step's Layout, K1 and K2 twice, K12
+# once; rank 0 alone cleans (without the group, as the JAX worker does)
 _MH = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
        "decode3": 0, "unpack4": 0, "route": 3, "route_layout": 2,
-       "cut_hit2arc": 2, "sweep": 2}
-MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0"),
-             1: dict(_MH, trans_multi=0, bubble_bfs=0)}
+       "cut_hit2arc": 2, "sweep": 2, "read_marks": 1, "arc_order": 0}
+MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0",
+                     clean_arcs="=clean_ends", clean_ends=">0"),
+             1: dict(_MH, trans_multi=0, bubble_bfs=0, clean_arcs=0,
+                     clean_ends=0)}
 MH_PROCS = len(MH_EXPECT)
 REUSE = {"sweep": ("hit_sub", "staged", "ecoli_S4_bed"),
          "trans_multi": ("del_trans", "oracle", "noisy_native_ug")}
@@ -362,6 +383,16 @@ def _check_launches(tag: str, launches: dict, expect=None) -> None:
                   % (tag, name, got, want))
 
 
+def _check_detects(tag: str, launches: dict, stages: dict) -> None:
+    """K14 and K15 launch once per detection of the run (clean.detect_n,
+    counted by devclean.detect)."""
+    n = int(stages.get("extra.clean.detect_n", 0))
+    if not launches["clean_arcs"] == launches["clean_ends"] == n:
+        _fail("%s: clean_arcs launched %d times and clean_ends %d, the run "
+              "detected %d times" % (tag, launches["clean_arcs"],
+                                      launches["clean_ends"], n))
+
+
 def _gfa_summary(gfa: str) -> dict:
     lens = [int(x.split("\t")[3][5:]) for x in gfa.splitlines()
             if x.startswith("S\t")]
@@ -382,36 +413,74 @@ def _check_sequences(tag: str, gfa: str) -> None:
 # ---------------------------------------------------------------------------
 # per-kernel comparison, timing and bound
 
+# the L2 flush between timed calls: the main path's caller finds a
+# kernel's inputs cold (written by other kernels, megabytes earlier), and a
+# call repeated on the same inputs would read them from the 50 MB L2.  One
+# negation of a 128 MB int32 buffer evicts it; its device events are known
+# by name (FLUSH["names"], read from a profile of the flush alone) and left
+# out of _device_ms, and _time_ms times each call alone, after its flush.
+FLUSH: dict = {"buf": None, "names": None}
+
+
+def _flush() -> None:
+    if FLUSH["buf"] is None:
+        FLUSH["buf"] = torch.zeros(32 << 20, dtype=torch.int32,
+                                   device="cuda")
+    FLUSH["buf"].neg_()
+
+
+def _flush_names() -> set:
+    if FLUSH["names"] is None:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        _flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _flush()
+            torch.cuda.synchronize()
+        FLUSH["names"] = {e.name for e in prof.events()
+                          if e.device_type == DeviceType.CUDA}
+        if not FLUSH["names"]:
+            _fail("the profiler recorded no event of the L2 flush")
+    return FLUSH["names"]
+
+
 def _time_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of fn, each call alone after an L2 flush."""
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in ev:
+        _flush()
+        a.record()
         fn()
-    b.record()
+        b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
 def _device_ms(fn, reps: int):
     """Device time per call of what fn launches, from the device events
-    torch.profiler records over reps calls: each kernel's mean duration
-    times its launches per call, summed (a trace that misses some events
-    of a kernel still gives its mean); None where it records none."""
+    torch.profiler records over reps calls, each after an L2 flush (whose
+    events are left out): each kernel's mean duration times its launches
+    per call, summed (a trace that misses some events of a kernel still
+    gives its mean); None where it records none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    flush = _flush_names()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            _flush()
             fn()
         torch.cuda.synchronize()
     us: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in flush:
             us.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not us:
         return None
@@ -506,6 +575,49 @@ def _cost(name, args, kw, out):
         # per row its bin, match and popcount (about 6 integer ops)
         dest = args[0]
         return _nbytes(dest) + 8 * (2 * args[1] + 4), 6 * dest.numel()
+    if name == "read_marks":
+        # every row's lane bits; a row with a valid lane also its reads
+        # and both hit2arc codes (its mark words: about 12 integer ops
+        # and two atomics), a self row also its flags and coordinates; the
+        # per-read words written once
+        colmat, o = args[0], args[1]
+        act = (o[4] & 3) != 0
+        n_act = int(act.sum())
+        n_self = int((act & (colmat[0] == colmat[3])).sum())
+        return (4 * o.shape[1] + 16 * n_act + 20 * n_self + _nbytes(out),
+                12 * n_act)
+    if name == "arc_order":
+        # every row's lane bits, a row with a valid lane also its reads,
+        # codes and both reads' marks and deletion (tab, mdel: read once);
+        # each arc's start and its u, v, l, ol read, the head and the
+        # arc's five words written (the kernel writes the first n_arc rows
+        # of each column only); per row about 20 integer ops, per read of
+        # c arcs a comparison sort's c log2 c
+        colmat, o, tab, mdel = args[:4]
+        n = o.shape[1]
+        act = int(((o[4] & 3) != 0).sum())
+        c = _arcs_per_read(out, colmat, tab.shape[0]).to(torch.float64)
+        sort = float((c * torch.log2(c.clamp(min=1))).sum())
+        n_arc = int(out[1])
+        return (4 * n + 16 * act + _nbytes(tab, mdel) + 20 * n_arc
+                + 4 * 3 + 20 * n_arc, 20 * n + sort)
+    if name == "clean_arcs":
+        # the CSR columns and K3's bits read once, the complement rows'
+        # targets and bits as far as each live arc scans them (to its
+        # match), the words and rows written once; a compare per scanned
+        # arc, about 10 ops per arc and 6 per ratio of a weak-test arc
+        first, av, aol, bits, ratios = args[:5]
+        scanned, tested = _clean_scan(first, av, bits, out)
+        return (_nbytes(first, av, aol, bits) + 5 * scanned
+                + _nbytes(*out), 2 * scanned + 10 * av.numel()
+                + 6 * len(ratios) * tested)
+    if name == "clean_ends":
+        # nlive, fl_v, sdel_v read once, the bytes written once; per
+        # vertex its start code and each step of its walk (about 8 ops)
+        nlive, fl_v, sdel_v, max_ext = args[:4]
+        steps = _walk_steps(nlive, fl_v, int(max_ext))
+        return _nbytes(nlive, fl_v, sdel_v) + _nbytes(out), 8 * (
+            steps + nlive.numel())
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -517,6 +629,58 @@ def _cost(name, args, kw, out):
         return (_nbytes(first, av, al, adel, live_out, sources)
                 + _nbytes(*out)), ops
     raise KeyError(name)
+
+
+def _arcs_per_read(res, colmat, T):
+    """K13's arcs per read (the bucket sizes its sorts take), from its
+    result's rows."""
+    n = colmat.shape[1]
+    n_arc = int(res[1])
+    row = res[3 + 8 * n:3 + 8 * n + n_arc].long()
+    read = torch.cat([colmat[0], colmat[3]])[row].clamp(0, T - 1).long()
+    return torch.bincount(read, minlength=T)
+
+
+def _clean_scan(first, av, bits, out):
+    """K14's complement scans on this call: the arcs read in the rows
+    v^1 (each live1 arc's scan stops at its match), and the arcs that
+    take the weak-overlap test (live, not their row's first, in a row of
+    two or more live arcs)."""
+    from miniasm_tpu_torch.graph.devclean import comp_keys
+
+    i64 = torch.int64
+    A = av.numel()
+    if A == 0:
+        return 0, 0
+    deg = first[1:] - first[:-1]
+    _au, live1, key, q = comp_keys(first, av, bits)
+    w = av.long() ^ 1
+    # the first live1 arc w -> u^1 of each live1 arc u -> v, by row order
+    skey, sidx = torch.sort(key, stable=True)
+    pos = torch.searchsorted(skey, q).clamp(max=A - 1)
+    hit = skey[pos] == q
+    scanned = torch.where(hit, sidx[pos] - first[w] + 1, deg[w])
+    # in a row of nl >= 2 live arcs, the nl - 1 after its first
+    nl = out[1][0].long()
+    tested = int((nl - 1)[nl >= 2].sum())
+    return int(scanned[live1].to(i64).sum()), tested
+
+
+def _walk_steps(nlive, fl_v, max_ext):
+    """K15's walk steps over all vertices: each walk reads codes until a
+    non-zero one, at most max_ext."""
+    nl = nlive.long()
+    fl = fl_v.long()
+    code = torch.where(nl == 0, 1, torch.where(
+        nl > 1, 2, torch.where(nl[fl ^ 1] != 1, 3, 0)))
+    cur = torch.arange(nl.numel(), device=nl.device)
+    going = torch.ones_like(cur, dtype=torch.bool)
+    steps = 0
+    for _ in range(max_ext):
+        steps += int(going.sum())
+        going = going & (code[cur] == 0)
+        cur = torch.where(going, fl[cur], cur)
+    return steps
 
 
 def _measure_layout(lay, reps):
@@ -555,7 +719,14 @@ def _measure(name, fn, plain, args, kw, reps):
     got = fn(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
-    err = _max_abs_err(got, want)
+    if name == "arc_order":
+        # the part both write: the head and the first n_arc rows
+        from miniasm_tpu_torch.select.fused2 import arc_live
+
+        n = args[0].shape[1]
+        err = _max_abs_err(arc_live(got, n), arc_live(want, n))
+    else:
+        err = _max_abs_err(got, want)
     b, o = _cost(name, args, kw, got)
     m = {"err": err, "ms": _time_ms(lambda: fn(*args, **kw), reps),
          "device_ms": _device_ms(lambda: fn(*args, **kw), reps),
@@ -577,6 +748,24 @@ def _measure(name, fn, plain, args, kw, reps):
         if not torch.equal(torch.isin(qk, hk), got):
             _fail("key_member disagrees with torch.isin")
         m["library_ms"] = _time_ms(lambda: torch.isin(qk, hk), reps)
+    if name == "arc_order":
+        # the costly part as one PyTorch call: the stable torch.sort of the
+        # compacted arcs' int64 hit keys (in row order, as the twin sorts)
+        colmat, n = args[0], args[0].shape[1]
+        row = got[3 + 8 * n:3 + 8 * n + int(got[1])].long().sort().values
+        hkey = ((torch.cat([colmat[0], colmat[3]])[row].long() << 32)
+                | ((torch.cat([colmat[1], colmat[4]])[row].long() + 2**31)
+                   & 0xFFFFFFFF))
+        m["library_ms"] = _time_ms(
+            lambda: torch.sort(hkey, stable=True), reps)
+    if name == "clean_arcs":
+        # the complement test as the twin does it: one int64 torch.sort of
+        # the live arcs' keys and one searchsorted of the complements
+        from miniasm_tpu_torch.graph.devclean import comp_keys
+
+        _au, _live1, key, q = comp_keys(args[0], args[1], args[3])
+        m["library_ms"] = _time_ms(
+            lambda: torch.searchsorted(torch.sort(key).values, q), reps)
     return m
 
 
@@ -614,6 +803,38 @@ def _sweep_tiers(row, calls, cases):
         if not ok:
             _fail("sweep[%s] took other branches than it was built for"
                   % "/".join(key))
+
+
+def _arc_tiers(row, calls):
+    """K13's branches on the row's largest call, as the kernel counts
+    them: the reads sorted by a block and those of them sorted in device
+    memory (every other read by a warp in registers); again with
+    smem_cap=0, which must send every read that holds an arc to device
+    memory, bit-equal to the twin."""
+    from miniasm_tpu_torch.select import fused2
+
+    _size, args, kw = max((calls[k] for k in calls
+                           if k[0] == ROW_PATH["arc_order"]),
+                          key=lambda c: c[0])
+    res, t = fused2.arc_order_tiers(*args)
+    c = _arcs_per_read(res, args[0], args[2].shape[0])
+    row["largest_call"] = {
+        "rows": args[0].shape[1], "arcs": int(res[1]),
+        "most_arcs_a_read": int(c.max()),
+        "reads_with_arcs": int((c > 0).sum()), "dup_hit": int(res[2]),
+        "block_reads": int(t[0]), "device_memory_reads": int(t[1])}
+    res0, t0 = fused2.arc_order_tiers(*args, smem_cap=0)
+    row["largest_call_smem0"] = {"block_reads": int(t0[0]),
+                                 "device_memory_reads": int(t0[1])}
+    _say("[arc_order] largest call: %s; smem_cap=0: %s"
+         % (json.dumps(row["largest_call"]),
+            json.dumps(row["largest_call_smem0"])))
+    n = args[0].shape[1]
+    same = all(torch.equal(x, y) for x, y in zip(
+        fused2.arc_live(res0, n), fused2.arc_live(res, n)))
+    if not same or not int(t0[0]) == int(t0[1]) == int((c > 0).sum()):
+        _fail("arc_order with smem_cap=0 took other branches than it was "
+              "built for, or disagrees with the default cap")
 
 
 def _calls(name, rec) -> list:
@@ -709,11 +930,21 @@ def _kernel_phase(recs, runs, cases):
              "hit2arc": h2a.hit2arc_rows_plain,
              "key_member": arrays.key_member_plain,
              "dup_mark": clean.dup_mark_plain,
-             "route": rt.route_plain}
+             "route": rt.route_plain,
+             # the recorded calls pass the main path's fetch buffer (res,
+             # out), which the twins do not take
+             "read_marks": fused2.read_marks_plain,
+             "arc_order": lambda *a, smem_cap=None, res=None:
+                 fused2.arc_order_plain(*a),
+             "clean_arcs": lambda *a, res=None:
+                 devclean.clean_arcs_plain(*a[:6]),
+             "clean_ends": lambda *a, out=None:
+                 devclean.clean_ends_plain(*a)}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
             "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
             "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50,
-            "route": 50}
+            "route": 50, "read_marks": 50, "arc_order": 20,
+            "clean_arcs": 20, "clean_ends": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
@@ -774,6 +1005,8 @@ def _kernel_phase(recs, runs, cases):
                         for k, m in measured.items()}
         if name == "sweep":
             _sweep_tiers(row, calls, cases.get(name, {}))
+        if name == "arc_order":
+            _arc_tiers(row, calls)
         if rec.log_tag is not None:
             row["calls"] = _calls(name, rec)
             _say("[calls] %s %s (%s): %s" % (
@@ -1214,12 +1447,20 @@ DEVICE_FUNCS = {"cut_hit2arc": ("cut_hit2arc_kernel",),
                 "trans_multi": ("trans_multi_kernel",),
                 "bubble_bfs": ("bubble_bfs_kernel",),
                 "decode3": ("decode3_kernel",),
-                "unpack4": ("unpack4_kernel",)}
+                "unpack4": ("unpack4_kernel",),
+                "read_marks": ("read_marks_kernel",),
+                "arc_order": ("arc_count_kernel", "scan_sums_kernel",
+                              "scan_blocks_kernel", "scan_offsets_kernel",
+                              "arc_scatter_kernel", "arc_sort_warp_kernel",
+                              "arc_sort_big_kernel"),
+                "clean_arcs": ("clean_arcs_kernel",),
+                "clean_ends": ("clean_ends_kernel",)}
 # the kernels each profiled run must show in its trace
+_TAILS = ("read_marks", "arc_order", "clean_arcs", "clean_ends")
 PROFILED = {"noisy_ug": ("cut_hit2arc", "sweep", "trans_multi",
-                         "bubble_bfs", "decode3", "unpack4"),
+                         "bubble_bfs", "decode3", "unpack4") + _TAILS,
             "ecoli_ug": ("cut_hit2arc", "sweep", "trans_multi", "decode3",
-                         "unpack4")}
+                         "unpack4") + _TAILS}
 FUZZ_CASES = 8
 
 
@@ -1458,7 +1699,8 @@ def main(argv=None) -> int:
     if a.genome == ECOLI_BP:
         for (tag, name), want in AT_ECOLI.items():
             EXPECT[tag][name] = want
-        MH_EXPECT[0]["trans_multi"] = 19
+        for k in ("trans_multi", "clean_arcs", "clean_ends"):
+            MH_EXPECT[0][k] = 19
         MH_EXPECT[0]["bubble_bfs"] = 11
     report: dict = {}
     smi = _smi()
@@ -1622,7 +1864,13 @@ def main(argv=None) -> int:
             Recorder(pafload, "unpack4", on_path(lambda a_, k: "all"),
                      size_fn=lambda a_, k: a_[1]),
             # K11: the largest call of each run
-            Recorder(pfull, "route", on_path(lambda a_, k: PATH["tag"]))]
+            Recorder(pfull, "route", on_path(lambda a_, k: PATH["tag"])),
+            # K12 (the main path's and the sharded step's), K13; K14, K15:
+            # the largest detection
+            Recorder(fused2, "read_marks", on_path(lambda a_, k: "all")),
+            Recorder(fused2, "arc_order", on_path(lambda a_, k: "all")),
+            Recorder(devclean, "clean_arcs", on_path(lambda a_, k: "all")),
+            Recorder(devclean, "clean_ends", on_path(lambda a_, k: "all"))]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
@@ -1645,6 +1893,7 @@ def main(argv=None) -> int:
                     json.dumps(launches), k3.stat, k3_row_limit,
                     json.dumps(stages)))
             _check_launches(tag, launches)
+            _check_detects(tag, launches, stages)
             if not out:
                 _fail("%s printed nothing" % tag)
             if "-f" in args:
@@ -1666,6 +1915,7 @@ def main(argv=None) -> int:
                      % (tag, dt, len(out), json.dumps(runs[tag]["gfa"]),
                         json.dumps(launches), k3.stat, json.dumps(stages)))
                 _check_launches(tag, launches)
+                _check_detects(tag, launches, stages)
         finally:
             group.destroy()
         PATH["now"], PATH["tag"] = "dryrun", "dryrun_entry"

@@ -269,8 +269,10 @@ ev_scatter_kernel(const int32_t* __restrict__ seg,
 
 // Ascending bitonic network over a[0, n), run by the whole block.  Every
 // compare-exchange moves the smaller key to the lower slot, so slots past
-// n act as +inf and the pairs that reach them are skipped.
-__device__ void bitonic_sort(uint32_t* a, uint32_t n) {
+// n act as +inf and the pairs that reach them are skipped.  K2 sorts
+// uint32 keys, K13 uint64.
+template <typename K>
+__device__ void bitonic_sort(K* a, uint32_t n) {
     if (n < 2) return;
     const uint32_t P = 1u << (32 - __clz(static_cast<int>(n - 1)));
     const uint32_t half = P >> 1;
@@ -283,7 +285,7 @@ __device__ void bitonic_sort(uint32_t* a, uint32_t n) {
                 const uint32_t i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
                 const uint32_t j = flip ? (i ^ flip) : (i + d);
                 if (j < n) {
-                    const uint32_t x = a[i], y = a[j];
+                    const K x = a[i], y = a[j];
                     if (x > y) {
                         a[i] = y;
                         a[j] = x;
@@ -296,10 +298,10 @@ __device__ void bitonic_sort(uint32_t* a, uint32_t n) {
 }
 
 // The same network on 32 * E keys in a warp's registers, key lane * E + e
-// in x[e] (padded with 0xffffffff: the n smallest are the read's keys):
+// in x[e] (padded with all ones: the n smallest are the read's keys):
 // partners within a lane compare in registers, the others by shuffle.
-template <int E>
-__device__ __forceinline__ void reg_sort(uint32_t (&x)[E], int lane) {
+template <int E, typename K>
+__device__ __forceinline__ void reg_sort(K (&x)[E], int lane) {
 #pragma unroll
     for (int k = 2; k <= 32 * E; k <<= 1) {
         if (k <= E) {
@@ -307,7 +309,7 @@ __device__ __forceinline__ void reg_sort(uint32_t (&x)[E], int lane) {
             for (int e = 0; e < E; ++e) {
                 const int f = e ^ (k - 1);
                 if (f > e) {
-                    const uint32_t a = min(x[e], x[f]), b = max(x[e], x[f]);
+                    const K a = min(x[e], x[f]), b = max(x[e], x[f]);
                     x[e] = a;
                     x[f] = b;
                 }
@@ -316,7 +318,7 @@ __device__ __forceinline__ void reg_sort(uint32_t (&x)[E], int lane) {
             // partner lane ^ (k/E - 1), register E-1-e; the lower lane
             // keeps the minimum
             const bool lower = (lane & (k / E / 2)) == 0;
-            uint32_t y[E];
+            K y[E];
 #pragma unroll
             for (int e = 0; e < E; ++e)
                 y[e] = __shfl_xor_sync(FULL, x[E - 1 - e], k / E - 1);
@@ -330,8 +332,8 @@ __device__ __forceinline__ void reg_sort(uint32_t (&x)[E], int lane) {
 #pragma unroll
                 for (int e = 0; e < E; ++e) {
                     if ((e & d) == 0) {
-                        const uint32_t a = min(x[e], x[e + d]);
-                        const uint32_t b = max(x[e], x[e + d]);
+                        const K a = min(x[e], x[e + d]);
+                        const K b = max(x[e], x[e + d]);
                         x[e] = a;
                         x[e + d] = b;
                     }
@@ -340,7 +342,7 @@ __device__ __forceinline__ void reg_sort(uint32_t (&x)[E], int lane) {
                 const bool lower = (lane & (d / E)) == 0;
 #pragma unroll
                 for (int e = 0; e < E; ++e) {
-                    const uint32_t y = __shfl_xor_sync(FULL, x[e], d / E);
+                    const K y = __shfl_xor_sync(FULL, x[e], d / E);
                     x[e] = lower ? min(x[e], y) : max(x[e], y);
                 }
             }
@@ -556,17 +558,355 @@ ev_sweep_big_kernel(uint32_t* buf, const int32_t* __restrict__ off,
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// K12 read_marks: the containment / used / palindrome marks of the final
+// pass (fused2.py:401-426; hit.c:225-236, asm.c:9-39).  One thread per
+// original row reads its lane bits and both sides' hit2arc codes from K1's
+// final-pass output and raises the per-read word of its query (used,
+// contained, palindrome: bits 0-2) and of its target (used, contained) by
+// atomicMax.  It is a max, not an or, because both packages reduce with
+// amax: a palindromic self-hit row (5) and a row that marks the same read
+// contained (3) leave 5.  A row with no valid lane adds 0 and is skipped;
+// a word that already holds at least the row's value is not touched.
+
+__global__ void read_marks_kernel(const int32_t* __restrict__ qid,
+                                  const int32_t* __restrict__ tid,
+                                  const int32_t* __restrict__ flags,
+                                  const int32_t* __restrict__ out, int64_t n,
+                                  int64_t T, int32_t* __restrict__ tab) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+    if (i >= n) return;
+    const int32_t bits = out[4 * n + i];
+    const bool vq = bits & 1, vm = bits & 2;
+    if (!vq && !vm) return;
+    const int32_t rq_raw = out[5 * n + i], rm_raw = out[10 * n + i];
+    const int32_t rq = vq ? rq_raw : 0, rm = vm ? rm_raw : 0;
+    const int32_t q = qid[i], t = tid[i];
+    const bool pal = vq && rq_raw >= 0 && q == t && out[i] == out[2 * n + i] &&
+                     out[n + i] == out[3 * n + i] && ((flags[i] >> 1) & 1);
+    const int32_t qbits = 1 | ((rq == MA_HT_QCONT || rm == MA_HT_TCONT) << 1) |
+                          (pal << 2);
+    const int32_t tbits = 1 | ((rq == MA_HT_TCONT || rm == MA_HT_QCONT) << 1);
+    int32_t* wq = tab + clamp_index(q, T);
+    int32_t* wt = tab + clamp_index(t, T);
+    if (*wq < qbits) atomicMax(wq, qbits);
+    if (*wt < tbits) atomicMax(wt, tbits);
+}
+
+// ---------------------------------------------------------------------------
+// K13 arc_order: arc compaction and the stable hit-key order of the final
+// pass (fused2.py:428-520).  An arc row is a valid lane whose hit2arc code
+// is an arc (>= 0), not a self match, between two reads that survive (used,
+// not sub-deleted, not contained: hit.c:237-251).  Row i < n is the q-side
+// of original i, row n + i its m-side; the arcs go out ordered by the hit
+// key (the side's read, its ORIGINAL start), ties in row order.  K2's
+// pattern on arcs, one call making these launches after one memset:
+//   (a) count: each read's arcs (the side's read: qid, or tid for the
+//       m-side) and m_contained (hit.c:244: the valid lanes between two
+//       surviving reads), a warp sum and one atomic a warp;
+//   (b) scan: the exclusive scan of the counts in read order, in three
+//       launches (block sums, their scan in one block, each block's scan
+//       plus its offset), so that read r's bucket starts at its first
+//       position in the output; the total is n_arc;
+//   (c) scatter: each arc's 64-bit key, its start (sign bit flipped, so
+//       the unsigned order is the signed one) over its row, into its read's
+//       bucket at an atomic cursor: the bucket's order is arbitrary, but
+//       (start, row) is unique, so its sort restores the stable order;
+//   (d) sort: one warp a read of at most REG_EVENTS arcs, in registers (the
+//       bitonic network of K2 on 64-bit keys); a larger read goes on a list
+//       for (e), one block a listed read, in shared memory where it fits
+//       smem_cap bytes, else in place in device memory.  Each writes its
+//       read's arcs in order to the five output columns (u, v, l, ol from
+//       K1's final pass, the row) and counts the neighbours of equal key
+//       (dup_hit: equal starts within one read).
+// res: [m_contained, n_arc, dup_hit, u[2n], v[2n], l[2n], ol[2n], row[2n]];
+// only the first n_arc positions of each column are written (the JAX
+// program pads its arcmat to 2n rows; no reader of the port looks past
+// n_arc).
+
+typedef unsigned long long u64;
+constexpr int SCAN_THREADS = 1024;
+constexpr int ARC_THREADS = 256;
+
+__device__ __forceinline__ bool read_alive(const int32_t* __restrict__ tab,
+                                           const uint8_t* __restrict__ mdel,
+                                           int32_t r) {
+    const int32_t w = tab[r];
+    return (w & 1) && !(w & 2) && !mdel[r];
+}
+
+// the row's arc lanes: bit 0 its q-side, bit 1 its m-side; with the
+// valid lanes between two surviving reads (m_contained's terms) in mc
+__device__ __forceinline__ int arc_lanes(
+    const int32_t* __restrict__ qid, const int32_t* __restrict__ tid,
+    const int32_t* __restrict__ out, const int32_t* __restrict__ tab,
+    const uint8_t* __restrict__ mdel, int64_t n, int64_t T, int64_t i,
+    int32_t& q, int32_t& t, int& mc) {
+    const int32_t bits = out[4 * n + i];
+    mc = 0;
+    if (!(bits & 3)) return 0;
+    q = clamp_index(qid[i], T);
+    t = clamp_index(tid[i], T);
+    if (!read_alive(tab, mdel, q) || !read_alive(tab, mdel, t)) return 0;
+    const bool vq = bits & 1, vm = bits & 2;
+    mc = vq + vm;
+    if (qid[i] == tid[i]) return 0;
+    return (vq && out[5 * n + i] >= 0 ? 1 : 0) |
+           (vm && out[10 * n + i] >= 0 ? 2 : 0);
+}
+
+__device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* sh) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    x = __reduce_add_sync(FULL, x);
+    if (lane == 0) sh[w] = x;
+    __syncthreads();
+    int32_t tot = 0;
+    for (int k = 0; k < static_cast<int>(blockDim.x >> 5); ++k) tot += sh[k];
+    __syncthreads();
+    return tot;
+}
+
+// (a)
+__global__ void __launch_bounds__(ARC_THREADS)
+arc_count_kernel(const int32_t* __restrict__ qid,
+                 const int32_t* __restrict__ tid,
+                 const int32_t* __restrict__ out,
+                 const int32_t* __restrict__ tab,
+                 const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
+                 int32_t* __restrict__ cnt, int32_t* __restrict__ res) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * ARC_THREADS +
+                      threadIdx.x;
+    int32_t q = 0, t = 0;
+    int mc = 0;
+    const int a = i < n ? arc_lanes(qid, tid, out, tab, mdel, n, T, i, q, t,
+                                    mc) : 0;
+    if (a & 1) atomicAdd(&cnt[q], 1);
+    if (a & 2) atomicAdd(&cnt[t], 1);
+    const int32_t s = __reduce_add_sync(FULL, mc);
+    if ((threadIdx.x & 31) == 0 && s) atomicAdd(&res[0], s);
+}
+
+// exclusive block scan of x; returns the block's total in *tot
+__device__ __forceinline__ int32_t block_excl_scan(int32_t x, int32_t* sh,
+                                                   int32_t* tot) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int32_t inc = warp_incl_sum(x, lane);
+    if (lane == 31) sh[w] = inc;
+    __syncthreads();
+    if (w == 0) {
+        const int32_t v = lane < static_cast<int>(blockDim.x >> 5) ? sh[lane]
+                                                                   : 0;
+        sh[lane] = warp_incl_sum(v, lane);
+    }
+    __syncthreads();
+    const int32_t before = (w ? sh[w - 1] : 0) + inc - x;
+    *tot = sh[(blockDim.x >> 5) - 1];
+    __syncthreads();
+    return before;
+}
+
+// (b) 1: the sum of each block of SCAN_THREADS counts
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_sums_kernel(const int32_t* __restrict__ cnt, int64_t T,
+                 int32_t* __restrict__ bsum) {
+    __shared__ int32_t sh[32];
+    const int64_t r = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS +
+                      threadIdx.x;
+    const int32_t s = block_sum(r < T ? cnt[r] : 0, sh);
+    if (threadIdx.x == 0) bsum[blockIdx.x] = s;
+}
+
+// (b) 2: the block sums' exclusive scan in place, by one block; the total
+// is n_arc
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_blocks_kernel(int32_t* __restrict__ bsum, int64_t nb,
+                   int32_t* __restrict__ res) {
+    __shared__ int32_t sh[32];
+    int32_t carry = 0;
+    for (int64_t b0 = 0; b0 < nb; b0 += SCAN_THREADS) {
+        const int64_t b = b0 + threadIdx.x;
+        const int32_t x = b < nb ? bsum[b] : 0;
+        int32_t tot;
+        const int32_t before = block_excl_scan(x, sh, &tot);
+        if (b < nb) bsum[b] = carry + before;
+        carry += tot;
+    }
+    if (threadIdx.x == 0) res[1] = carry;
+}
+
+// (b) 3: off[r] = cur[r] = the first position of read r's arcs
+__global__ void __launch_bounds__(SCAN_THREADS)
+scan_offsets_kernel(const int32_t* __restrict__ cnt, int64_t T,
+                    const int32_t* __restrict__ bsum,
+                    int32_t* __restrict__ off, int32_t* __restrict__ cur) {
+    __shared__ int32_t sh[32];
+    const int64_t r = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS +
+                      threadIdx.x;
+    int32_t tot;
+    const int32_t before = block_excl_scan(r < T ? cnt[r] : 0, sh, &tot);
+    if (r < T) {
+        off[r] = bsum[blockIdx.x] + before;
+        cur[r] = off[r];
+    }
+}
+
+// (c)
+__global__ void __launch_bounds__(ARC_THREADS)
+arc_scatter_kernel(const int32_t* __restrict__ qid,
+                   const int32_t* __restrict__ qs0,
+                   const int32_t* __restrict__ tid,
+                   const int32_t* __restrict__ ts0,
+                   const int32_t* __restrict__ out,
+                   const int32_t* __restrict__ tab,
+                   const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
+                   int32_t* __restrict__ cur, u64* __restrict__ keys) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * ARC_THREADS +
+                      threadIdx.x;
+    if (i >= n) return;
+    int32_t q = 0, t = 0;
+    int mc;
+    const int a = arc_lanes(qid, tid, out, tab, mdel, n, T, i, q, t, mc);
+    if (a & 1) {
+        const u64 k = (static_cast<u64>(static_cast<uint32_t>(qs0[i]) ^
+                                        0x80000000u) << 32) |
+                      static_cast<uint32_t>(i);
+        keys[atomicAdd(&cur[q], 1)] = k;
+    }
+    if (a & 2) {
+        const u64 k = (static_cast<u64>(static_cast<uint32_t>(ts0[i]) ^
+                                        0x80000000u) << 32) |
+                      static_cast<uint32_t>(n + i);
+        keys[atomicAdd(&cur[t], 1)] = k;
+    }
+}
+
+// the arc of sorted key k at output position p
+__device__ __forceinline__ void write_arc(const int32_t* __restrict__ out,
+                                          int64_t n, int64_t cap,
+                                          int32_t* __restrict__ cols,
+                                          int64_t p, u64 k) {
+    const int64_t row = static_cast<uint32_t>(k);
+    const int64_t src = row < n ? 6 * n + row : 11 * n + (row - n);
+    cols[p] = out[src];
+    cols[cap + p] = out[src + n];
+    cols[2 * cap + p] = out[src + 2 * n];
+    cols[3 * cap + p] = out[src + 3 * n];
+    cols[4 * cap + p] = static_cast<int32_t>(row);
+}
+
+template <int E>
+__device__ __forceinline__ int32_t arc_sort_warp(
+    const u64* __restrict__ a, uint32_t cnt, const int32_t* __restrict__ out,
+    int64_t n, int64_t cap, int32_t* __restrict__ cols, int64_t base,
+    int lane) {
+    u64 x[E];
+    const uint32_t first = static_cast<uint32_t>(lane) * E;
+#pragma unroll
+    for (int e = 0; e < E; ++e) x[e] = first + e < cnt ? a[first + e] : ~0ull;
+    reg_sort<E>(x, lane);
+    u64 prev = __shfl_up_sync(FULL, x[E - 1], 1);
+    int32_t dups = 0;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const uint32_t p = first + e;
+        if (p < cnt) {
+            write_arc(out, n, cap, cols, base + p, x[e]);
+            if (p > 0 && (prev >> 32) == (x[e] >> 32)) ++dups;
+        }
+        prev = x[e];
+    }
+    return dups;
+}
+
+// (d)
+__global__ void __launch_bounds__(SW_WARPS * 32)
+arc_sort_warp_kernel(const u64* __restrict__ keys,
+                     const int32_t* __restrict__ off,
+                     const int32_t* __restrict__ cnt, int64_t T,
+                     uint32_t warp_cap, const int32_t* __restrict__ out,
+                     int64_t n, int64_t cap, int32_t* __restrict__ res,
+                     int32_t* __restrict__ big, int32_t* __restrict__ nbig) {
+    const int lane = threadIdx.x & 31;
+    const int64_t r =
+        static_cast<int64_t>(blockIdx.x) * SW_WARPS + (threadIdx.x >> 5);
+    if (r >= T) return;  // the whole warp
+    const uint32_t c = static_cast<uint32_t>(cnt[r]);
+    if (c == 0) return;
+    if (c > warp_cap) {
+        if (lane == 0) big[atomicAdd(nbig, 1)] = static_cast<int32_t>(r);
+        return;
+    }
+    const int64_t base = off[r];
+    const u64* a = keys + base;
+    int32_t* cols = res + 3;
+    int32_t d;
+    if (c <= 32) {
+        d = arc_sort_warp<1>(a, c, out, n, cap, cols, base, lane);
+    } else if (c <= 64) {
+        d = arc_sort_warp<2>(a, c, out, n, cap, cols, base, lane);
+    } else if (c <= 128) {
+        d = arc_sort_warp<4>(a, c, out, n, cap, cols, base, lane);
+    } else {
+        d = arc_sort_warp<REG_EVENTS / 32>(a, c, out, n, cap, cols, base,
+                                           lane);
+    }
+    d = __reduce_add_sync(FULL, d);
+    if (lane == 0 && d) atomicAdd(&res[2], d);
+}
+
+// (e) one block a listed read: in dynamic shared memory where it fits
+// smem_keys keys, else in place in its bucket (counted in ndev)
+__global__ void __launch_bounds__(BIG_THREADS)
+arc_sort_big_kernel(u64* keys, const int32_t* __restrict__ off,
+                    const int32_t* __restrict__ cnt, uint32_t smem_keys,
+                    const int32_t* __restrict__ out, int64_t n, int64_t cap,
+                    int32_t* __restrict__ res,
+                    const int32_t* __restrict__ big,
+                    const int32_t* __restrict__ nbig,
+                    int32_t* __restrict__ ndev) {
+    extern __shared__ u64 skeys[];
+    const int32_t nb = *nbig;
+    int32_t* cols = res + 3;
+    for (int32_t li = blockIdx.x; li < nb; li += gridDim.x) {
+        const int64_t r = big[li];
+        const uint32_t c = static_cast<uint32_t>(cnt[r]);
+        const int64_t base = off[r];
+        u64* a = keys + base;
+        if (c <= smem_keys) {
+            for (uint32_t i = threadIdx.x; i < c; i += blockDim.x)
+                skeys[i] = a[i];
+            a = skeys;
+        } else if (threadIdx.x == 0) {
+            atomicAdd(ndev, 1);
+        }
+        __syncthreads();
+        bitonic_sort(a, c);
+        int32_t d = 0;
+        for (uint32_t p = threadIdx.x; p < c; p += blockDim.x) {
+            write_arc(out, n, cap, cols, base + p, a[p]);
+            if (p > 0 && (a[p - 1] >> 32) == (a[p] >> 32)) ++d;
+        }
+        d = __reduce_add_sync(FULL, d);
+        if ((threadIdx.x & 31) == 0 && d) atomicAdd(&res[2], d);
+        __syncthreads();  // before the next read reuses skeys
+    }
+}
+
 // (e)'s dynamic shared memory may reach SMEM_MAX: raised once per device
-cudaError_t allow_big_smem(int dev) {
-    static std::atomic<uint64_t> done{0};
+// and kernel (K2's and K13's)
+template <typename F>
+cudaError_t allow_big_smem(F kernel, std::atomic<uint64_t>& done, int dev) {
     const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
     if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
     const cudaError_t e = cudaFuncSetAttribute(
-        ev_sweep_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_MAX);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
     return e;
 }
+
+std::atomic<uint64_t> sweep_smem_done{0}, arc_smem_done{0};
 
 }  // namespace
 
@@ -613,7 +953,8 @@ extern "C" int ma_sweep_events(const int32_t* seg, const int32_t* key,
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = allow_big_smem(dev);
+    if (e == cudaSuccess)
+        e = allow_big_smem(ev_sweep_big_kernel, sweep_smem_done, dev);
     if (e == cudaSuccess)
         e = cudaMemsetAsync(aux, 0, (T + has_words + 3) * sizeof(int32_t),
                             stream);
@@ -640,5 +981,87 @@ extern "C" int ma_sweep_events(const int32_t* seg, const int32_t* key,
                           stream>>>(
         keys, off, cnt, T, min_dp, end_clip, smem_keys, out, big, nbig,
         ndev);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K12.  qid, tid, flags: n int32 (the colmat's rows 0, 3, 6); out: K1's
+// final-pass output (15, n); tab: T int32, zeroed here, then per read the
+// max of its rows' mark words (bit 0 used, 1 contained, 2 palindrome).
+extern "C" int ma_read_marks(const int32_t* qid, const int32_t* tid,
+                             const int32_t* flags, const int32_t* out,
+                             int64_t n, int64_t T, int32_t* tab,
+                             cudaStream_t stream) {
+    if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = cudaMemsetAsync(tab, 0, T * sizeof(int32_t), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int threads = 256;
+    if (n > 0)
+        read_marks_kernel<<<n_blocks(n, threads), threads, 0, stream>>>(
+            qid, tid, flags, out, n, T, tab);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K13.  qid, qs0, tid, ts0: n int32 (the colmat's rows 0, 1, 3, 4: the
+// ORIGINAL starts); out: K1's final-pass output (15, n); tab: K12's T
+// words; mdel: T bytes, the merged sub-deletion; keys: 2n uint64 of
+// scratch; aux: 4T + 2 + ceil(T / 1024) int32 of scratch, laid out
+// cnt[T] | nbig | ndev | off[T] | cur[T] | big[T] | bsum; res: 3 + 10n
+// int32 (see K13 above).  smem_cap as K2's.  After the call aux's nbig and
+// ndev hold the reads sorted by a block and those of them sorted in
+// device memory.
+extern "C" int ma_arc_order(const int32_t* qid, const int32_t* qs0,
+                            const int32_t* tid, const int32_t* ts0,
+                            const int32_t* out, int64_t n,
+                            const int32_t* tab, const uint8_t* mdel,
+                            int64_t T, uint64_t* keys, int32_t* aux,
+                            int smem_cap, int32_t* res,
+                            cudaStream_t stream) {
+    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t cap = 2 * n;
+    const int64_t nb = (T + SCAN_THREADS - 1) / SCAN_THREADS;
+    int32_t* cnt = aux;
+    int32_t* nbig = cnt + T;
+    int32_t* ndev = nbig + 1;
+    int32_t* off = ndev + 1;
+    int32_t* cur = off + T;
+    int32_t* big = cur + T;
+    int32_t* bsum = big + T;
+    u64* k64 = reinterpret_cast<u64*>(keys);
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = allow_big_smem(arc_sort_big_kernel, arc_smem_done, dev);
+    if (e == cudaSuccess)
+        e = cudaMemsetAsync(aux, 0, (T + 2) * sizeof(int32_t), stream);
+    if (e == cudaSuccess)
+        e = cudaMemsetAsync(res, 0, 3 * sizeof(int32_t), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const unsigned row_blocks = n_blocks(n, ARC_THREADS);
+    if (n > 0)
+        arc_count_kernel<<<row_blocks, ARC_THREADS, 0, stream>>>(
+            qid, tid, out, tab, mdel, n, T, cnt, res);
+    scan_sums_kernel<<<static_cast<unsigned>(nb), SCAN_THREADS, 0, stream>>>(
+        cnt, T, bsum);
+    scan_blocks_kernel<<<1, SCAN_THREADS, 0, stream>>>(bsum, nb, res);
+    scan_offsets_kernel<<<static_cast<unsigned>(nb), SCAN_THREADS, 0,
+                          stream>>>(cnt, T, bsum, off, cur);
+    if (n > 0)
+        arc_scatter_kernel<<<row_blocks, ARC_THREADS, 0, stream>>>(
+            qid, qs0, tid, ts0, out, tab, mdel, n, T, cur, k64);
+    const uint32_t cap_keys =
+        static_cast<uint32_t>(smem_cap > 0 ? smem_cap : 0) / 8;
+    arc_sort_warp_kernel<<<n_blocks(T, SW_WARPS), SW_WARPS * 32, 0,
+                           stream>>>(
+        k64, off, cnt, T, cap_keys < REG_EVENTS ? cap_keys : REG_EVENTS, out,
+        n, cap, res, big, nbig);
+    const uint32_t smem_keys =
+        cap_keys < SMEM_MAX / 8 ? cap_keys : SMEM_MAX / 8;
+    arc_sort_big_kernel<<<static_cast<unsigned int>(T < sms ? T : sms),
+                          BIG_THREADS, static_cast<size_t>(smem_keys) * 8,
+                          stream>>>(
+        k64, off, cnt, smem_keys, out, n, cap, res, big, nbig, ndev);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,182 @@
+"""Select and clean stage times of the port, for several checkouts of the
+repository side by side (a commit and its parent, say).
+
+Each checkout runs in processes of its own, in the order given, the whole
+order `--rounds` times, the second round reversed (A B, B A, ...), so that
+two checkouts are compared on one card within one call.  Before its first
+round a checkout runs the CLI once in a process of its own, untimed, so
+that its kernels and host loader are built.  The runs are `-p ug` on the
+clean PAF, `-p paf` on it and `-p ug` on the noisy PAF.  By default each
+run is the first and only run of a fresh process, as a user's one-shot
+CLI run is (CUDA context, module loads, pinned host memory all paid in
+it); with --warm one process runs the CLI once to warm up, then the three.
+Each run prints one JSON line: its stage ticks (pipeline.LAST_TIMING) and
+stage extras (utils.timers.EXTRA: select.kernel_s, select.fetch_s,
+clean.detect_s, clean.detect_n, ...).  The card's name and power limit
+come first, as nvidia-smi gives them.  With --trace DIR the runs named by
+--trace-runs run under the CLI's MINIASM_TPU_PROFILE (their times then
+include the profiler's cost), and for each the script prints the host
+calls that take the most time inside the select stage (`stage:select+
+fetch`): torch ops and CUDA runtime calls, summed by name.
+
+    python -m miniasm_tpu_torch.eval.stages --paf CLEAN.paf \\
+        --noisy NOISY.paf [--warm] [--rounds 2] [--json OUT] \\
+        [--trace DIR --trace-runs noisy_ug] CHECKOUT [CHECKOUT ...]
+
+The PAFs are those chip_smoke.py simulates (build/smoke/ecoli_4600000.paf
+and its _noisy twin).  `--device cpu` runs the port on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+RUNS = ("ecoli_ug", "ecoli_paf", "noisy_ug")
+
+# one process: the runs named in argv[5] (a warm-up among them when asked);
+# each run's stdout is discarded, its stage ticks and extras printed as a
+# JSON line
+_PROC = r"""
+import contextlib, io, json, os, sys, time
+import torch
+from miniasm_tpu_torch import cli, pipeline
+from miniasm_tpu_torch.utils import timers
+paf, noisy, trace = sys.argv[1], sys.argv[2], sys.argv[3]
+traced = set(sys.argv[4].split(",")) if trace else set()
+args = {"warmup": ["-p", "ug", paf], "ecoli_ug": ["-p", "ug", paf],
+        "ecoli_paf": ["-p", "paf", paf], "noisy_ug": ["-p", "ug", noisy]}
+for tag in sys.argv[5].split(","):
+    buf, err = io.StringIO(), io.StringIO()
+    if tag in traced:
+        os.environ["MINIASM_TPU_PROFILE"] = os.path.join(trace, tag)
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = cli.main(args[tag])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    os.environ.pop("MINIASM_TPU_PROFILE", None)
+    if rc != 0:
+        sys.stderr.write(err.getvalue()[-2000:])
+        sys.exit(rc)
+    print(json.dumps({"run": tag, "wall_s": dt, "bytes": len(buf.getvalue()),
+                      "stages": dict(pipeline.LAST_TIMING),
+                      "extra": dict(timers.EXTRA),
+                      "traced": tag in traced}), flush=True)
+"""
+
+
+def _smi() -> str:
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except OSError:
+        return "no nvidia-smi"
+    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
+
+
+def _select_calls(trace_json: str, top: int = 12) -> list:
+    """The host calls inside the trace's select stage, summed by name (a
+    torch op's time includes the ops it calls), the longest first:
+    [(name, category, calls, total ms)]."""
+    with open(trace_json) as f:
+        ev = json.load(f)["traceEvents"]
+    win = [e for e in ev if e.get("name") == "stage:select+fetch"
+           and "dur" in e]
+    if not win:
+        return []
+    t0, t1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    tot: dict = {}
+    for e in ev:
+        if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver") \
+                and "dur" in e and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1:
+            k = (e["name"], e["cat"])
+            n, d = tot.get(k, (0, 0.0))
+            tot[k] = (n + 1, d + e["dur"] / 1e3)
+    rows = sorted(((k[0], k[1], n, d) for k, (n, d) in tot.items()),
+                  key=lambda r: -r[3])
+    return [("stage:select+fetch", "window", 1, win[0]["dur"] / 1e3)] \
+        + rows[:top]
+
+
+def _process(tree, runs, a, paf, noisy, trace) -> list:
+    """Run `runs` in one fresh process of checkout `tree`: its JSON rows."""
+    env = dict(os.environ)
+    env.pop("MINIASM_TPU_TORCH_DEVICE", None)
+    if a.device != "cuda":
+        env["MINIASM_TPU_TORCH_DEVICE"] = a.device
+    env["PYTHONPATH"] = tree
+    r = subprocess.run([sys.executable, "-c", _PROC, paf, noisy, trace,
+                        a.trace_runs, ",".join(runs)],
+                       cwd=tree, env=env, capture_output=True, text=True,
+                       timeout=1200)
+    if r.returncode != 0:
+        sys.stderr.write(r.stderr[-3000:])
+        raise RuntimeError("stages: %s exited %d" % (tree, r.returncode))
+    return [dict(json.loads(line), checkout=tree)
+            for line in r.stdout.splitlines()]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="+")
+    ap.add_argument("--paf", required=True)
+    ap.add_argument("--noisy", required=True)
+    ap.add_argument("--warm", action="store_true")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--trace", default="")
+    ap.add_argument("--trace-runs", default="noisy_ug")
+    a = ap.parse_args(argv)
+    card = _smi()
+    print(card, flush=True)
+    paf, noisy = os.path.abspath(a.paf), os.path.abspath(a.noisy)
+    order = []
+    for k in range(a.rounds):
+        order += a.checkouts if k % 2 == 0 else a.checkouts[::-1]
+    rows, built = [], set()
+    for k, tree in enumerate(order):
+        tree = os.path.abspath(tree)
+        trace = (os.path.join(os.path.abspath(a.trace), "%d_%s" % (
+            k, os.path.basename(tree) or "root")) if a.trace else "")
+        if tree not in built:
+            _process(tree, ["warmup"], a, paf, noisy, "")
+            built.add(tree)
+        if a.warm:
+            got = _process(tree, ["warmup", *RUNS], a, paf, noisy, trace)[1:]
+        else:
+            got = [row for run in RUNS
+                   for row in _process(tree, [run], a, paf, noisy, trace)]
+        for row in got:
+            row["round"] = k
+            rows.append(row)
+            x = row["extra"]
+            print("%s %s: wall %.4f s, select.kernel_s %s, select.fetch_s "
+                  "%s, clean.detect_s %s, clean.detect_n %s" % (
+                      tree, row["run"], row["wall_s"],
+                      x.get("select.kernel_s"), x.get("select.fetch_s"),
+                      x.get("clean.detect_s"), x.get("clean.detect_n")),
+                  flush=True)
+            if row["traced"]:
+                row["select_calls"] = _select_calls(os.path.join(
+                    trace, row["run"], "trace.json"))
+                for name, cat, n, ms in row["select_calls"]:
+                    print("    [trace] %s %s: %d calls, %.3f ms"
+                          % (cat, name[:70], n, ms), flush=True)
+    if a.json:
+        os.makedirs(os.path.dirname(os.path.abspath(a.json)), exist_ok=True)
+        with open(a.json, "w") as f:
+            json.dump({"card": card, "warm": a.warm, "runs": rows}, f,
+                      indent=1)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,19 +21,25 @@ arc order, so "live slots in slot order" here is the sequence the
 reference's next pass scans.
 
 Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), a group of
-lanes per vertex row over the CSR arc list; steps 3-6 are torch ops on
-the same per-arc columns.  The host applies the masks and commits the
-candidates in reference order (graph/hybrid.py).  Under a process group
+lanes per vertex row over the CSR arc list; steps 3-4 and each row's live
+count and first live arc are the `clean_arcs` kernel (K14), the same
+shape; steps 5-6 are the `clean_ends` kernel (K15), a thread per vertex.
+The arc words, the candidate bytes and the counters come to the host in
+one copy.  The host applies the masks and commits the candidates in
+reference order (graph/hybrid.py).  Under a process group
 (the sharded path) every rank runs K3 on its block of vertex rows
 (detect(group=), follow, release).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..cuda import I32, I64, P, SMEM_MAX, Kernel, ptr
+from ..cuda import F32, I32, I64, P, SMEM_MAX, Kernel, ptr
+from ..device import to_host
 from .asg import Graph
 
 # _clean_kernel stage A (l.179-225): transitive-reduction and multi-arc marks
@@ -41,6 +47,20 @@ K_TRANS = Kernel(
     "trans_multi", "clean.cu", "ma_trans_multi",
     [P, P, P, P, I64, I64, I32, I32, I32, P],
     replaces="miniasm_tpu/graph/devclean.py:143")
+
+# _clean_kernel stage B (l.236-275): asymmetric arcs, each row's live
+# count and first live arc, the weak-overlap masks at every ratio
+K_ARCS = Kernel(
+    "clean_arcs", "clean.cu", "ma_clean_arcs",
+    [P, P, P, P, I64, I32, P, I32, F32, I32, P, P],
+    replaces="miniasm_tpu/graph/devclean.py:236")
+# _clean_kernel stage B (l.276-308): unitig ends and the candidates
+K_ENDS = Kernel(
+    "clean_ends", "clean.cu", "ma_clean_ends",
+    [P, P, P, I64, I32, P],
+    replaces="miniasm_tpu/graph/devclean.py:276")
+# the ratios an arc's word holds: bits 3..31
+MAX_RATIOS = 29
 
 # compare-tensor budget of the plain version: rows * D * D bools per chunk
 _CHUNK_ELEMS = 1 << 26
@@ -189,6 +209,177 @@ def trans_multi(first, av, al, sdel_v, D: int, fuzz: int, do_trans: bool,
     return bits
 
 
+def comp_keys(first, av, bits):
+    """The complement test's int64 keys (asg.c:124-138), as the twin
+    sorts and searches them: (au, live1, key, q), each arc's source row,
+    whether it is live before symm (K3's bits 0 and 1 clear), its key
+    u<<32 | v (-1 where not live1), and the key v^1<<32 | u^1 of the arc
+    that its complement must be."""
+    V = first.shape[0] - 1
+    au = torch.repeat_interleave(torch.arange(V, device=av.device),
+                                 first[1:] - first[:-1])
+    av64 = av.to(torch.int64)
+    live1 = (bits & 3) == 0
+    key = torch.where(live1, (au << 32) | av64, -1)
+    q = ((av64 ^ 1) << 32) | (au ^ 1)
+    return au, live1, key, q
+
+
+def clean_arcs_plain(first, av, aol, bits, ratios, do_symm: bool):
+    """Plain PyTorch version of the clean_arcs kernel: the complement test
+    by one int64 torch.sort and searchsorted, each row's live count and
+    first live slot by scatters, one mask per ratio.  Returns (res, rows):
+    res (3 + R + A,) int32, the counters [elim, multi, asymm, weak at each
+    ratio] then one word an arc (bit 0 eliminated, 1 multi, 2 asymmetric,
+    3 + k weak at ratio k); rows (2, V) int32 [live arcs, first live
+    target (0 without one)]; at most MAX_RATIOS ratios."""
+    dev = av.device
+    i32, i64 = torch.int32, torch.int64
+    R = len(ratios)
+    V = first.shape[0] - 1
+    A = av.shape[0]
+    au, live1, key, q = comp_keys(first, av, bits)
+    elim = (bits & 1) != 0
+    multi = (bits & 2) != 0
+
+    # asymmetric arcs (asg.c:124-138): live u->v needs a live v^1 -> u^1
+    key = torch.sort(key).values
+    if A:
+        pos = torch.searchsorted(key, q).clamp(max=A - 1)
+        has_comp = key[pos] == q
+    else:
+        has_comp = torch.zeros(0, dtype=torch.bool, device=dev)
+    asymm = live1 & ~has_comp
+    # downstream masks see the post-symm live set when the graph will be
+    # symmetric at their apply point; when trans reduced nothing the
+    # reference leaves multi/asymm arcs until pop_bubble symms the graph
+    live = (live1 & ~asymm) if do_symm else ~elim
+
+    nlive = torch.zeros(V, dtype=i64, device=dev).scatter_add(
+        0, au, live.to(i64))
+    arc_id = torch.arange(A, device=dev)
+    first_live = torch.full((V,), A, dtype=i64, device=dev).scatter_reduce(
+        0, au, torch.where(live, arc_id, A), "amin")
+    fa = first_live.clamp(max=max(A - 1, 0))
+
+    # weak-overlap masks at every scheduled ratio (asg.c:83-101); ol is
+    # non-increasing in slot order, so "the suffix below the first live
+    # arc's threshold" is a plain mask on the non-first live arcs
+    words = (elim.to(i32) | (multi.to(i32) << 1) | (asymm.to(i32) << 2))
+    counters = [elim.sum(), multi.sum(), asymm.sum()]
+    if A:
+        first_ol = aol[fa].to(torch.float32)
+        is_first = arc_id == first_live[au]
+        frac_cut = torch.tensor(np.float32(_short_frac_cut()), device=dev)
+        for k, r in enumerate(ratios):
+            part = first_ol * torch.tensor(np.float32(r), device=dev)
+            base = torch.floor(part)
+            thres = (base + (part - base >= frac_cut).to(torch.float32))
+            thres = thres.to(i64)
+            m = (live & (nlive >= 2)[au] & ~is_first
+                 & (aol.to(i64) < thres[au]))
+            words |= m.to(i32) << (3 + k)
+            counters.append(m.sum())
+    else:
+        counters += [torch.zeros((), dtype=i64, device=dev)] * R
+    fl_v = (torch.where(nlive > 0, av[fa].to(i64), 0) if A
+            else torch.zeros(V, dtype=i64, device=dev))
+    res = torch.cat([torch.stack(counters).to(i32), words])
+    return res, torch.stack([nlive, fl_v]).to(i32)
+
+
+def clean_arcs(first, av, aol, bits, ratios, do_symm: bool, D: int, *,
+               res=None):
+    """K14.  first (V+1,) int64 CSR offsets; av/aol (A,) int32 targets and
+    overlaps; bits: trans_multi's (A,) uint8; ratios: the R drop ratios
+    (R <= 29); D: the longest row.  Returns (res, rows) as
+    clean_arcs_plain, res written into `res` when given."""
+    R = len(ratios)
+    if R > MAX_RATIOS:
+        raise ValueError("clean_arcs: %d drop ratios, an arc's word holds "
+                         "at most %d" % (R, MAX_RATIOS))
+    if av.device.type == "cpu":
+        got, rows = clean_arcs_plain(first, av, aol, bits, ratios, do_symm)
+        return (got if res is None else res.copy_(got)), rows
+    if first.dtype != torch.int64 or av.dtype != torch.int32 \
+            or aol.dtype != torch.int32 or bits.dtype != torch.uint8:
+        raise TypeError("clean_arcs: int64 offsets, int32 arcs, uint8 bits "
+                        "expected")
+    V = first.shape[0] - 1
+    A = av.shape[0]
+    if aol.shape != (A,) or bits.shape != (A,):
+        raise ValueError("clean_arcs: shape mismatch")
+    if res is None:
+        res = torch.empty(3 + R + A, dtype=torch.int32, device=av.device)
+    elif res.shape != (3 + R + A,) or res.dtype != torch.int32:
+        raise ValueError("clean_arcs: res must be (%d,) int32" % (3 + R + A))
+    rows = torch.empty((2, V), dtype=torch.int32, device=av.device)
+    rs = (ctypes.c_float * max(R, 1))(*[float(np.float32(r))
+                                        for r in ratios])
+    K_ARCS(ptr(first), ptr(av), ptr(aol), ptr(bits), V, int(D),
+           ctypes.addressof(rs), R, _short_frac_cut(), 1 if do_symm else 0,
+           ptr(res), ptr(rows))
+    return res, rows
+
+
+def clean_ends_plain(nlive, fl_v, sdel_v, max_ext: int):
+    """Plain PyTorch version of the clean_ends kernel: the end code of
+    every row as a table, the asg_extend walk as max_ext vectorized steps.
+    Returns (V,) uint8 [bit 0 tip, 1 internal, 2 bi-loop, 3 bubble
+    source]."""
+    dev = nlive.device
+    i64 = torch.int64
+    V = nlive.shape[0]
+    nlive = nlive.to(i64)
+    fl_v = fl_v.to(i64)
+    # unitig-end classification per vertex row (asg.c:204-221):
+    # code_row[r] = what asg_is_utg_end(r^1) returns: TIP/MO/MN/ME
+    nw = nlive[fl_v ^ 1]
+    code_row = torch.where(nlive == 0, 1, torch.where(
+        nlive > 1, 2, torch.where(nw != 1, 3, 0)))
+    # asg_extend(v, max_ext) (asg.c:223-236)
+    vids = torch.arange(V, device=dev)
+    cur = vids
+    final = torch.full((V,), -1, dtype=i64, device=dev)
+    for _ in range(int(max_ext)):
+        cc = code_row[cur]
+        final = torch.where((final < 0) & (cc != 0), cc, final)
+        cur = torch.where(final < 0, fl_v[cur], cur)
+    ext_code = torch.where(final < 0, 0, final)
+    not_sdel = sdel_v == 0
+    start_code = code_row[vids ^ 1]
+    tip = not_sdel & (start_code == 1) & (ext_code != 0)
+    mn_start = not_sdel & (start_code == 3)
+    internal = mn_start & (ext_code == 3)
+    biloop = mn_start & (ext_code == 2)
+    bubble = not_sdel & (nlive >= 2)
+    u8 = torch.uint8
+    return (tip.to(u8) | (internal.to(u8) << 1) | (biloop.to(u8) << 2)
+            | (bubble.to(u8) << 3))
+
+
+def clean_ends(nlive, fl_v, sdel_v, max_ext: int, *, out=None):
+    """K15.  nlive, fl_v: clean_arcs' rows (V,) int32; sdel_v (V,) uint8.
+    Returns (V,) uint8 as clean_ends_plain, written into `out` when
+    given."""
+    if nlive.device.type == "cpu":
+        got = clean_ends_plain(nlive, fl_v, sdel_v, max_ext)
+        return got if out is None else out.copy_(got)
+    V = nlive.shape[0]
+    if nlive.dtype != torch.int32 or fl_v.dtype != torch.int32 \
+            or sdel_v.dtype != torch.uint8:
+        raise TypeError("clean_ends: int32 rows, uint8 delete bits "
+                        "expected")
+    if fl_v.shape != (V,) or sdel_v.shape != (V,):
+        raise ValueError("clean_ends: shape mismatch")
+    if out is None:
+        out = torch.empty(V, dtype=torch.uint8, device=nlive.device)
+    elif out.shape != (V,) or out.dtype != torch.uint8:
+        raise ValueError("clean_ends: out must be (%d,) uint8" % V)
+    K_ENDS(ptr(nlive), ptr(fl_v), ptr(sdel_v), V, int(max_ext), ptr(out))
+    return out
+
+
 def _stage_a(group, first, av, al, sdel_v, D, fuzz, do_trans):
     """K3 on this rank's block of vertex rows; an all_gather joins the
     ranks' arc bits in row order."""
@@ -247,7 +438,6 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
     ratios = _ratio_schedule(opt)
     V, A = c["V"], g.n_arc
     dev = device
-    i64 = torch.int64
     args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
             int(opt.gap_fuzz), do_trans)
     if group is None or A == 0:
@@ -257,86 +447,21 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
         for t in args[:4]:
             group.broadcast(t)
         bits = _stage_a(group, *args)
-    elim = (bits & 1) != 0
-    multi = (bits & 2) != 0
-    live1 = ~elim & ~multi
-    au = c["au"].to(i64)
-    av = c["av"].to(i64)
-    aol = c["aol"]
-
-    # asymmetric arcs (asg.c:124-138): live u->v needs a live v^1 -> u^1
-    key = torch.sort(torch.where(live1, (au << 32) | av, -1)).values
-    q = ((av ^ 1) << 32) | (au ^ 1)
-    if A:
-        pos = torch.searchsorted(key, q).clamp(max=A - 1)
-        has_comp = key[pos] == q
-    else:
-        has_comp = torch.zeros(0, dtype=torch.bool, device=dev)
-    asymm = live1 & ~has_comp
-    # downstream masks see the post-symm live set when the graph will be
-    # symmetric at their apply point; when trans reduced nothing the
-    # reference leaves multi/asymm arcs until pop_bubble symms the graph
-    live = (live1 & ~asymm) if do_symm else ~elim
-
-    nlive = torch.zeros(V, dtype=i64, device=dev).scatter_add(
-        0, au, live.to(i64))
-    arc_id = torch.arange(A, device=dev)
-    first_live = torch.full((V,), A, dtype=i64, device=dev).scatter_reduce(
-        0, au, torch.where(live, arc_id, A), "amin")
-    fa = first_live.clamp(max=max(A - 1, 0))
-
-    # weak-overlap masks at every scheduled ratio (asg.c:83-101); ol is
-    # non-increasing in slot order, so "the suffix below the first live
-    # arc's threshold" is a plain mask on the non-first live arcs
-    shorts = []
-    if A:
-        first_ol = aol[fa].to(torch.float32)
-        is_first = arc_id == first_live[au]
-        frac_cut = torch.tensor(np.float32(_short_frac_cut()),
-                                device=dev)
-        for r in ratios:
-            part = first_ol * torch.tensor(np.float32(r), device=dev)
-            base = torch.floor(part)
-            thres = (base + (part - base >= frac_cut).to(torch.float32))
-            thres = thres.to(i64)
-            shorts.append(live & (nlive >= 2)[au] & ~is_first
-                          & (aol.to(i64) < thres[au]))
-    else:
-        shorts = [torch.zeros(0, dtype=torch.bool, device=dev)
-                  for _ in ratios]
-
-    # unitig-end classification per vertex row (asg.c:204-221):
-    # code_row[r] = what asg_is_utg_end(r^1) returns: TIP/MO/MN/ME
-    fl_v = (torch.where(nlive > 0, av[fa], 0) if A
-            else torch.zeros(V, dtype=i64, device=dev))
-    nw = nlive[fl_v ^ 1]
-    code_row = torch.where(nlive == 0, 1, torch.where(
-        nlive > 1, 2, torch.where(nw != 1, 3, 0)))
-    # asg_extend(v, max_ext) (asg.c:223-236)
-    vids = torch.arange(V, device=dev)
-    cur = vids
-    final = torch.full((V,), -1, dtype=i64, device=dev)
-    for _ in range(int(opt.max_ext)):
-        cc = code_row[cur]
-        final = torch.where((final < 0) & (cc != 0), cc, final)
-        cur = torch.where(final < 0, fl_v[cur], cur)
-    ext_code = torch.where(final < 0, 0, final)
-    not_sdel = c["sdel_v"] == 0
-    start_code = code_row[vids ^ 1]
-    tip = not_sdel & (start_code == 1) & (ext_code != 0)
-    mn_start = not_sdel & (start_code == 3)
-    internal = mn_start & (ext_code == 3)
-    biloop = mn_start & (ext_code == 2)
-    bubble = not_sdel & (nlive >= 2)
-
-    counters = torch.stack([elim.sum(), multi.sum(), asymm.sum()]
-                           + [m.sum() for m in shorts])
-    masks = torch.stack([elim, multi, asymm] + shorts) if A else None
-    cands = torch.stack([tip, internal, biloop, bubble])
-    counters = [int(x) for x in counters.cpu()]
-    masks = (masks.cpu().numpy() if A
-             else np.zeros((3 + len(ratios), 0), dtype=bool))
-    cands = cands.cpu().numpy()
+    # stage B (K14, K15) into one buffer, which comes to the host in one
+    # copy: [counters (3 + R) | one word an arc (A) | one byte a vertex]
+    R = len(ratios)
+    buf = torch.empty(3 + R + A + (V + 3) // 4, dtype=torch.int32,
+                      device=dev)
+    _, rows = clean_arcs(c["first"], c["av"], c["aol"], bits, ratios,
+                         do_symm, c["D"], res=buf[:3 + R + A])
+    clean_ends(rows[0], rows[1], c["sdel_v"], int(opt.max_ext),
+               out=buf[3 + R + A:].view(torch.uint8)[:V])
+    host = to_host(buf).numpy()
+    counters = [int(x) for x in host[:3 + R]]
+    words = host[3 + R:3 + R + A]
+    masks = [((words >> k) & 1).astype(bool) for k in range(3 + R)]
+    cands = host[3 + R + A:].view(np.uint8)[:V]
+    cands = [((cands >> k) & 1).astype(bool) for k in range(4)]
     add_extra("clean.detect_s", _time.time() - t0)
     add_extra("clean.detect_n", 1)
     return {

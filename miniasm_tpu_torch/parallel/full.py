@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from ..config import Opt
-from ..core.hit2arc import MA_HT_QCONT, MA_HT_TCONT
 from ..select import fused2
 from ..utils.timers import StageClock, log
 from . import group as grp
@@ -124,8 +123,7 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     qid, tid, fl, gid = rows[0], rows[3], rows[6], rows[7]
     valid0 = (fl & 1) != 0
     iden = ((fl >> 2) & 1) != 0
-    is_self = qid == tid
-    not_self = ~is_self
+    not_self = qid != tid
     vq = valid0
     vm = valid0 & not_self
     coords = rows[[1, 2, 4, 5]].contiguous()
@@ -210,7 +208,6 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     vq = (bits & 1) != 0
     vm = (bits & 2) != 0
     n_cut2 = vq.sum() + vm.sum()
-    qs, qe, ts, te = out[0], out[1], out[2], out[3]
     rq_raw, rm_raw = out[5], out[10]
 
     # --- merge (ma_sub_merge, hit.c:218-223) ---
@@ -219,22 +216,10 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     mdel = (tab1[2] != 0) | (tab2[2] != 0)
 
     # --- containment / used / palindrome marks (hit.c:225-236,
-    #     asm.c:9-39): amax per rank, then an OR across ranks ---
-    rq = torch.where(vq, rq_raw, 0)
-    rm = torch.where(vm, rm_raw, 0)
-    rev = ((fl >> 1) & 1) != 0
-    vqm = vq | vm
-    pal_rows = vq & (rq_raw >= 0) & is_self & (qs == ts) & (qe == te) & rev
-    qbits = (vqm.to(i32)
-             | (((rq == MA_HT_QCONT) | (rm == MA_HT_TCONT)).to(i32) << 1)
-             | (pal_rows.to(i32) << 2))
-    tbits = (vqm.to(i32)
-             | (((rq == MA_HT_TCONT) | (rm == MA_HT_QCONT)).to(i32) << 1))
+    #     asm.c:9-39): amax per rank (K12), then an OR across ranks ---
+    tab = fused2.read_marks(rows, out, T)
     qsl = qid.clamp(0, dump).long()
     tsl = tid.clamp(0, dump).long()
-    tab = torch.zeros(T, dtype=i32, device=dev)
-    tab.scatter_reduce_(0, qsl, qbits, "amax")
-    tab.scatter_reduce_(0, tsl, tbits, "amax")
     marks = torch.stack([tab & 1, (tab >> 1) & 1, (tab >> 2) & 1])
     g.all_reduce(marks, "max")
     used, cont, pal = marks[0] != 0, marks[1] != 0, marks[2] != 0

@@ -11,8 +11,11 @@ lane ("q-side" = the record, "m-side" = its mirror):
     which buckets them by read, sorts each read's and sweeps it;
   - cutting (ma_hit_cut, hit.c:162-193), both hit2arc lanes and the filter
     (hit.c:195-216) run fused per row in the `cut_hit2arc` kernel (K1);
-  - torch ops do the containment/used/palindrome marks, the arc compaction
-    and the stable arc ordering by the mirrored-hit key (qid<<32|qs).
+  - the containment/used/palindrome marks run in the `read_marks` kernel
+    (K12), the arc compaction and the stable arc ordering by the
+    mirrored-hit key (qid<<32|qs) in the `arc_order` kernel (K13);
+  - the counts, the per-read tables and the ordered arcs come to the host
+    in one copy.
 
 Every kernel has a plain PyTorch twin in this module; the wrapper runs the
 twin for CPU tensors and the kernel for CUDA tensors.
@@ -25,6 +28,7 @@ import torch
 
 from ..cuda import F32, I32, I64, P, SMEM_MAX, Kernel, ptr
 from ..core.hit2arc import hit2arc, MA_HT_QCONT, MA_HT_TCONT
+from ..device import to_host
 from ..utils.u32 import as_i32, as_u32
 from .cut import cut_project
 
@@ -42,6 +46,19 @@ K_SWEEP = Kernel(
     "sweep", "select.cu", "ma_sweep_events",
     [P, P, I64, I64, I32, I32, P, P, I32, P],
     replaces="miniasm_tpu/select/fused2.py:131")
+
+# the containment/used/palindrome marks of the final pass, inside
+# _select2_kernel (fused2.py:401-426)
+K_MARKS = Kernel(
+    "read_marks", "select.cu", "ma_read_marks",
+    [P, P, P, P, I64, I64, P],
+    replaces="miniasm_tpu/select/fused2.py:401")
+# the arc compaction and the stable hit-key order, inside _select2_kernel
+# (fused2.py:428-520)
+K_ARCS = Kernel(
+    "arc_order", "select.cu", "ma_arc_order",
+    [P, P, P, P, P, I64, P, P, I64, P, P, I32, P],
+    replaces="miniasm_tpu/select/fused2.py:428")
 
 # rows of the cut_hit2arc output
 CUT_ROWS_RELAXED = 6   # qs qe ts te lanes dp
@@ -252,6 +269,170 @@ def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):
     return out[:3], out[3] != 0
 
 
+def read_marks_plain(colmat, out, T: int):
+    """Plain PyTorch version of the read_marks kernel: per row the mark
+    words of its query (used, contained, palindrome) and of its target
+    (used, contained), reduced per read by two amax scatters."""
+    i32 = torch.int32
+    qid, tid, fl = colmat[0], colmat[3], colmat[6]
+    bits = out[4]
+    vq = (bits & 1) != 0
+    vm = (bits & 2) != 0
+    rq_raw, rm_raw = out[5], out[10]
+    rq = torch.where(vq, rq_raw, 0)
+    rm = torch.where(vm, rm_raw, 0)
+    rev = ((fl >> 1) & 1) != 0
+    vqm = vq | vm
+    pal_rows = (vq & (rq_raw >= 0) & (qid == tid) & (out[0] == out[2])
+                & (out[1] == out[3]) & rev)
+    qbits = (vqm.to(i32)
+             | (((rq == MA_HT_QCONT) | (rm == MA_HT_TCONT)).to(i32) << 1)
+             | (pal_rows.to(i32) << 2))
+    tbits = (vqm.to(i32)
+             | (((rq == MA_HT_TCONT) | (rm == MA_HT_QCONT)).to(i32) << 1))
+    tab = torch.zeros(T, dtype=i32, device=colmat.device)
+    tab.scatter_reduce_(0, qid.clamp(0, T - 1).long(), qbits, "amax")
+    tab.scatter_reduce_(0, tid.clamp(0, T - 1).long(), tbits, "amax")
+    return tab
+
+
+def read_marks(colmat, out, T: int):
+    """K12.  colmat (7, n) int32 [qid qs qe tid ts te flags]; out: the
+    final-pass output of cut_hit2arc (15, n).  Returns (T,) int32 per
+    read: the max over its rows of bit 0 used, bit 1 contained, bit 2
+    palindrome (hit.c:225-236, asm.c:9-39).  A max, as both packages
+    reduce, not an or: a read with a palindromic self-hit row (5) and a
+    row that marks it contained (3) keeps 5."""
+    if colmat.device.type == "cpu":
+        return read_marks_plain(colmat, out, T)
+    n = colmat.shape[1]
+    if colmat.dtype != torch.int32 or out.dtype != torch.int32:
+        raise TypeError("read_marks: int32 columns expected")
+    if out.shape != (CUT_ROWS_FINAL, n):
+        raise ValueError("read_marks: the final pass's (15, n) output "
+                         "expected")
+    if T <= 0:
+        raise ValueError("read_marks: at least one read slot expected")
+    tab = torch.empty(T, dtype=torch.int32, device=colmat.device)
+    K_MARKS(ptr(colmat[0]), ptr(colmat[3]), ptr(colmat[6]), ptr(out), n, T,
+            ptr(tab))
+    return tab
+
+
+# arc_order's result: [m_contained, n_arc, dup_hit], then the columns u, v,
+# l, ol, row, each 2n long, of which the first n_arc rows are written
+ARC_HEAD = 3
+ARC_COLS = 5
+# the int64 counts at the head of select_build2's fetch buffer: n_rem1,
+# n_cut1, n_flt, n_rem2, n_cut2, tot_dp, tot_len
+_N_COUNTS = 7
+
+
+def arc_order_plain(colmat, out, tab, mdel, *, res=None):
+    """Plain PyTorch version of the arc_order kernel: the arc rows by
+    torch.nonzero in row order (q-side rows, then m-side rows), ordered by
+    one stable torch.sort of the int64 hit key read<<32 | start (the
+    side's read and ORIGINAL start; the start's sign bit flipped, so the
+    order is the signed one of the JAX program's int32 sort keys).  It
+    writes what the kernel writes, into `res` when given: the head and
+    the first n_arc rows of each column."""
+    dev = colmat.device
+    i64 = torch.int64
+    n = colmat.shape[1]
+    T = tab.shape[0]
+    qid, oqs, tid, ots = colmat[0], colmat[1], colmat[3], colmat[4]
+    bits = out[4]
+    vq = (bits & 1) != 0
+    vm = (bits & 2) != 0
+    qsl = qid.clamp(0, T - 1).long()
+    tsl = tid.clamp(0, T - 1).long()
+    alive = ((tab & 1) != 0) & ((tab & 2) == 0) & ~mdel
+    aq = alive[qsl]
+    at = alive[tsl]
+    m_contained = (vq & aq & at).sum() + (vm & aq & at).sum()
+    not_self = qid != tid
+    arc_q = vq & (out[5] >= 0) & not_self & aq & at
+    arc_m = vm & (out[10] >= 0) & not_self & aq & at
+    idx = torch.nonzero(torch.cat([arc_q, arc_m])).flatten()
+    n_arc = idx.shape[0]
+    hkey = ((torch.cat([qsl, tsl])[idx] << 32)
+            | ((torch.cat([oqs, ots]).to(i64)[idx] + 2**31) & 0xFFFFFFFF))
+    skey, perm = torch.sort(hkey, stable=True)
+    dup_hit = (skey[1:] == skey[:-1]).sum()
+    idx = idx[perm]
+    if res is None:
+        res = torch.empty(ARC_HEAD + ARC_COLS * 2 * n, dtype=torch.int32,
+                          device=dev)
+    res[:ARC_HEAD] = torch.stack([m_contained,
+                                  torch.tensor(n_arc, device=dev), dup_hit])
+    cols = res[ARC_HEAD:].view(ARC_COLS, 2 * n)
+    for j in range(4):
+        cols[j, :n_arc] = torch.cat([out[6 + j], out[11 + j]])[idx]
+    cols[4, :n_arc] = idx.to(torch.int32)
+    return res
+
+
+def arc_live(res, n: int):
+    """The part of arc_order's result (n rows in) that it writes: the
+    head (3,) and the (5, n_arc) columns u, v, l, ol, row."""
+    cols = res[ARC_HEAD:].view(ARC_COLS, 2 * n)
+    return res[:ARC_HEAD], cols[:, :int(res[1])]
+
+
+def arc_order(colmat, out, tab, mdel, *, res=None, smem_cap: int = SMEM_MAX):
+    """K13.  colmat (7, n) int32 [qid qs qe tid ts te flags], its starts
+    the ORIGINAL ones; out: the final-pass output of cut_hit2arc (15, n);
+    tab: read_marks' (T,) words; mdel: (T,) bool, the merged
+    sub-deletion.  Returns (3 + 10n,) int32 (ARC_HEAD, ARC_COLS):
+    [m_contained, n_arc, dup_hit], then the columns u, v, l, ol and row
+    (q-side j, m-side n + j) of the arcs in the stable hit-key order,
+    each 2n long and written in its first n_arc rows only (arc_live), into
+    `res` when given.  A read's arcs are sorted in registers, or by a
+    block in at most `smem_cap` bytes of shared memory, else in device
+    memory; the card tests lower the cap to reach the latter."""
+    if colmat.device.type == "cpu":
+        return arc_order_plain(colmat, out, tab, mdel, res=res)
+    return arc_order_tiers(colmat, out, tab, mdel, res=res,
+                           smem_cap=smem_cap)[0]
+
+
+def arc_order_tiers(colmat, out, tab, mdel, *, res=None,
+                    smem_cap: int = SMEM_MAX):
+    """The arc_order kernel on CUDA tensors, as arc_order, and the
+    branches its reads took: returns (res, tiers), tiers a (2,) int32
+    tensor on the card [the reads sorted by a block, those of them sorted
+    in device memory]; every other read was sorted by a warp in
+    registers."""
+    if colmat.device.type != "cuda":
+        raise ValueError("arc_order_tiers: CUDA tensors expected")
+    n = colmat.shape[1]
+    T = tab.shape[0]
+    dev = colmat.device
+    if colmat.dtype != torch.int32 or out.dtype != torch.int32 \
+            or tab.dtype != torch.int32 or mdel.dtype != torch.bool:
+        raise TypeError("arc_order: int32 columns and words, a bool mask "
+                        "expected")
+    if out.shape != (CUT_ROWS_FINAL, n) or mdel.shape != (T,):
+        raise ValueError("arc_order: shape mismatch")
+    if n >= 1 << 30 or not 0 < T < 1 << 31:
+        raise ValueError("arc_order: at most 2**30 - 1 rows and 2**31 - 1 "
+                         "reads")
+    size = ARC_HEAD + ARC_COLS * 2 * n
+    if res is None:
+        res = torch.empty(size, dtype=torch.int32, device=dev)
+    elif res.shape != (size,) or res.dtype != torch.int32:
+        raise ValueError("arc_order: res must be (%d,) int32" % size)
+    keys = torch.empty(max(2 * n, 1), dtype=torch.int64, device=dev)
+    # csrc/select.cu ma_arc_order: cnt[T] nbig ndev off[T] cur[T] big[T]
+    # bsum[ceil(T / 1024)]
+    aux = torch.empty(4 * T + 2 + (T + 1023) // 1024, dtype=torch.int32,
+                      device=dev)
+    K_ARCS(ptr(colmat[0]), ptr(colmat[1]), ptr(colmat[3]), ptr(colmat[4]),
+           ptr(out), n, ptr(tab), ptr(mdel.view(torch.uint8)), T, ptr(keys),
+           ptr(aux), int(smem_cap), ptr(res))
+    return res, aux[T:T + 2]
+
+
 def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     """Run Steps 2-3 on colmat's device.  Returns (arcs, md, counts):
     arcs = numpy {u, v, l, ol, idx} in the stable hit-key order; md =
@@ -273,12 +454,12 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     qid, tid, fl = colmat[0], colmat[3], colmat[6]
     valid0 = (fl & 1) != 0
     iden = ((fl >> 2) & 1) != 0
-    is_self = qid == tid
-    not_self = ~is_self
+    not_self = qid != tid
     vq = valid0
     vm = valid0 & not_self if bi_dir else torch.zeros_like(valid0)
-    coords = colmat[[1, 2, 4, 5]].contiguous()
-    oqs, ots = colmat[1], colmat[4]  # ORIGINAL starts: the hit sort keys
+    # rows stacked, not fancy-indexed: the path launches no index kernel,
+    # whose first launch in a process loads its module (about 18 ms)
+    coords = torch.stack([colmat[1], colmat[2], colmat[4], colmat[5]])
 
     def lanes_of(a, b):
         return (a.to(torch.uint8) | (b.to(torch.uint8) << 1)).contiguous()
@@ -318,8 +499,6 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     vq = (bits & 1) != 0
     vm = (bits & 2) != 0
     n_cut2 = vq.sum() + vm.sum()
-    qs, qe, ts, te = out[0], out[1], out[2], out[3]
-    rq_raw, rm_raw = out[5], out[10]
 
     # --- merge (ma_sub_merge, hit.c:218-223) ---
     ms = s1 + s2
@@ -327,53 +506,18 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     mdel = d1 | d2
 
     # --- containment / used / palindrome marks (hit.c:225-236,
-    #     asm.c:9-39): the qid slot collects used/contained/palindrome
-    #     bits, the tid slot used/contained bits ---
-    rq = torch.where(vq, rq_raw, 0)
-    rm = torch.where(vm, rm_raw, 0)
-    rev = ((fl >> 1) & 1) != 0
-    vqm = vq | vm
-    pal_rows = vq & (rq_raw >= 0) & is_self & (qs == ts) & (qe == te) & rev
-    qbits = (vqm.to(i32)
-             | (((rq == MA_HT_QCONT) | (rm == MA_HT_TCONT)).to(i32) << 1)
-             | (pal_rows.to(i32) << 2))
-    tbits = (vqm.to(i32)
-             | (((rq == MA_HT_TCONT) | (rm == MA_HT_QCONT)).to(i32) << 1))
-    dump = T - 1
-    qsl = qid.clamp(0, dump).long()
-    tsl = tid.clamp(0, dump).long()
-    tab = torch.zeros(T, dtype=i32, device=dev)
-    tab.scatter_reduce_(0, qsl, qbits, "amax")
-    tab.scatter_reduce_(0, tsl, tbits, "amax")
+    #     asm.c:9-39): K12 ---
+    tab = read_marks(colmat, out, T)
     used = (tab & 1) != 0
     cont = (tab & 2) != 0
     pal = (tab & 4) != 0
 
-    # a read survives iff used, not sub-deleted, not contained
-    # (hit.c:237-251); arcs touching dropped reads are filtered here
-    read_alive = used & ~mdel & ~cont
-    aq = read_alive[qsl]
-    at = read_alive[tsl]
-    m_contained = (vq & aq & at).sum() + (vm & aq & at).sum()
-    arc_q = vq & (rq_raw >= 0) & not_self & aq & at
-    arc_m = vm & (rm_raw >= 0) & not_self & aq & at
-    idx = torch.nonzero(torch.cat([arc_q, arc_m])).flatten()
-    n_arc = idx.shape[0]
-    # order the arcs by their mirrored-hit key (qid<<32|qs of the side,
-    # ORIGINAL coordinates: the reference sorts hits before cutting,
-    # hit.c:100); ties keep row order (q-side rows, then m-side rows)
-    hkey = ((torch.cat([qid, tid]).to(i64)[idx] << 32)
-            | torch.cat([oqs, ots]).to(i64)[idx])
-    skey, perm = torch.sort(hkey, stable=True)
-    dup_hit = (skey[1:] == skey[:-1]).sum()
-    idx = idx[perm]
-    cols = {k: torch.cat([out[5 + j], out[10 + j]])[idx]
-            for j, k in ((1, "u"), (2, "v"), (3, "l"), (4, "ol"))}
-
-    counts_t = torch.stack([
-        _n_region(tab1), n_cut1, n_flt, _n_region(tab2), n_cut2,
-        m_contained, torch.tensor(n_arc, device=dev), dup_hit, tot_dp,
-        tot_len])
+    # --- the arcs between surviving reads (hit.c:237-251), compacted and
+    #     ordered by their mirrored-hit key (qid<<32|qs of the side,
+    #     ORIGINAL coordinates: the reference sorts hits before cutting,
+    #     hit.c:100), ties in row order: K13, into one buffer with the
+    #     counts and the per-read tables, which comes to the host in one
+    #     copy: [7 int64 counts | K13's result | the meta rows] ---
     flags = (mdel.to(i32) | (cont.to(i32) << 1) | (used.to(i32) << 2)
              | (pal.to(i32) << 3))
     meta_rows = [ms, me, flags]
@@ -381,15 +525,29 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
         # the JAX program's s|del<<31 rows (fused2.py:506-514), unpacked
         meta_rows += [tab1[0] & 0x7FFFFFFF, e1, d1.to(i32),
                       tab2[0] & 0x7FFFFFFF, e2, d2.to(i32)]
-    meta = torch.stack(meta_rows)[:, :n_seq]
+    n_res = ARC_HEAD + ARC_COLS * 2 * n
+    m0 = _N_COUNTS * 2 + n_res
+    buf = torch.empty(m0 + len(meta_rows) * n_seq, dtype=i32, device=dev)
+    arc_order(colmat, out, tab, mdel, res=buf[2 * _N_COUNTS:m0])
+    buf[:2 * _N_COUNTS].view(i64).copy_(torch.stack([
+        _n_region(tab1), n_cut1, n_flt, _n_region(tab2), n_cut2, tot_dp,
+        tot_len]))
+    buf[m0:].view(len(meta_rows), n_seq).copy_(
+        torch.stack(meta_rows)[:, :n_seq])
     add_extra("select.kernel_s", _time.time() - t0)
     t0 = _time.time()
-    c = [int(x) for x in counts_t.cpu()]
-    c, (tot_dp, tot_len) = c[:8], c[8:]
-    meta = meta.cpu().numpy()
-    arcs = {k: v.cpu().numpy().astype(np.int32) for k, v in cols.items()}
-    arcs["idx"] = idx.cpu().numpy().astype(np.int64)
+    host = to_host(buf).numpy()
     add_extra("select.fetch_s", _time.time() - t0)
+    (n_rem1, n_cut1, n_flt, n_rem2, n_cut2, tot_dp,
+     tot_len) = (int(x) for x in host[:2 * _N_COUNTS].view(np.int64))
+    m_contained, n_arc, dup_hit = (int(x) for x in host[
+        2 * _N_COUNTS:2 * _N_COUNTS + ARC_HEAD])
+    c = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc, dup_hit]
+    cols = host[2 * _N_COUNTS + ARC_HEAD:m0].reshape(ARC_COLS, 2 * n)
+    arcs = {k: cols[j, :n_arc].copy()
+            for j, k in enumerate(("u", "v", "l", "ol"))}
+    arcs["idx"] = cols[4, :n_arc].astype(np.int64)
+    meta = host[m0:].reshape(len(meta_rows), n_seq).copy()
     flags = meta[2]
     md = {
         "sub_s": meta[0].astype(np.uint32),

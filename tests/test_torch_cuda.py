@@ -1232,3 +1232,313 @@ def test_fuzz_cases_on_card(dev, k):
     cases = [fuzz.draw_case(rng) for _ in range(2)]
     rec = fuzz.run_case(cases[k], "cuda")
     assert rec["ok"], rec
+
+
+# ---------------------------------------------------------------------------
+# K12 read_marks, K13 arc_order (the select program's tail), K14 clean_arcs,
+# K15 clean_ends (the clean program's stage B)
+
+
+def tail_inputs(rng, n=60_000, T=3000, start_hi=5000, read_p=None):
+    """Random (colmat, final-pass output, marks, mdel) for K12 and K13:
+    lanes, hit2arc codes (arcs and the four negative codes), self rows,
+    palindromic self rows (rev, equal cut coordinates) and mostly
+    surviving reads; qids drawn with probabilities read_p."""
+    from miniasm_tpu_torch.core.hit2arc import MA_HT_QCONT
+
+    qid = rng.choice(T - 2, n, p=read_p)
+    tid = np.where(rng.random(n) < 0.05, qid, rng.integers(0, T - 2, n))
+    qs = rng.integers(0, start_hi, n)
+    ts = rng.integers(0, start_hi, n)
+    colmat = np.stack([qid, qs, qs + 3000, tid, ts, ts + 3000,
+                       rng.integers(0, 8, n)]).astype(np.int32)
+    out = rng.integers(0, 20000, (15, n))
+    out[4] = rng.integers(0, 4, n)
+    for r in (5, 10):
+        out[r] = np.where(rng.random(n) < 0.5, rng.integers(0, 9000, n),
+                          rng.integers(MA_HT_QCONT - 2, 0, n))
+    pal = rng.random(n) < 0.3
+    out[2] = np.where(pal, out[0], out[2])
+    out[3] = np.where(pal, out[1], out[3])
+    tab = rng.choice([1, 5, 3, 0], T, p=[0.6, 0.2, 0.15, 0.05])
+    mdel = rng.random(T) < 0.05
+    t = [torch.from_numpy(np.ascontiguousarray(x.astype(np.int32)))
+         for x in (colmat, out, tab)]
+    return t[0], t[1], t[2], torch.from_numpy(mdel)
+
+
+def test_read_marks_kernel_matches_plain(dev):
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, out, _, _ = (x.to(dev) for x in tail_inputs(
+        np.random.default_rng(11)))
+    T = 3000
+    got = fused2.read_marks(colmat, out, T)
+    torch.cuda.synchronize()
+    want = fused2.read_marks_plain(colmat, out, T)
+    assert torch.equal(got, want)
+    # every mark word occurs, 5 and 3 among them
+    assert set(want.unique().tolist()) >= {0, 1, 3, 5}
+
+
+def test_read_marks_kernel_max_not_or(dev):
+    """A palindromic self row (5) and a containment row (3) of one read:
+    the kernel keeps 5, as its twin and both packages do."""
+    from miniasm_tpu_torch.core.hit2arc import MA_HT_QCONT
+    from miniasm_tpu_torch.select import fused2
+
+    colmat = torch.tensor([[1, 1], [100, 0], [5000, 4000], [1, 2],
+                           [100, 10], [5000, 4010], [3, 1]],
+                          dtype=torch.int32, device=dev)
+    out = torch.zeros((15, 2), dtype=torch.int32, device=dev)
+    out[:4] = colmat[[1, 2, 4, 5]]
+    out[4] = 1
+    out[5] = torch.tensor([1200, MA_HT_QCONT], device=dev)
+    got = fused2.read_marks(colmat, out, 4)
+    assert got.tolist() == [0, 5, 1, 0]
+    assert torch.equal(got, fused2.read_marks_plain(colmat, out, 4))
+
+
+def check_arc_order(dev, colmat, out, tab, mdel, **kw):
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, out, tab, mdel = (x.to(dev) for x in (colmat, out, tab, mdel))
+    got, tiers = fused2.arc_order_tiers(colmat, out, tab, mdel, **kw)
+    torch.cuda.synchronize()
+    want = fused2.arc_order_plain(colmat, out, tab, mdel)
+    n = colmat.shape[1]
+    for x, y in zip(fused2.arc_live(got, n), fused2.arc_live(want, n)):
+        assert torch.equal(x, y)
+    return want, tiers.tolist()
+
+
+@pytest.mark.parametrize("smem_cap", [0, 2048, None])
+def test_arc_order_kernel_matches_plain(dev, smem_cap):
+    """Reads of 1 to about 900 arcs (read i drawn with weight 1/(i+1)),
+    starts in [0, 50): many equal hit keys.  The default cap sorts the
+    reads past 256 arcs by a block in shared memory, 2048 bytes sends
+    those past 256 arcs to device memory, 0 every read."""
+    rng = np.random.default_rng(12)
+    T = 3000
+    p = 1.0 / np.arange(1, T - 1)
+    colmat, out, tab, mdel = tail_inputs(rng, T=T, start_hi=50,
+                                         read_p=p / p.sum())
+    kw = {} if smem_cap is None else {"smem_cap": smem_cap}
+    want, (block, devmem) = check_arc_order(dev, colmat, out, tab, mdel,
+                                            **kw)
+    m_cont, n_arc, dup = want[:3].tolist()
+    assert n_arc > 10_000 and dup > 0 and m_cont > n_arc
+    if smem_cap is None:
+        assert block > 0 and devmem == 0
+    elif smem_cap == 2048:
+        assert block == devmem > 0
+    else:
+        assert block == devmem > 1000
+
+
+def test_arc_order_kernel_read_past_shared_memory(dev):
+    """One read holds 40,000 arcs, more than a block's shared memory holds
+    (29,056 keys of 8 bytes): its sort runs in device memory."""
+    rng = np.random.default_rng(13)
+    T, n = 40, 60_000
+    p = np.full(T - 2, 0.1 / (T - 3))
+    p[7] = 0.9
+    colmat, out, tab, mdel = tail_inputs(rng, n=n, T=T, start_hi=30000,
+                                         read_p=p)
+    colmat[3] = torch.where(colmat[3] == colmat[0], (colmat[0] + 1) % 30,
+                            colmat[3])
+    out[4] = 1
+    out[5] = torch.from_numpy(rng.integers(0, 9000, n).astype(np.int32))
+    tab[:] = 1
+    mdel[:] = False
+    want, (block, devmem) = check_arc_order(dev, colmat, out, tab, mdel)
+    assert want[1] == n and block >= 1 and devmem == 1
+
+
+def test_arc_order_kernel_no_arcs_and_empty(dev):
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, out, tab, mdel = tail_inputs(np.random.default_rng(14), n=500)
+    out[4] = 0  # no valid lane
+    want, _ = check_arc_order(dev, colmat, out, tab, mdel)
+    assert want[:3].tolist() == [0, 0, 0]
+    e = torch.zeros((7, 0), dtype=torch.int32, device=dev)
+    got = fused2.arc_order(e, torch.zeros((15, 0), dtype=torch.int32,
+                                          device=dev),
+                           tab.to(dev), mdel.to(dev))
+    assert got.tolist() == [0, 0, 0]
+
+
+def test_to_host_reuses_one_pinned_block(dev):
+    """to_host copies into the thread's pinned staging block: a smaller
+    copy after a larger one lands in the same block."""
+    from miniasm_tpu_torch.device import to_host
+
+    a = to_host(torch.arange(300_000, dtype=torch.int32, device=dev))
+    assert a.is_pinned() and a[-1].item() == 299_999
+    ptr = a.data_ptr()
+    b = to_host(torch.arange(10, dtype=torch.int64, device=dev))
+    assert b.data_ptr() == ptr and b.dtype == torch.int64
+    assert b.tolist() == list(range(10))
+
+
+def _clean_graph_args(dev, g, n_rounds=2):
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.graph import devclean
+
+    opt = Opt(n_rounds=n_rounds)
+    c = devclean.build_arcs(g, dev)
+    bits = devclean.trans_multi(c["first"], c["av"], c["al"], c["sdel_v"],
+                                c["D"], int(opt.gap_fuzz), True)
+    return c, bits, devclean._ratio_schedule(opt)
+
+
+def check_clean(dev, c, bits, ratios, do_symm, max_ext):
+    from miniasm_tpu_torch.graph import devclean
+
+    got, rows = devclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
+                                    ratios, do_symm, c["D"])
+    torch.cuda.synchronize()
+    want, wrows = devclean.clean_arcs_plain(c["first"], c["av"], c["aol"],
+                                            bits, ratios, do_symm)
+    assert torch.equal(got, want) and torch.equal(rows, wrows)
+    ends = devclean.clean_ends(rows[0], rows[1], c["sdel_v"], max_ext)
+    torch.cuda.synchronize()
+    assert torch.equal(ends, devclean.clean_ends_plain(
+        rows[0], rows[1], c["sdel_v"], max_ext))
+    return want, ends
+
+
+@pytest.mark.parametrize("n_rounds", [1, 2, 6, 27])
+@pytest.mark.parametrize("do_symm", [False, True])
+def test_clean_stage_b_kernels_match_plain(dev, n_rounds, do_symm):
+    """K14 and K15 on a random graph with asymmetric singletons, at 3 to 29
+    ratios (27 rounds fill all 32 bits of an arc's word)."""
+    rng = np.random.default_rng(20 + n_rounds)
+    g = random_graph(rng, n_seq=400, n_pairs=800)
+    keep = rng.random(g.n_arc) > 0.1  # drop a tenth: asymmetric arcs
+    g.adel[~keep] = True
+    g = cleanup(g)
+    c, bits, ratios = _clean_graph_args(dev, g, n_rounds)
+    for max_ext in (1, 4, 7):
+        want, ends = check_clean(dev, c, bits, ratios, do_symm, max_ext)
+    R = len(ratios)
+    assert R == n_rounds + 2
+    assert int(want[2]) > 0 and int(want[3 + R - 1]) > 0
+    assert bool((ends & 1).any()) and bool((ends & 8).any())
+
+
+@pytest.mark.parametrize("kind", ["wide", "mid"])
+def test_clean_stage_b_kernels_long_rows(dev, kind):
+    """Rows of more than 32 arcs: 32 lanes take a row's slots 32 at a
+    time."""
+    c, bits, ratios = _clean_graph_args(dev, _dense_graph(kind))
+    assert c["D"] > 32
+    for do_symm in (False, True):
+        check_clean(dev, c, bits, ratios, do_symm, 4)
+
+
+def test_clean_arcs_raises_past_29_ratios(dev):
+    from miniasm_tpu_torch.graph import devclean
+
+    c, bits, _ = _clean_graph_args(dev, random_graph(
+        np.random.default_rng(3), n_seq=20, n_pairs=40))
+    with pytest.raises(ValueError, match="drop ratios"):
+        devclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
+                            (0.5,) * 30, True, c["D"])
+
+
+class _TailOps:
+    """The aten ops a call makes on CUDA tensors, and its device-to-host
+    copies (a copy into a CPU tensor, a .cpu(), an item())."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                ops.names.add(func.overloadpacket.__name__)
+                src = [a for a in args if isinstance(a, torch.Tensor)]
+                if func is torch.ops.aten.copy_.default:
+                    if not args[0].is_cuda and args[1].is_cuda:
+                        ops.d2h += 1
+                elif func is torch.ops.aten._to_copy.default:
+                    if src[0].is_cuda and str(kwargs.get("device")) == "cpu":
+                        ops.d2h += 1
+                elif func is torch.ops.aten._local_scalar_dense.default:
+                    ops.d2h += src[0].is_cuda
+                return func(*args, **kwargs)
+
+        self.names, self.d2h, self.mode = set(), 0, Mode()
+
+
+FORBIDDEN = {"sort", "nonzero", "searchsorted", "scatter_reduce",
+             "scatter_reduce_"}
+
+
+def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
+    """On CUDA tensors select_build2 and detect run no sort, nonzero,
+    searchsorted or scatter_reduce, and each makes one device-to-host
+    copy; their results equal the CPU's, and K12-K15 launch once a call."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.graph import devclean
+    from miniasm_tpu_torch.io.native.pafload import load_hits_mt
+    from miniasm_tpu_torch.select import fused2
+
+    paf = str(tmp_path / "r.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    opt = Opt()
+    res = {}
+    for d in ("cpu", "cuda"):
+        colmat, dd, h = load_hits_mt(paf, opt.min_span, opt.min_match,
+                                     bi_dir=True, min_iden=float(opt.min_iden),
+                                     device=torch.device(d))
+        ops = _TailOps()
+        cuda.reset_launches()
+        with ops.mode:
+            res[d] = fused2.select_build2(colmat, dd, opt, bi_dir=True,
+                                          paf_tables=True)
+        h.free()
+        if d == "cuda":
+            n = cuda.launch_counts()
+            assert n["read_marks"] == 1 and n["arc_order"] == 1
+            assert not ops.names & FORBIDDEN, ops.names & FORBIDDEN
+            assert ops.d2h == 1
+    (ca, cmd, cc), (ga, gmd, gc) = res["cpu"], res["cuda"]
+    assert cc == gc and cc[6] > 0
+    for k in ca:
+        assert ca[k].dtype == ga[k].dtype and np.array_equal(ca[k], ga[k])
+    for k in ("sub_s", "sub_e", "sub_del", "cont", "used", "pal"):
+        assert np.array_equal(cmd[k], gmd[k])
+
+    rng = np.random.default_rng(4)
+    g = random_graph(rng, n_seq=300, n_pairs=1500)
+    g.adel[rng.random(g.n_arc) < 0.1] = True
+    g = cleanup(g)
+    dets = {}
+    for d in ("cpu", "cuda"):
+        ops = _TailOps()
+        cuda.reset_launches()
+        with ops.mode:
+            dets[d] = devclean.detect(g, opt, do_trans=True,
+                                      device=torch.device(d))
+        if d == "cuda":
+            n = cuda.launch_counts()
+            assert n["trans_multi"] == n["clean_arcs"] == n["clean_ends"] == 1
+            assert not ops.names & FORBIDDEN, ops.names & FORBIDDEN
+            assert ops.d2h == 1
+    for k, v in dets["cpu"].items():
+        if k == "shorts":
+            assert all(np.array_equal(a, b)
+                       for a, b in zip(v, dets["cuda"][k]))
+        elif isinstance(v, np.ndarray):
+            assert v.dtype == dets["cuda"][k].dtype
+            assert np.array_equal(v, dets["cuda"][k]), k
+        else:
+            assert v == dets["cuda"][k], k
+    assert dets["cpu"]["counters"][2] > 0

@@ -1,0 +1,60 @@
+"""The stage-time driver miniasm_tpu_torch.eval.stages on the CPU: a cold
+round (a fresh process per run) and a warm one on a small simulated set,
+each run's stage extras present and its output the same size in both
+modes; and the select-stage summary of a profiler trace."""
+
+import json
+
+import pytest
+
+from miniasm_tpu_torch.eval import stages
+
+
+@pytest.fixture(scope="module")
+def small_paf(tmp_path_factory):
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+
+    p = str(tmp_path_factory.mktemp("stages") / "s.paf")
+    write_paf(simulate(genome_len=60_000, coverage=12.0, seed=3), p)
+    return p
+
+
+def test_stages_cold_and_warm_on_cpu(small_paf, tmp_path, capsys):
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = {}
+    for warm in (False, True):
+        out = str(tmp_path / ("warm.json" if warm else "cold.json"))
+        argv = ["--device", "cpu", "--paf", small_paf, "--noisy", small_paf,
+                "--rounds", "1", "--json", out, root]
+        assert stages.main(argv + (["--warm"] if warm else [])) == 0
+        with open(out) as f:
+            rep = json.load(f)
+        assert rep["warm"] is warm
+        assert [r["run"] for r in rep["runs"]] == list(stages.RUNS)
+        for r in rep["runs"]:
+            assert r["extra"]["select.fetch_s"] >= 0
+            assert r["extra"]["select.kernel_s"] >= 0
+            assert r["bytes"] > 0
+        assert rep["runs"][2]["extra"]["clean.detect_n"] >= 1
+        got[warm] = [r["bytes"] for r in rep["runs"]]
+    assert got[False] == got[True]
+    assert "select.fetch_s" in capsys.readouterr().out
+
+
+def test_select_calls_sums_the_select_window(tmp_path):
+    ev = [{"name": "stage:select+fetch", "ts": 100, "dur": 50},
+          {"name": "aten::index", "cat": "cpu_op", "ts": 110, "dur": 20},
+          {"name": "aten::index", "cat": "cpu_op", "ts": 131, "dur": 4},
+          {"name": "cudaHostAlloc", "cat": "cuda_runtime", "ts": 136,
+           "dur": 10},
+          {"name": "aten::sort", "cat": "cpu_op", "ts": 140, "dur": 20},
+          {"name": "aten::add", "cat": "cpu_op", "ts": 10, "dur": 5}]
+    p = tmp_path / "trace.json"
+    p.write_text(json.dumps({"traceEvents": ev}))
+    rows = stages._select_calls(str(p))
+    assert [r[:3] for r in rows] == [
+        ("stage:select+fetch", "window", 1), ("aten::index", "cpu_op", 2),
+        ("cudaHostAlloc", "cuda_runtime", 1)]
+    assert [r[3] for r in rows] == pytest.approx([0.05, 0.024, 0.01])

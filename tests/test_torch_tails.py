@@ -1,0 +1,355 @@
+"""The plain twins of the select program's tail (read_marks K12, arc_order
+K13: miniasm_tpu_torch/select/fused2.py) and of the clean program's stage B
+(clean_arcs K14, clean_ends K15: miniasm_tpu_torch/graph/devclean.py)
+against the JAX package on the same inputs, made from a seed with numpy.
+On the CPU every wrapper runs its twin, so select_build2 and detect below
+run the twins end to end.  Everything compared is an integer or a bool:
+exact equality."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from miniasm_tpu.config import Opt as JOpt
+from miniasm_tpu.graph import devclean as jclean
+from miniasm_tpu.io.native.pafload import load_hits_mt as j_load
+from miniasm_tpu.select import fused2 as jf
+from miniasm_tpu_torch.config import Opt
+from miniasm_tpu_torch.core.hit2arc import MA_HT_QCONT
+from miniasm_tpu_torch.graph import devclean as tclean
+from miniasm_tpu_torch.graph.asg import Graph, cleanup
+from miniasm_tpu_torch.io.native.pafload import load_hits_mt as t_load
+from miniasm_tpu_torch.select import fused2 as tf
+
+CPU = torch.device("cpu")
+DET_KEYS = ("trans", "multi", "asymm", "tip", "internal", "biloop", "bubble")
+
+
+def port_opt(**kw):
+    """The port's options, built field by field from the JAX package's."""
+    return Opt.from_dict(dataclasses.asdict(JOpt(**kw)))
+
+
+# ---------------------------------------------------------------------------
+# the clean program's stage B: K14 and K15 through detect
+
+
+def _graph(us, vs, lens, rng, sdel=None):
+    """A compacted graph of the arcs us -> vs, overlaps drawn per arc."""
+    us = np.asarray(us, np.int64)
+    vs = np.asarray(vs, np.int64)
+    la = lens[us >> 1].astype(np.int64)
+    lb = lens[vs >> 1].astype(np.int64)
+    ol = np.array([int(rng.integers(500, min(a, b))) for a, b in zip(la, lb)],
+                  np.int64) if us.size else np.zeros(0, np.int64)
+    n_seq = lens.shape[0]
+    g = Graph(u=us.astype(np.int32), l=(la - ol).astype(np.int32),
+              v=vs.astype(np.int32), ol=ol.astype(np.int32),
+              adel=np.zeros(us.size, bool), slen=lens,
+              sdel=np.zeros(n_seq, bool) if sdel is None else sdel,
+              idx_start=np.zeros(2 * n_seq, np.int64),
+              idx_cnt=np.zeros(2 * n_seq, np.int32))
+    return cleanup(g)
+
+
+def clean_graph(kind, seed):
+    """Graphs for stage B: asymmetric arcs and multi-arcs among symmetric
+    pairs, chains (rows of degree 1), a dense one, an empty one."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        return _graph([], [], rng.integers(3000, 9000, 6).astype(np.uint32),
+                      rng)
+    if kind == "chain":
+        # one unitig path a -> a+1 with both strands (rows of degree 1),
+        # and one stray arc that gives the last row a second arc
+        n = 12
+        lens = rng.integers(6000, 9000, n).astype(np.uint32)
+        us = [2 * i for i in range(n - 1)] + [2 * i + 3 for i in range(n - 1)]
+        vs = [2 * i + 2 for i in range(n - 1)] + [2 * i + 1
+                                                 for i in range(n - 1)]
+        return _graph(us + [2 * n - 1], vs + [4], lens, rng)
+    n_seq = {"mixed": 30, "dense": 10}[kind]
+    n_pairs = {"mixed": 70, "dense": 120}[kind]
+    lens = rng.integers(3000, 20000, n_seq).astype(np.uint32)
+    us, vs = [], []
+    for _ in range(n_pairs):
+        a = int(rng.integers(0, 2 * n_seq))
+        b = int(rng.integers(0, 2 * n_seq))
+        if a >> 1 == b >> 1:
+            continue
+        r = rng.random()
+        us.append(a)
+        vs.append(b)
+        if r > 0.15:  # else an asymmetric singleton
+            us.append(b ^ 1)
+            vs.append(a ^ 1)
+        if r > 0.85:  # a multi-arc: the pair again
+            us += [a, b ^ 1]
+            vs += [b, a ^ 1]
+    return _graph(us, vs, lens, rng, sdel=rng.random(n_seq) < 0.05)
+
+
+def _detect_both(g, do_trans, do_symm, **kw):
+    j = jclean.detect(g, JOpt(**kw), do_trans=do_trans, do_symm=do_symm)
+    t = tclean.detect(Graph.from_arrays(g), port_opt(**kw),
+                      do_trans=do_trans, do_symm=do_symm, device=CPU)
+    return j, t
+
+
+def _assert_same(j, t):
+    for k in DET_KEYS:
+        assert t[k].dtype == np.bool_, k
+        assert np.array_equal(t[k], j[k]), k
+    assert t["ratios"] == j["ratios"]
+    assert len(t["shorts"]) == len(j["shorts"])
+    for a, b in zip(t["shorts"], j["shorts"]):
+        assert np.array_equal(a, b)
+    assert t["counters"] == j["counters"]
+
+
+@pytest.mark.parametrize("do_trans,do_symm", [(True, True), (True, False),
+                                              (False, True), (False, False)])
+@pytest.mark.parametrize("n_rounds", [1, 2, 3, 4, 5, 6])
+def test_detect_stage_b_matches_jax_each_ratio_count(n_rounds, do_trans,
+                                                     do_symm):
+    """R = n_rounds + 2 ratios: 3 to 8, so up to 11 bits an arc's word."""
+    g = clean_graph("mixed", 40 + n_rounds)
+    j, t = _detect_both(g, do_trans, do_symm, n_rounds=n_rounds)
+    _assert_same(j, t)
+    assert len(t["shorts"]) == n_rounds + 2
+    assert t["counters"][2] > 0  # asymmetric arcs
+    if not do_trans:
+        assert t["counters"][1] > 0  # multi-arcs
+
+
+@pytest.mark.parametrize("max_ext", [1, 4, 7])
+@pytest.mark.parametrize("kind,seed", [("mixed", 1), ("dense", 2),
+                                       ("chain", 3), ("empty", 4)])
+def test_detect_stage_b_matches_jax_graphs(kind, seed, max_ext):
+    g = clean_graph(kind, seed)
+    for do_trans, do_symm in ((True, True), (False, False)):
+        j, t = _detect_both(g, do_trans, do_symm, max_ext=max_ext)
+        _assert_same(j, t)
+    if kind == "empty":
+        assert g.n_arc == 0 and t["trans"].shape == (0,)
+    if kind == "chain":
+        assert (g.idx_cnt == 1).sum() == 2 * 11 - 1
+
+
+def test_clean_arcs_words_carry_every_mask():
+    """The twin's words and counters unpack to detect's masks, and a word
+    keeps each ratio's bit in place past the eighth bit."""
+    g = clean_graph("mixed", 7)
+    opt = port_opt(n_rounds=6)
+    c = tclean.build_arcs(Graph.from_arrays(g), CPU)
+    bits = tclean.trans_multi(c["first"], c["av"], c["al"], c["sdel_v"],
+                              c["D"], int(opt.gap_fuzz), True)
+    ratios = tclean._ratio_schedule(opt)
+    res, rows = tclean.clean_arcs_plain(c["first"], c["av"], c["aol"], bits,
+                                        ratios, True)
+    R = len(ratios)
+    assert res.dtype == torch.int32 and res.shape == (3 + R + g.n_arc,)
+    assert rows.dtype == torch.int32 and rows.shape == (2, c["V"])
+    det = tclean.detect(Graph.from_arrays(g), opt, do_trans=True,
+                        device=CPU)
+    words = res[3 + R:].numpy()
+    for k, m in enumerate([det["trans"], det["multi"], det["asymm"]]
+                          + det["shorts"]):
+        assert np.array_equal((words >> k) & 1 != 0, m)
+    assert res[:3 + R].tolist() == det["counters"]
+    assert int(rows[0].sum()) > 0
+
+
+def test_clean_arcs_raises_on_too_many_ratios():
+    g = clean_graph("mixed", 8)
+    c = tclean.build_arcs(Graph.from_arrays(g), CPU)
+    bits = torch.zeros(g.n_arc, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="drop ratios"):
+        tclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
+                          (0.5,) * 30, True, c["D"])
+
+
+def test_clean_ends_walk_stops_at_max_ext():
+    """A path of unique arcs longer than max_ext: the walk runs out while
+    mergeable (ext code 0), so no tip; with room it reaches the path's end
+    (a tip)."""
+    V = 12
+    nlive = torch.ones(V, dtype=torch.int32)
+    nlive[0] = 0  # vertex 1's row (1 ^ 1) holds no arc: a tip start
+    nlive[10] = 0  # the path 1 -> 3 -> ... -> 11 ends at row 11 ^ 1
+    fl_v = torch.tensor([0, 3, 1, 5, 3, 7, 5, 9, 7, 11, 9, 0],
+                        dtype=torch.int32)
+    sdel = torch.zeros(V, dtype=torch.uint8)
+    far = tclean.clean_ends(nlive, fl_v, sdel, 3)
+    near = tclean.clean_ends(nlive, fl_v, sdel, 7)
+    assert far.dtype == torch.uint8
+    assert int(far[1]) & 1 == 0 and int(near[1]) & 1 == 1
+
+
+# ---------------------------------------------------------------------------
+# the select program's tail: K12 and K13 through select_build2
+
+
+def _read_paf(path):
+    with open(path) as f:
+        return [ln.rstrip("\n").split("\t") for ln in f]
+
+
+def _write_paf(path, rows):
+    with open(path, "w") as f:
+        for r in rows:
+            f.write("\t".join(str(x) for x in r) + "\n")
+
+
+def _select_both(paf, paf_tables):
+    jopt, opt = JOpt(), port_opt()
+    jcol, jd, jh = j_load(paf, jopt.min_span, jopt.min_match, bi_dir=True,
+                          min_iden=float(jopt.min_iden), upload=False)
+    tcol, td, th = t_load(paf, opt.min_span, opt.min_match, bi_dir=True,
+                          min_iden=float(opt.min_iden), device=CPU)
+    n, cap = tcol.shape[1], jcol.shape[1]
+    ja, jmd, jc = jf.select_build2(jcol, jd, jopt, bi_dir=True,
+                                   max_len=jh.max_len, paf_tables=paf_tables)
+    ta, tmd, tc = tf.select_build2(tcol, td, opt, bi_dir=True,
+                                   paf_tables=paf_tables)
+    jh.free()
+    th.free()
+    for k in ("u", "v", "l", "ol"):
+        assert ta[k].dtype == np.int32, k
+        assert np.array_equal(ta[k], ja[k]), k
+    jidx = np.where(ja["idx"] >= cap, ja["idx"] - cap + n, ja["idx"])
+    assert ta["idx"].dtype == np.int64
+    assert np.array_equal(ta["idx"], jidx)
+    for k in ("sub_s", "sub_e", "sub_del", "cont", "used", "pal"):
+        assert tmd[k].dtype == jmd[k].dtype, k
+        assert np.array_equal(tmd[k], jmd[k]), k
+    assert (tmd["tot_dp"], tmd["tot_len"]) == (jmd["tot_dp"], jmd["tot_len"])
+    assert tc[:7] == jc[:7] and tc[7] == jc[13]
+    if paf_tables:
+        for k in ("sub1", "sub2"):
+            for a, b in zip(tmd[k], jmd[k]):
+                assert np.array_equal(np.asarray(a), np.asarray(b)), k
+    return td, tmd, tc
+
+
+@pytest.fixture(scope="module")
+def base_paf(tmp_path_factory):
+    from miniasm_tpu.eval.simulate import simulate, write_paf
+
+    d = tmp_path_factory.mktemp("tails")
+    paf = str(d / "base.paf")
+    write_paf(simulate(genome_len=120_000, coverage=20.0, seed=3), paf)
+    return paf
+
+
+def _palindrome_case(base_paf, out):
+    """The base PAF plus one palindromic self-hit row (rev, qs == ts,
+    qe == te, an arc to itself) on a read that another row marks
+    contained: its mark word is max(5, 3) = 5, not 5 | 3 = 7."""
+    td, md, _ = _select_both(base_paf, False)
+    rows = _read_paf(base_paf)
+    lens = {r[0]: int(r[1]) for r in rows}
+    lens.update({r[5]: int(r[6]) for r in rows})
+    sub_len = md["sub_e"].astype(np.int64) - md["sub_s"]
+    cand = np.nonzero(md["cont"] & ~md["sub_del"] & (sub_len > 7000))[0]
+    assert cand.size, "the base set has no contained read to mark"
+    r = int(cand[0])
+    name = td.names[r]
+    s, e = int(md["sub_s"][r]), int(md["sub_e"][r])
+    qs, qe = s + (e - s) * 6 // 10, e - 100
+    pal = [name, lens[name], qs, qe, "-", name, lens[name], qs, qe,
+           qe - qs, qe - qs, 255]
+    _write_paf(out, rows + [pal])
+    return r
+
+
+def test_select_tail_amax_read_marks(base_paf, tmp_path):
+    """A read with a palindromic self-hit row and a containment row ends
+    with its palindrome bit and without its contained bit, in both
+    packages (the amax of the two mark words)."""
+    paf = str(tmp_path / "pal.paf")
+    r = _palindrome_case(base_paf, paf)
+    for paf_tables in (False, True):
+        td, md, c = _select_both(paf, paf_tables)
+        assert md["pal"][r] and md["used"][r] and not md["cont"][r]
+
+
+def test_read_marks_plain_takes_the_max_not_the_or():
+    """Row 0 a palindromic self hit of read 1 (word 5), row 1 a hit whose
+    q-side marks read 1 contained (3): read 1 keeps 5."""
+    colmat = torch.tensor([[1, 1], [100, 0], [5000, 4000],
+                           [1, 2], [100, 10], [5000, 4010],
+                           [3, 1]], dtype=torch.int32)
+    out = torch.zeros((15, 2), dtype=torch.int32)
+    out[0] = torch.tensor([100, 0])
+    out[1] = torch.tensor([5000, 4000])
+    out[2] = torch.tensor([100, 10])
+    out[3] = torch.tensor([5000, 4010])
+    out[4] = torch.tensor([1, 1])  # q-side lanes valid
+    out[5] = torch.tensor([1200, MA_HT_QCONT])
+    tab = tf.read_marks(colmat, out, 4)
+    assert tab.tolist() == [0, 5, 1, 0]
+
+
+@pytest.mark.parametrize("paf_tables", [False, True])
+def test_select_tail_duplicate_hit_keys(base_paf, tmp_path, paf_tables):
+    """Repeated PAF lines: arcs of equal hit key (dup_hit > 0), whose ties
+    keep row order."""
+    rows = _read_paf(base_paf)
+    rng = np.random.default_rng(5)
+    pick = rng.choice(len(rows), 40, replace=False)
+    paf = str(tmp_path / "dups.paf")
+    _write_paf(paf, rows + [rows[i] for i in pick])
+    _, _, c = _select_both(paf, paf_tables)
+    assert c[7] > 0 and c[6] > 0
+
+
+@pytest.mark.parametrize("paf_tables", [False, True])
+def test_select_tail_no_arcs(base_paf, tmp_path, paf_tables):
+    """Too few lines for any read to reach the coverage depth: every read
+    is sub-deleted and no arc survives."""
+    paf = str(tmp_path / "few.paf")
+    _write_paf(paf, _read_paf(base_paf)[:3])
+    _, md, c = _select_both(paf, paf_tables)
+    assert c[6] == 0 and c[5] == 0
+
+
+@pytest.mark.parametrize("paf_tables", [False, True])
+def test_select_tail_base_set(base_paf, paf_tables):
+    _, md, c = _select_both(base_paf, paf_tables)
+    assert c[6] > 0 and md["cont"].any()
+
+
+def test_arc_order_plain_layout():
+    """The twin's result: [m_contained, n_arc, dup_hit], then the five
+    columns 2n long, of which it writes the first n_arc rows only."""
+    rng = np.random.default_rng(2)
+    n, T = 300, 40
+    colmat = torch.from_numpy(np.stack([
+        rng.integers(0, T - 2, n), rng.integers(0, 5, n),
+        rng.integers(0, 9000, n), rng.integers(0, T - 2, n),
+        rng.integers(0, 5, n), rng.integers(0, 9000, n),
+        rng.integers(0, 8, n)]).astype(np.int32))
+    out = torch.from_numpy(rng.integers(-4, 9000, (15, n)).astype(np.int32))
+    out[4] = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32))
+    # mostly surviving reads (used, not contained)
+    tab = torch.from_numpy(rng.choice([1, 5, 3], T, p=[0.45, 0.45, 0.1])
+                           .astype(np.int32))
+    mdel = torch.from_numpy(rng.random(T) < 0.1)
+    res = torch.full((3 + 10 * n,), -7, dtype=torch.int32)
+    assert tf.arc_order(colmat, out, tab, mdel, res=res) is res
+    m_cont, n_arc, dup = res[:3].tolist()
+    cols = res[3:].view(5, 2 * n)
+    assert 0 < n_arc < 2 * n and dup > 0
+    assert (cols[:, n_arc:] == -7).all()
+    head, live = tf.arc_live(res, n)
+    assert head.tolist() == [m_cont, n_arc, dup]
+    assert torch.equal(live, cols[:, :n_arc])
+    row = cols[4, :n_arc].long()
+    read = torch.cat([colmat[0], colmat[3]])[row].long()
+    start = torch.cat([colmat[1], colmat[4]])[row].long()
+    key = (read << 40) | (start << 32) | row
+    assert bool((key[1:] > key[:-1]).all())  # (read, start, row) order
+    assert torch.equal(cols[0, :n_arc], torch.cat([out[6], out[11]])[row])

@@ -28,10 +28,11 @@ What it does, in order:
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
      run requires (EXPECT, and MH_EXPECT for each worker process): K1-K4,
-     K9, K10, K12 and K13 on the noisy main-path runs, K2, K5 and K6 on
-     the staged runs, K3, K7 and K8 on the oracle runs, K11 (its layout
-     pass once per Layout, its scatter once per payload), K1-K4 and K12
-     on the sharded runs, and K14 and K15 once per detection of every
+     K9, K10, K12 and K13 on the noisy main-path runs, K2, K5, K16, K17
+     and K18 on the staged runs (K6 never: only the graft entry's forward
+     step, phase 6, launches it), K3, K7 and K8 on the oracle runs, K11 (its layout
+     pass once per Layout, its scatter once per payload), K1-K4, K12 and
+     K19 on the sharded runs, and K14 and K15 once per detection of every
      run's hybrid clean (clean.detect_n);
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
@@ -40,8 +41,10 @@ What it does, in order:
      after a write of 128 MB that evicts the 50 MB L2 (the main path's
      caller finds a kernel's inputs cold); beside K13 and K14 it times
      the PyTorch calls that do their costly part (a stable int64
-     torch.sort; a torch.sort and searchsorted), and runs K13's largest
-     call again with every read sorted in device memory; K9 also on seeded
+     torch.sort; a torch.sort and searchsorted), beside K16 a boolean-mask
+     index of the same columns, beside K19 a torch.nonzero and its seven
+     gathers, and runs K13's largest call again with every read sorted in
+     device memory; K9 also on seeded
      pieces with edge-case run tables; K7 and K8 also on seeded keys
      with duplicates, with (-1, -1) (all ones, as the hash table's empty
      slots) and pads, and on 4,194,304 keys (a table past L2); K11 also on an 8-way routing of
@@ -114,7 +117,8 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # overlaps leave no vertex with two live out-arcs, so it has no bubble
 # source and K4 is held on the noisy set, where every main-path kernel
 # must launch.  The main path never launches the staged kernels K5, K6,
-# and only the oracle clean modes launch K7 and K8.
+# K16-K18 or the sharded step's K19, and only the oracle clean modes
+# launch K7 and K8.
 # The loader launches K9 once per FMT3 piece and K10 once per FMT3 or
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
 # another (pafread.cpp) and launches neither.  The main path's select
@@ -124,7 +128,8 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
          "decode3": ">0", "unpack4": "=decode3", "route": 0,
          "route_layout": 0, "read_marks": 1, "arc_order": 1,
-         "clean_arcs": "=clean_ends", "clean_ends": "any"}
+         "clean_arcs": "=clean_ends", "clean_ends": "any", "compact": 0,
+         "hit_flt": 0, "hit_marks": 0, "shard_arcs": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
 _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -132,15 +137,22 @@ _NOISY = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
 _PAF = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=0, bubble_bfs=0)
 
 
-def _staged(sweep, hit_cut, hit2arc, graph):
-    # K2 per hit_sub pass, K5 per cut, K6 per filter, containment and
-    # graph build; the graph runs clean with K3 (and K4 where it finds a
-    # bubble source)
-    return {"cut_hit2arc": 0, "sweep": sweep, "hit_cut": hit_cut,
-            "hit2arc": hit2arc, "trans_multi": ">0" if graph else 0,
+def _staged(cut_passes, flt, contained, graph):
+    # pipeline._select_staged and graph_from_hits: per cut pass K2
+    # (hit_sub), K5 and K16 (apply_cut); the filter K17 and K16 (the take);
+    # the containment K18 twice (its marks, mark_unused's) and K16 twice
+    # (the trim table, the remapped hits); the graph build K18 (the sg
+    # marks and arc rows) and K16 (the arcs), then clean with K3 (and K4
+    # where it finds a bubble source).  K6 no longer launches here.
+    return {"cut_hit2arc": 0, "sweep": cut_passes, "hit_cut": cut_passes,
+            "hit2arc": 0,
+            "compact": cut_passes + flt + 2 * contained + graph,
+            "hit_flt": flt, "hit_marks": 2 * contained + graph,
+            "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
             "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0,
             "route_layout": 0, "read_marks": 0, "arc_order": 0,
+            "shard_arcs": 0,
             "clean_arcs": "=clean_ends", "clean_ends": ">0" if graph else 0}
 
 
@@ -157,16 +169,19 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "ecoli_ug_3": _CLEAN, "noisy_ug": _NOISY, "noisy_sg": _NOISY,
           "ecoli_bed": dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=0,
                             bubble_bfs=0),
-          "ecoli_s1_ug": _staged(1, 1, 2, True),
-          "noisy_s2_ug": _staged(1, 1, 2, True),
-          "noisy_s12_sg": _staged(0, 0, 1, True),
-          "ecoli_S4_bed": _staged(2, 2, 1, False),
-          "noisy_s1_paf": _staged(1, 1, 1, False),
+          # -1: the fine pass and the containment; -2: the crude pass and
+          # the filter; -1 -2: no selection; -S 4: both passes, no
+          # containment, no graph
+          "ecoli_s1_ug": _staged(1, 0, 1, 1),
+          "noisy_s2_ug": _staged(1, 1, 0, 1),
+          "noisy_s12_sg": _staged(0, 0, 0, 1),
+          "ecoli_S4_bed": _staged(2, 1, 0, 0),
+          "noisy_s1_paf": _staged(1, 0, 1, 0),
           "noisy_native_ug": _oracle(1),
           "noisy_py_sg": _oracle(">0"),
           "ecoli_f_ug": dict(_CLEAN, trans_multi=1),
           "noisy_R_ug": dict(_NOISY),
-          "noisy_s1_R_f_ug": _staged(1, 1, 2, True),
+          "noisy_s1_R_f_ug": _staged(1, 0, 1, 1),
           "ecoli_paf": _PAF, "noisy_paf": _PAF,
           "ecoli_snap_ug": _CLEAN,
           # the restore skips Steps 1-3: no loader or select kernel
@@ -180,27 +195,27 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           # the sharded runs: rank 0 loads on the host (7-row pieces,
           # nothing to decode: no K9/K10); K11's layout pass once for the
           # select step's one Layout and its scatter once per sweep pass,
-          # then the main path's select kernels but K13 (the step compacts
-          # with torch ops) and its clean kernels
+          # then the main path's select kernels but K13: the step's arc
+          # tail is K19 (once; full.py select_step), then the clean kernels
           "sharded_ug": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                             unpack4=0, arc_order=0),
+                             unpack4=0, arc_order=0, shard_arcs=1),
           "sharded_ug_2": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0, arc_order=0),
+                               unpack4=0, arc_order=0, shard_arcs=1),
           "sharded_ug_3": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0, arc_order=0),
+                               unpack4=0, arc_order=0, shard_arcs=1),
           "sharded_noisy_ug": dict(_NOISY, route=2, route_layout=1,
-                                   decode3=0, unpack4=0, arc_order=0),
+                                   decode3=0, unpack4=0, arc_order=0,
+                                   shard_arcs=1),
           # the v2 loader: one copy of the colmat, no K9 or K10; -p paf
-          # runs the staged path of both passes (_run_staged: K2 per
-          # hit_sub pass, K5 per cut, K6 in the filter and the
-          # containment)
+          # runs the staged path of both passes and the containment
+          # (_run_staged), without a graph
           "ecoli_v2_ug": dict(_CLEAN, decode3=0, unpack4=0),
           "noisy_v2_ug": dict(_NOISY, decode3=0, unpack4=0),
           "noisy_v2_sg": dict(_NOISY, decode3=0, unpack4=0),
           "ecoli_v2_bed": dict(_MAIN, cut_hit2arc=2, sweep=2,
                                trans_multi=0, bubble_bfs=0, decode3=0,
                                unpack4=0),
-          "noisy_v2_paf": _staged(2, 2, 2, False)}
+          "noisy_v2_paf": _staged(2, 1, 1, 0)}
 EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
 # data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
@@ -226,22 +241,29 @@ for _tag, _want in EXPECT.items():
         AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
 # the run whose counts the kernels line reports for each kernel: the main
 # path's run in which K1-K4 all launch (and K14, K15 once per detection),
-# the staged -1 run for K5, K6, the py oracle run for K7, K8, and the clean
-# set's warm run for K9, K10, K12, K13
+# the staged -1 run for K5, K16, K18, the staged -S 4 run for K17, the
+# graft entry's forward step for K6, the py oracle run for K7, K8, the
+# clean set's warm run for K9, K10, K12, K13, and its sharded run for K11
+# and K19
 RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
-                 "hit_cut": "ecoli_s1_ug", "hit2arc": "ecoli_s1_ug",
+                 "hit_cut": "ecoli_s1_ug", "hit2arc": "dryrun_entry",
+                 "compact": "ecoli_s1_ug", "hit_flt": "ecoli_S4_bed",
+                 "hit_marks": "ecoli_s1_ug", "shard_arcs": "sharded_ug",
                  "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
                  "decode3": "ecoli_ug", "unpack4": "ecoli_ug",
                  "route": "sharded_ug", "read_marks": "ecoli_ug",
                  "arc_order": "ecoli_ug", "clean_arcs": "noisy_ug",
                  "clean_ends": "noisy_ug"}
-# the path whose calls each kernel's row times; a kernel reused on another
-# path gets a sub-row of its own there, with the launches of a run that
-# makes those calls: K2 in the staged hit_sub (crude and fine, both of
-# which -S 4 runs), K3 in the oracles' del_trans
+# the path whose calls each kernel's row times (K6: the graft entry's
+# forward step, the one caller left); a kernel reused on another path gets
+# a sub-row of its own there, with the launches of a run that makes those
+# calls: K2 in the staged hit_sub (crude and fine, both of which -S 4
+# runs), K3 in the oracles' del_trans
 ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
-            "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "staged",
+            "bubble_bfs": "main", "hit_cut": "staged", "hit2arc": "dryrun",
+            "compact": "staged", "hit_flt": "staged", "hit_marks": "staged",
+            "shard_arcs": "sharded",
             "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
             "unpack4": "main", "route": "sharded", "read_marks": "main",
             "arc_order": "main", "clean_arcs": "main", "clean_ends": "main"}
@@ -252,10 +274,12 @@ ROW_CALL = {"route": ("sharded", "sharded_ug")}
 # each worker process of the multi-process run (rank -> launches): K11's
 # scatter for the repartition and both sweep passes, its layout pass for
 # the repartition's and the select step's Layout, K1 and K2 twice, K12
-# once; rank 0 alone cleans (without the group, as the JAX worker does)
+# once, K19 once; rank 0 alone cleans (without the group, as the JAX worker
+# does)
 _MH = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
        "decode3": 0, "unpack4": 0, "route": 3, "route_layout": 2,
-       "cut_hit2arc": 2, "sweep": 2, "read_marks": 1, "arc_order": 0}
+       "cut_hit2arc": 2, "sweep": 2, "read_marks": 1, "arc_order": 0,
+       "compact": 0, "hit_flt": 0, "hit_marks": 0, "shard_arcs": 1}
 MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0",
                      clean_arcs="=clean_ends", clean_ends=">0"),
              1: dict(_MH, trans_multi=0, bubble_bfs=0, clean_arcs=0,
@@ -538,6 +562,42 @@ def _cost(name, args, kw, out):
         cols, lens = args[0], args[1]
         n = cols.shape[1]
         return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
+    if name == "compact":
+        # every row of every column and the keep bytes read once, mp once;
+        # the survivors' rows and the count written; per column its test,
+        # the block counts and scans (about 12 integer ops)
+        rows, keep, mp = _compact_args(args, kw)
+        k, n = len(rows), rows[0].numel()
+        return (4 * k * n + (0 if keep is None else n)
+                + (0 if mp is None else _nbytes(mp)) + _nbytes(out) + 8,
+                12 * n)
+    if name == "hit_flt":
+        # 7 hit rows in, the trim table read once; keep, dp, the sum and
+        # the present bytes out; per hit hit2arc (~35 ops), the tests, dp
+        # and its share of the block sum
+        cols, sub = args[0], args[1]
+        n = cols.shape[1]
+        return 7 * 4 * n + _nbytes(sub) + _nbytes(*out), 45 * n
+    if name == "hit_marks":
+        # "used": the two id rows in, the marks out (two stores a hit);
+        # otherwise 7 hit rows and the lengths in, hit2arc (~35 ops) a hit,
+        # the marks out and, "sg", the keep byte and 4 arc rows
+        cols, mode, T = args[:3]
+        n = cols.shape[1]
+        if mode == "used":
+            return 2 * 4 * n + T, 2 * n
+        return 7 * 4 * n + 4 * T + _nbytes(*_as_tuple(out)), 40 * n
+    if name == "shard_arcs":
+        # every row's lane bits; a row with a valid lane also its reads and
+        # both codes, the used and contained marks and mdel (read once);
+        # each arc's u, v, l, ol, gid and start read, its seven words
+        # written, and the two counts; per lane about 20 integer ops
+        rows, o, marks, mdel = args[:4]
+        n = rows.shape[1]
+        act = int(((o[4] & 3) != 0).sum())
+        n_arc = out[0].shape[1]
+        return (4 * n + 16 * act + _nbytes(marks[:2], mdel) + 24 * n_arc
+                + 28 * n_arc + 16, 40 * n)
     if name == "key_member":
         # the int32 columns of the hay rows below hay_n (one more for the
         # pads) and of the live needles read once, the mask written once;
@@ -629,6 +689,23 @@ def _cost(name, args, kw, out):
         return (_nbytes(first, av, al, adel, live_out, sources)
                 + _nbytes(*out)), ops
     raise KeyError(name)
+
+
+def _compact_args(args, kw):
+    """K16's (rows, keep, mp) from a recorded call."""
+    rows = args[0]
+    rows = list(rows.unbind(0)) if isinstance(rows, torch.Tensor) \
+        else list(rows)
+    keep = args[1] if len(args) > 1 else kw.get("keep")
+    mp = args[2] if len(args) > 2 else kw.get("mp")
+    return rows, keep, mp
+
+
+def _compact_kind(args, kw):
+    """K16's kind of call: its rows, with a keep, with a remap."""
+    rows, keep, mp = _compact_args(args, kw)
+    return "%dr%s%s" % (len(rows), "" if keep is None else "_keep",
+                        "" if mp is None else "_remap")
 
 
 def _arcs_per_read(res, colmat, T):
@@ -758,6 +835,40 @@ def _measure(name, fn, plain, args, kw, reps):
                    & 0xFFFFFFFF))
         m["library_ms"] = _time_ms(
             lambda: torch.sort(hkey, stable=True), reps)
+    if name == "compact":
+        # one boolean-mask index of the same columns, as one matrix, by the
+        # survivors' mask (with a remap: of the survivors of both ids)
+        rows, keep, mp = _compact_args(args, kw)
+        mat = torch.stack(rows)
+        ok = torch.ones(mat.shape[1], dtype=torch.bool, device=mat.device) \
+            if keep is None else keep.to(torch.bool)
+        if mp is not None:
+            T = mp.shape[0]
+            ok = ok & (mp[mat[0].clamp(0, T - 1).long()] >= 0) \
+                & (mp[mat[3].clamp(0, T - 1).long()] >= 0)
+        m["library_ms"] = _time_ms(lambda: mat[:, ok], reps)
+    if name == "shard_arcs":
+        # torch.nonzero of the arc lanes and the seven gathers, from the
+        # concatenated lanes (made before the timing)
+        rows, o, marks, mdel = args[:4]
+        T = marks.shape[1]
+        alive = (marks[0] != 0) & ~mdel & (marks[1] == 0)
+        both = alive[rows[0].clamp(0, T - 1).long()] \
+            & alive[rows[3].clamp(0, T - 1).long()] & (rows[0] != rows[3])
+        lanes = torch.cat([((o[4] & 1) != 0) & (o[5] >= 0) & both,
+                           ((o[4] & 2) != 0) & (o[10] >= 0) & both])
+        srcs = [torch.cat([o[6], o[11]]), torch.cat([o[8], o[13]]),
+                torch.cat([o[7], o[12]]), torch.cat([o[9], o[14]]),
+                torch.cat([rows[7], rows[7] | 1]),
+                torch.cat([rows[0], rows[3]]), torch.cat([rows[1], rows[4]])]
+
+        def lib():
+            idx = torch.nonzero(lanes).flatten()
+            return torch.stack([s[idx] for s in srcs])
+
+        if not torch.equal(lib(), got[0]):
+            _fail("shard_arcs disagrees with torch.nonzero and its gathers")
+        m["library_ms"] = _time_ms(lib, reps)
     if name == "clean_arcs":
         # the complement test as the twin does it: one int64 torch.sort of
         # the live arcs' keys and one searchsorted of the complements
@@ -916,9 +1027,9 @@ def _kernel_phase(recs, runs, cases):
     from miniasm_tpu_torch.core import hit2arc as h2a
     from miniasm_tpu_torch.graph import clean, devbub, devclean
     from miniasm_tpu_torch.io.native import pafload
-    from miniasm_tpu_torch.parallel import route as rt
-    from miniasm_tpu_torch.select import cut, fused2
-    from miniasm_tpu_torch.utils import arrays
+    from miniasm_tpu_torch.parallel import full as pfull, route as rt
+    from miniasm_tpu_torch.select import cut, filter as flt, fused2
+    from miniasm_tpu_torch.utils import arrays, compact as kc
 
     plain = {"decode3": pafload.decode3_plain,
              "unpack4": lambda p, n: pafload.unpack4_plain(p[:, :n]),
@@ -939,12 +1050,17 @@ def _kernel_phase(recs, runs, cases):
              "clean_arcs": lambda *a, res=None:
                  devclean.clean_arcs_plain(*a[:6]),
              "clean_ends": lambda *a, out=None:
-                 devclean.clean_ends_plain(*a)}
+                 devclean.clean_ends_plain(*a),
+             "compact": kc.compact_plain,
+             "hit_flt": flt.hit_flt_plain,
+             "hit_marks": h2a.hit_marks_plain,
+             "shard_arcs": pfull.shard_arcs_plain}
     reps = {"cut_hit2arc": 50, "sweep": 20, "trans_multi": 20,
             "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
             "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50,
             "route": 50, "read_marks": 50, "arc_order": 20,
-            "clean_arcs": 20, "clean_ends": 50}
+            "clean_arcs": 20, "clean_ends": 50, "compact": 50,
+            "hit_flt": 50, "hit_marks": 50, "shard_arcs": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
     for rec in recs:
@@ -1694,7 +1810,8 @@ def main(argv=None) -> int:
     from miniasm_tpu_torch.io.native import pafload
     from miniasm_tpu_torch.io.native.build import get_lib
     from miniasm_tpu_torch.parallel import full as pfull, group
-    from miniasm_tpu_torch.select import cut, fused2
+    from miniasm_tpu_torch.select import cut, filter as flt, fused2
+    from miniasm_tpu_torch.utils import compact as kc
 
     if a.genome == ECOLI_BP:
         for (tag, name), want in AT_ECOLI.items():
@@ -1870,7 +1987,16 @@ def main(argv=None) -> int:
             Recorder(fused2, "read_marks", on_path(lambda a_, k: "all")),
             Recorder(fused2, "arc_order", on_path(lambda a_, k: "all")),
             Recorder(devclean, "clean_arcs", on_path(lambda a_, k: "all")),
-            Recorder(devclean, "clean_ends", on_path(lambda a_, k: "all"))]
+            Recorder(devclean, "clean_ends", on_path(lambda a_, k: "all")),
+            # K16 by its kind of call (the cuts and the take, the trim
+            # table, the remapped hits, the arcs)
+            Recorder(kc, "compact", on_path(_compact_kind),
+                     size_fn=lambda a_, k: sum(
+                         r.numel() for r in _compact_args(a_, k)[0])),
+            Recorder(flt, "hit_flt_sums", on_path(lambda a_, k: "all"),
+                     kernel="hit_flt"),
+            Recorder(h2a, "hit_marks", on_path(lambda a_, k: a_[1])),
+            Recorder(pfull, "shard_arcs", on_path(lambda a_, k: "all"))]
     runs = {}
     with contextlib.ExitStack() as st:
         for r in recs:
@@ -1922,6 +2048,8 @@ def main(argv=None) -> int:
         entry_out = _entry_card()
     report["group_init_s"] = t_group
     report["dryrun_entry"] = _entry_check(*entry_out)
+    runs["dryrun_entry"] = {"launches": entry_out[1]["launches"],
+                            "path": "dryrun"}
 
     # --- 3b. the multi-process worker: two processes on the one card,
     #     over gloo (NCCL refuses two ranks on one card) ---

@@ -4,8 +4,8 @@ The reference keeps hits as a heap array of 32-byte packed structs sorted by
 a u64 radix key qns=(qid<<32|qstart) (ma_hit_t, miniasm.h:29-34; sort
 hit.c:12-22).  Here the hits are one (9, n) int32 tensor on the device,
 rows [qid qs qe tid ts te ml bl rev]; the uint32 columns (qs qe ts te ml
-bl) are held as their int32 bit patterns.  Passes compact it with boolean
-masks, which keep hit order.
+bl) are held as their int32 bit patterns.  Passes compact it with the
+compact kernel (K16, utils/compact.py), which keeps hit order.
 
 Construction order parity (reference hit.c:82-99): for each surviving PAF
 record, the forward hit is appended, then -- when bi_dir and qid != tid --
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..io.paf import PafLoad
+from ..utils import compact as kc
 from ..utils.timers import log
 
 COLS = ("qid", "qs", "qe", "tid", "ts", "te", "ml", "bl", "rev")
@@ -38,8 +39,9 @@ class Hits:
         return self.cols.shape[1]
 
     def take(self, mask: torch.Tensor) -> "Hits":
-        """The hits where the boolean `mask` is set, in hit order."""
-        return Hits(self.cols[:, mask])
+        """The hits where the bool or uint8 `mask` is set, in hit order
+        (K16)."""
+        return Hits(kc.compact(self.cols, mask))
 
     def numpy(self) -> dict:
         """Host columns with the JAX package's dtypes (int32 ids, uint32
@@ -100,8 +102,8 @@ def sort_hits(mat: np.ndarray) -> np.ndarray:
 
 def mark_unused(d, hits: Hits) -> None:
     """Mark reads that appear in no surviving hit as deleted (reference
-    ma_hit_mark_unused, hit.c:24-36)."""
-    used = torch.zeros(d.n_seq, dtype=torch.bool, device=hits.cols.device)
-    used[hits.qid.long()] = True
-    used[hits.tid.long()] = True
-    d.mark_deleted(~used.cpu().numpy())
+    ma_hit_mark_unused, hit.c:24-36): K18's "used" marks."""
+    from ..core.hit2arc import hit_marks
+
+    used = hit_marks(hits.cols, "used", d.n_seq)
+    d.mark_deleted(used.cpu().numpy() == 0)

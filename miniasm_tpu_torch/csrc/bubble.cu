@@ -56,7 +56,6 @@
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_WARPS = 8;  // sources per block
 
 // int32 words of one source's state: row starts (int64, 2K words), vis,

@@ -22,6 +22,39 @@ __device__ __forceinline__ int32_t wshl1(int32_t a) {
     return static_cast<int32_t>(static_cast<uint32_t>(a) << 1);
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int32_t warp_incl_sum(int32_t x, int lane) {
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int32_t y = __shfl_up_sync(FULL, x, o);
+        if (lane >= o) x += y;
+    }
+    return x;
+}
+
+// exclusive scan of x over the block (every thread calls it, blockDim a
+// multiple of 32, at most 1024); returns the threads' sum before this one
+// and the block's total in *tot.  sh: 32 words of shared memory.  Used by
+// K13 (select.cu), K16 (compact.cu) and K19 (select.cu).
+__device__ __forceinline__ int32_t block_excl_scan(int32_t x, int32_t* sh,
+                                                   int32_t* tot) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int32_t inc = warp_incl_sum(x, lane);
+    if (lane == 31) sh[w] = inc;
+    __syncthreads();
+    if (w == 0) {
+        const int32_t v = lane < static_cast<int>(blockDim.x >> 5) ? sh[lane]
+                                                                   : 0;
+        sh[lane] = warp_incl_sum(v, lane);
+    }
+    __syncthreads();
+    const int32_t before = (w ? sh[w - 1] : 0) + inc - x;
+    *tot = sh[(blockDim.x >> 5) - 1];
+    __syncthreads();
+    return before;
+}
+
 // number of blocks of `threads` covering n items
 static inline unsigned int n_blocks(int64_t n, int threads) {
     return static_cast<unsigned int>((n + threads - 1) / threads);

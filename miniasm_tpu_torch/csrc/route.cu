@@ -36,7 +36,6 @@
 
 namespace {
 
-constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 256;             // a scatter block
 constexpr int WARPS = THREADS / 32;
 constexpr int WROUNDS = 4;               // a warp's rounds of 32 rows

@@ -142,7 +142,6 @@ __global__ void cut_hit2arc_kernel(
     out[14 * n + i] = am.ol;
 }
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr uint32_t NO_READ = 0xffffffffu;
 constexpr int EV_THREADS = 256;    // count and scatter
 constexpr int EV_ITEMS = 4;        // events a thread
@@ -154,15 +153,6 @@ constexpr int SMEM_MAX = 232448;   // an H100 block's shared memory
 
 __device__ __forceinline__ unsigned lanes_upto(int lane) {
     return lane == 31 ? FULL : (2u << lane) - 1u;
-}
-
-__device__ __forceinline__ int32_t warp_incl_sum(int32_t x, int lane) {
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int32_t y = __shfl_up_sync(FULL, x, o);
-        if (lane >= o) x += y;
-    }
-    return x;
 }
 
 // The runs of equal reads among a warp's events: the head of the lane's
@@ -688,25 +678,6 @@ arc_count_kernel(const int32_t* __restrict__ qid,
     if ((threadIdx.x & 31) == 0 && s) atomicAdd(&res[0], s);
 }
 
-// exclusive block scan of x; returns the block's total in *tot
-__device__ __forceinline__ int32_t block_excl_scan(int32_t x, int32_t* sh,
-                                                   int32_t* tot) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    const int32_t inc = warp_incl_sum(x, lane);
-    if (lane == 31) sh[w] = inc;
-    __syncthreads();
-    if (w == 0) {
-        const int32_t v = lane < static_cast<int>(blockDim.x >> 5) ? sh[lane]
-                                                                   : 0;
-        sh[lane] = warp_incl_sum(v, lane);
-    }
-    __syncthreads();
-    const int32_t before = (w ? sh[w - 1] : 0) + inc - x;
-    *tot = sh[(blockDim.x >> 5) - 1];
-    __syncthreads();
-    return before;
-}
-
 // (b) 1: the sum of each block of SCAN_THREADS counts
 __global__ void __launch_bounds__(SCAN_THREADS)
 scan_sums_kernel(const int32_t* __restrict__ cnt, int64_t T,
@@ -908,6 +879,113 @@ cudaError_t allow_big_smem(F kernel, std::atomic<uint64_t>& done, int dev) {
 
 std::atomic<uint64_t> sweep_smem_done{0}, arc_smem_done{0};
 
+// K19 shard_arcs replaces the sharded step's arc tail
+// (miniasm_tpu/parallel/full.py:358-378, inside the shard_map program of
+// _make_select_step): read_alive from the OR-reduced marks, the aq/at
+// gathers, m_contained, the arc lanes and their compaction into the seven
+// arcmat rows [u l v ol gid side-read start].  Lane j < n is row j's
+// q-side, lane n + j its m-side; the arcs go out in lane order, all
+// q-sides in row order, then all m-sides (the order of the JAX program's
+// jnp.nonzero over the concatenated lanes: order_arcs sorts them stably by
+// hit key, so ties keep it).  K16's three launches over the 2n lanes:
+// count (and m_contained, one atomic a block), the scan of the block
+// counts (n_arc), the scatter at stride n_arc.  Bound by bytes: a row's
+// lane bits, a live row's reads, codes and the four marks of its reads
+// (L2), an arc's five K1 words, gid and hit key read, seven words written.
+constexpr int SA_THREADS = 1024;
+
+// lane j's arc flag; mc: the lane is valid between two surviving reads
+// (m_contained's term)
+__device__ __forceinline__ bool shard_lane(
+    const int32_t* __restrict__ qid, const int32_t* __restrict__ tid,
+    const int32_t* __restrict__ out, const int32_t* __restrict__ marks,
+    const uint8_t* __restrict__ mdel, int64_t n, int64_t T, int64_t j,
+    bool& mc) {
+    const bool m = j >= n;
+    const int64_t i = m ? j - n : j;
+    mc = false;
+    if (!(out[4 * n + i] & (m ? 2 : 1))) return false;
+    const int32_t q = clamp_index(qid[i], T), t = clamp_index(tid[i], T);
+    // read_alive = used & ~mdel & ~cont
+    if (!marks[q] || marks[T + q] || mdel[q] || !marks[t] || marks[T + t] ||
+        mdel[t])
+        return false;
+    mc = true;
+    return qid[i] != tid[i] && out[(m ? 10 : 5) * n + i] >= 0;
+}
+
+__global__ void __launch_bounds__(SA_THREADS)
+shard_count_kernel(const int32_t* __restrict__ qid,
+                   const int32_t* __restrict__ tid,
+                   const int32_t* __restrict__ out,
+                   const int32_t* __restrict__ marks,
+                   const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
+                   int32_t* __restrict__ bsum,
+                   unsigned long long* __restrict__ cnt) {
+    const int64_t j = static_cast<int64_t>(blockIdx.x) * SA_THREADS +
+                      threadIdx.x;
+    bool mc = false;
+    const bool a = j < 2 * n && shard_lane(qid, tid, out, marks, mdel, n, T,
+                                           j, mc);
+    const int c = __syncthreads_count(a);
+    const int m = __syncthreads_count(mc);
+    if (threadIdx.x == 0) {
+        bsum[blockIdx.x] = c;
+        if (m) atomicAdd(&cnt[0], static_cast<unsigned long long>(m));
+    }
+}
+
+__global__ void __launch_bounds__(SA_THREADS)
+shard_scan_kernel(int32_t* __restrict__ bsum, int64_t nb,
+                  int64_t* __restrict__ cnt) {
+    __shared__ int32_t sh[32];
+    int32_t carry = 0;
+    for (int64_t b0 = 0; b0 < nb; b0 += SA_THREADS) {
+        const int64_t b = b0 + threadIdx.x;
+        const int32_t x = b < nb ? bsum[b] : 0;
+        int32_t tot;
+        const int32_t before = block_excl_scan(x, sh, &tot);
+        if (b < nb) bsum[b] = carry + before;
+        carry += tot;
+    }
+    if (threadIdx.x == 0) cnt[1] = carry;
+}
+
+__global__ void __launch_bounds__(SA_THREADS)
+shard_scatter_kernel(const int32_t* __restrict__ qid,
+                     const int32_t* __restrict__ qs0,
+                     const int32_t* __restrict__ tid,
+                     const int32_t* __restrict__ ts0,
+                     const int32_t* __restrict__ gid,
+                     const int32_t* __restrict__ out,
+                     const int32_t* __restrict__ marks,
+                     const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
+                     const int32_t* __restrict__ bsum,
+                     const int64_t* __restrict__ cnt,
+                     int32_t* __restrict__ arcs) {
+    __shared__ int32_t sh[32];
+    const int64_t j = static_cast<int64_t>(blockIdx.x) * SA_THREADS +
+                      threadIdx.x;
+    bool mc;
+    const bool a = j < 2 * n && shard_lane(qid, tid, out, marks, mdel, n, T,
+                                           j, mc);
+    int32_t tot;
+    const int32_t before = block_excl_scan(a ? 1 : 0, sh, &tot);
+    if (!a) return;
+    const int64_t na = cnt[1];
+    const int64_t p = bsum[blockIdx.x] + before;
+    const bool m = j >= n;
+    const int64_t i = m ? j - n : j;
+    const int64_t src = (m ? 11 : 6) * n + i;  // u; v, l, ol follow
+    arcs[p] = out[src];
+    arcs[na + p] = out[src + 2 * n];
+    arcs[2 * na + p] = out[src + n];
+    arcs[3 * na + p] = out[src + 3 * n];
+    arcs[4 * na + p] = m ? (gid[i] | 1) : gid[i];
+    arcs[5 * na + p] = m ? tid[i] : qid[i];
+    arcs[6 * na + p] = m ? ts0[i] : qs0[i];
+}
+
 }  // namespace
 
 extern "C" int ma_cut_hit2arc(const int32_t* qid, const int32_t* tid,
@@ -1063,5 +1141,36 @@ extern "C" int ma_arc_order(const int32_t* qid, const int32_t* qs0,
                           BIG_THREADS, static_cast<size_t>(smem_keys) * 8,
                           stream>>>(
         k64, off, cnt, smem_keys, out, n, cap, res, big, nbig, ndev);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K19.  qid, qs0, tid, ts0, gid: n int32 (the step's rows 0, 1, 3, 4, 7:
+// the ORIGINAL starts); out: K1's final-pass output (15, n); marks: (3, T)
+// int32 0/1 [used cont pal], OR-reduced over the ranks; mdel: T bytes, the
+// merged sub-deletion; bsum: ceil(2n / 1024) int32 of scratch (at least
+// one); cnt: two int64 [m_contained, n_arc]; arcs: 14n int32, of which the
+// first 7 n_arc hold the arcs as 7 rows of n_arc words.
+extern "C" int ma_shard_arcs(const int32_t* qid, const int32_t* qs0,
+                             const int32_t* tid, const int32_t* ts0,
+                             const int32_t* gid, const int32_t* out,
+                             int64_t n, const int32_t* marks,
+                             const uint8_t* mdel, int64_t T, int32_t* bsum,
+                             int64_t* cnt, int32_t* arcs,
+                             cudaStream_t stream) {
+    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = cudaMemsetAsync(cnt, 0, sizeof(int64_t), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int64_t nb = (2 * n + SA_THREADS - 1) / SA_THREADS;
+    if (n > 0)
+        shard_count_kernel<<<static_cast<unsigned>(nb), SA_THREADS, 0,
+                             stream>>>(
+            qid, tid, out, marks, mdel, n, T, bsum,
+            reinterpret_cast<unsigned long long*>(cnt));
+    shard_scan_kernel<<<1, SA_THREADS, 0, stream>>>(bsum, nb, cnt);
+    if (n > 0)
+        shard_scatter_kernel<<<static_cast<unsigned>(nb), SA_THREADS, 0,
+                               stream>>>(
+            qid, qs0, tid, ts0, gid, out, marks, mdel, n, T, bsum, cnt, arcs);
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,15 +4,20 @@ repository side by side (a commit and its parent, say).
 Each checkout runs in processes of its own, in the order given, the whole
 order `--rounds` times, the second round reversed (A B, B A, ...), so that
 two checkouts are compared on one card within one call.  Before its first
-round a checkout runs the CLI once in a process of its own, untimed, so
-that its kernels and host loader are built.  The runs are `-p ug` on the
-clean PAF, `-p paf` on it and `-p ug` on the noisy PAF.  By default each
+round a checkout runs the CLI once in a process of its own, untimed, after
+building every kernel source of its own (on a card), so that its kernels
+and host loader are built.  The runs are `-p ug` on the
+clean PAF, `-p paf` on it and `-p ug` on the noisy PAF; `--runs` names
+others of RUN_ARGS: the staged path's `-1`, `-2` and `-S 4 -p bed`, and
+run_sharded on a one-rank group (NCCL on the card, gloo on the CPU; its
+stages are full.LAST_TIMING's).  By default each
 run is the first and only run of a fresh process, as a user's one-shot
 CLI run is (CUDA context, module loads, pinned host memory all paid in
 it); with --warm one process runs the CLI once to warm up, then the three.
-Each run prints one JSON line: its stage ticks (pipeline.LAST_TIMING) and
-stage extras (utils.timers.EXTRA: select.kernel_s, select.fetch_s,
-clean.detect_s, clean.detect_n, ...).  The card's name and power limit
+Each run prints one JSON line: its stage ticks (pipeline.LAST_TIMING,
+cumulative), the select stage's own seconds (`select_s`: its tick less
+the tick before it) and stage extras (utils.timers.EXTRA: select.kernel_s,
+select.fetch_s, clean.detect_s, clean.detect_n, ...).  The card's name and power limit
 come first, as nvidia-smi gives them.  With --trace DIR the runs named by
 --trace-runs run under the CLI's MINIASM_TPU_PROFILE (their times then
 include the profiler's cost), and for each the script prints the host
@@ -21,7 +26,8 @@ fetch`): torch ops and CUDA runtime calls, summed by name.
 
     python -m miniasm_tpu_torch.eval.stages --paf CLEAN.paf \\
         --noisy NOISY.paf [--warm] [--rounds 2] [--json OUT] \\
-        [--trace DIR --trace-runs noisy_ug] CHECKOUT [CHECKOUT ...]
+        [--runs ecoli_s1_ug,sharded_ug] [--trace DIR --trace-runs noisy_ug]
+        CHECKOUT [CHECKOUT ...]
 
 The PAFs are those chip_smoke.py simulates (build/smoke/ecoli_4600000.paf
 and its _noisy twin).  `--device cpu` runs the port on the CPU.
@@ -36,26 +42,61 @@ import subprocess
 import sys
 
 RUNS = ("ecoli_ug", "ecoli_paf", "noisy_ug")
+# every run by name: the CLI's arguments ("PAF" the clean PAF, "NOISY" the
+# noisy one), or "sharded" and the PAF for run_sharded
+RUN_ARGS = {"warmup": ["-p", "ug", "PAF"], "ecoli_ug": ["-p", "ug", "PAF"],
+            "ecoli_paf": ["-p", "paf", "PAF"],
+            "noisy_ug": ["-p", "ug", "NOISY"],
+            "ecoli_s1_ug": ["-1", "-p", "ug", "PAF"],
+            "noisy_s2_ug": ["-2", "-p", "ug", "NOISY"],
+            "ecoli_S4_bed": ["-S", "4", "-p", "bed", "PAF"],
+            "sharded_ug": ["sharded", "PAF"],
+            "sharded_noisy_ug": ["sharded", "NOISY"]}
 
-# one process: the runs named in argv[5] (a warm-up among them when asked);
-# each run's stdout is discarded, its stage ticks and extras printed as a
-# JSON line
+# one process: the runs named in argv[5] (a warm-up among them when asked),
+# their arguments in argv[6]; each run's stdout is discarded, its stage
+# ticks and extras printed as a JSON line
 _PROC = r"""
-import contextlib, io, json, os, sys, time
+import contextlib, io, json, os, sys, tempfile, time
 import torch
 from miniasm_tpu_torch import cli, pipeline
 from miniasm_tpu_torch.utils import timers
 paf, noisy, trace = sys.argv[1], sys.argv[2], sys.argv[3]
 traced = set(sys.argv[4].split(",")) if trace else set()
-args = {"warmup": ["-p", "ug", paf], "ecoli_ug": ["-p", "ug", paf],
-        "ecoli_paf": ["-p", "paf", paf], "noisy_ug": ["-p", "ug", noisy]}
+paths = {"PAF": paf, "NOISY": noisy}
+args = {k: [paths.get(x, x) for x in v]
+        for k, v in json.loads(sys.argv[6]).items()}
+
+
+def sharded(path, out):
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.parallel import full, group
+
+    with tempfile.TemporaryDirectory() as rdv:
+        group.init(0, 1, "file://" + os.path.join(rdv, "rdv"),
+                   device="cuda" if torch.cuda.is_available() else "cpu")
+        try:
+            full.run_sharded(path, Opt(), out=out)
+        finally:
+            group.destroy()
+    return 0, dict(full.LAST_TIMING)
+
+
 for tag in sys.argv[5].split(","):
+    if tag == "warmup" and torch.cuda.is_available():
+        from miniasm_tpu_torch import cuda
+        cuda.build()
     buf, err = io.StringIO(), io.StringIO()
     if tag in traced:
         os.environ["MINIASM_TPU_PROFILE"] = os.path.join(trace, tag)
+    timers.EXTRA.clear()
     t0 = time.time()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        rc = cli.main(args[tag])
+        if args[tag][0] == "sharded":
+            rc, ticks = sharded(args[tag][1], buf)
+        else:
+            rc = cli.main(args[tag])
+            ticks = dict(pipeline.LAST_TIMING)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     dt = time.time() - t0
@@ -63,8 +104,14 @@ for tag in sys.argv[5].split(","):
     if rc != 0:
         sys.stderr.write(err.getvalue()[-2000:])
         sys.exit(rc)
+    names = list(ticks)
+    sel = [k for k in names if k.startswith("select")]
+    select_s = None
+    if sel:
+        i = names.index(sel[0])
+        select_s = ticks[sel[0]] - (ticks[names[i - 1]] if i else 0.0)
     print(json.dumps({"run": tag, "wall_s": dt, "bytes": len(buf.getvalue()),
-                      "stages": dict(pipeline.LAST_TIMING),
+                      "stages": ticks, "select_s": select_s,
                       "extra": dict(timers.EXTRA),
                       "traced": tag in traced}), flush=True)
 """
@@ -112,7 +159,7 @@ def _process(tree, runs, a, paf, noisy, trace) -> list:
         env["MINIASM_TPU_TORCH_DEVICE"] = a.device
     env["PYTHONPATH"] = tree
     r = subprocess.run([sys.executable, "-c", _PROC, paf, noisy, trace,
-                        a.trace_runs, ",".join(runs)],
+                        a.trace_runs, ",".join(runs), json.dumps(RUN_ARGS)],
                        cwd=tree, env=env, capture_output=True, text=True,
                        timeout=1200)
     if r.returncode != 0:
@@ -130,10 +177,17 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", action="store_true")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--runs", default=",".join(RUNS),
+                    help="comma-separated names of RUN_ARGS")
     ap.add_argument("--json", default=None)
     ap.add_argument("--trace", default="")
     ap.add_argument("--trace-runs", default="noisy_ug")
     a = ap.parse_args(argv)
+    runs = a.runs.split(",")
+    bad = [r for r in runs if r not in RUN_ARGS or r == "warmup"]
+    if bad:
+        ap.error("unknown runs %s (choose among %s)"
+                 % (bad, ", ".join(k for k in RUN_ARGS if k != "warmup")))
     card = _smi()
     print(card, flush=True)
     paf, noisy = os.path.abspath(a.paf), os.path.abspath(a.noisy)
@@ -149,19 +203,19 @@ def main(argv=None) -> int:
             _process(tree, ["warmup"], a, paf, noisy, "")
             built.add(tree)
         if a.warm:
-            got = _process(tree, ["warmup", *RUNS], a, paf, noisy, trace)[1:]
+            got = _process(tree, ["warmup", *runs], a, paf, noisy, trace)[1:]
         else:
-            got = [row for run in RUNS
+            got = [row for run in runs
                    for row in _process(tree, [run], a, paf, noisy, trace)]
         for row in got:
             row["round"] = k
             rows.append(row)
             x = row["extra"]
-            print("%s %s: wall %.4f s, select.kernel_s %s, select.fetch_s "
-                  "%s, clean.detect_s %s, clean.detect_n %s" % (
-                      tree, row["run"], row["wall_s"],
-                      x.get("select.kernel_s"), x.get("select.fetch_s"),
-                      x.get("clean.detect_s"), x.get("clean.detect_n")),
+            print("%s %s: wall %.4f s, select %s s, select.kernel_s %s, "
+                  "select.fetch_s %s, clean.detect_s %s, clean.detect_n %s"
+                  % (tree, row["run"], row["wall_s"], row["select_s"],
+                     x.get("select.kernel_s"), x.get("select.fetch_s"),
+                     x.get("clean.detect_s"), x.get("clean.detect_n")),
                   flush=True)
             if row["traced"]:
                 row["select_calls"] = _select_calls(os.path.join(

@@ -165,8 +165,9 @@ def graph_from_arcs(d, sub_s, sub_e, sub_del, cont, used, pal, arcs,
 
 def graph_from_hits(opt, lens, dels, sub, hits) -> Graph:
     """Build the string graph from the staged path's surviving hits
-    (reference ma_sg_gen, asm.c:9-39): hit2arc with final parameters (the
-    K6 kernel); arcs appended in hit order; query-contained reads and exact
+    (reference ma_sg_gen, asm.c:9-39): hit2arc with final parameters and
+    the marks in one launch (the hit_marks kernel, K18, "sg" mode), then
+    the arcs compacted in hit order (K16); query-contained reads and exact
     reverse self-palindromes (PacBio chimera artifact, asm.c:27-30) delete
     their read.  `sub` is the (3, n_seq) [s, e, del] trim table on the
     hits' device, or None when no selection pass ran: the read lengths are
@@ -174,6 +175,7 @@ def graph_from_hits(opt, lens, dels, sub, hits) -> Graph:
     import torch
 
     from ..core import hit2arc as h2a
+    from ..utils import compact as kc
 
     n_seq = len(lens)
     if sub is not None:
@@ -187,16 +189,13 @@ def graph_from_hits(opt, lens, dels, sub, hits) -> Graph:
 
     c = hits.cols
     lt = torch.from_numpy(slen.view(np.int32)).to(c.device)
-    arc = h2a.hit2arc_rows(c, lt, opt.max_hang, opt.int_frac, opt.min_ovlp)
-    r = arc[0]
-    is_self = c[0] == c[3]
-    arc_rows = (r >= 0) & ~is_self
-    # self reverse-palindrome artifact (asm.c:27-30) and query contained
-    # at final params (asm.c:34)
-    pal = ((r >= 0) & is_self & (c[1] == c[4]) & (c[2] == c[5])
-           & (c[8] != 0))
-    sdel[c[0][pal | (r == h2a.MA_HT_QCONT)].cpu().numpy()] = True
-    u, v, l, ol = arc[1:][:, arc_rows].cpu().numpy()
+    # the self reverse-palindrome artifact (asm.c:27-30) and the query
+    # contained at final params (asm.c:34) mark their read; the arc rows
+    # are the arcs that are not self matches
+    mark, keep, arc = h2a.hit_marks(c, "sg", n_seq, lt, opt.max_hang,
+                                    opt.int_frac, opt.min_ovlp)
+    sdel |= mark.cpu().numpy() != 0
+    u, v, l, ol = kc.compact(arc, keep).cpu().numpy()
 
     g = Graph(u=u, l=l, v=v, ol=ol, adel=np.zeros(len(u), dtype=bool),
               slen=slen, sdel=sdel,

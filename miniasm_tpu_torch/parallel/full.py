@@ -17,9 +17,10 @@ shard in place of one device of a mesh:
     (the trims) and a MAX reduce (the 0/1 tables, an OR); K1
     `cut_hit2arc` then cuts, classifies and filters every local row
     against the replicated tables, for both passes;
-  - the marks are scatter_reduce(amax) per rank, then an OR across ranks;
+  - the marks are K12 `read_marks` per rank, then an OR across ranks;
   - each rank compacts its arcs with their global emission id (gid) and
-    hit key; one all_gather brings them to every rank, and rank 0
+    hit key (K19 `shard_arcs`); one all_gather brings them to every rank,
+    and rank 0
     restores the reference's exact arc insertion order, builds the
     graph, cleans it and prints.  Under the group, the cleaner's
     detection runs K3 on every rank's block of vertex rows
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import Opt
+from ..cuda import I64, P, Kernel, ptr
 from ..select import fused2
 from ..utils.timers import StageClock, log
 from . import group as grp
@@ -99,6 +101,79 @@ def _partition(cols, n_seq, n_sh):
             for k in range(n_sh)], block
 
 
+# the arc tail of the sharded step: read_alive, the arc lanes and their
+# compaction into the arcmat, inside _make_select_step (full.py:358-378)
+K_SHARD_ARCS = Kernel(
+    "shard_arcs", "select.cu", "ma_shard_arcs",
+    [P, P, P, P, P, P, I64, P, P, I64, P, P, P],
+    replaces="miniasm_tpu/parallel/full.py:358")
+
+
+def shard_arcs_plain(rows, out, marks, mdel):
+    """Plain PyTorch version of the shard_arcs kernel (see `shard_arcs`)."""
+    i64 = torch.int64
+    T = marks.shape[1]
+    qid, tid, gid = rows[0], rows[3], rows[7]
+    bits = out[4]
+    vq = (bits & 1) != 0
+    vm = (bits & 2) != 0
+    # a read survives iff used, not sub-deleted, not contained
+    # (hit.c:237-251); arcs touching dropped reads go here
+    read_alive = (marks[0] != 0) & ~mdel & (marks[1] == 0)
+    aq = read_alive[qid.clamp(0, T - 1).long()]
+    at = read_alive[tid.clamp(0, T - 1).long()]
+    m_cont = (vq & aq & at).sum() + (vm & aq & at).sum()
+    not_self = qid != tid
+    arc_q = vq & (out[5] >= 0) & not_self & aq & at
+    arc_m = vm & (out[10] >= 0) & not_self & aq & at
+    idx = torch.nonzero(torch.cat([arc_q, arc_m])).flatten()
+    arcmat = torch.stack([
+        torch.cat([out[6], out[11]])[idx], torch.cat([out[8], out[13]])[idx],
+        torch.cat([out[7], out[12]])[idx], torch.cat([out[9], out[14]])[idx],
+        torch.cat([gid, gid | 1])[idx], torch.cat([qid, tid])[idx],
+        torch.cat([rows[1], rows[4]])[idx]]).contiguous()
+    cnt = torch.stack([m_cont.to(i64),
+                       torch.tensor(idx.shape[0], dtype=i64,
+                                    device=qid.device)])
+    return arcmat, cnt
+
+
+def shard_arcs(rows, out, marks, mdel):
+    """K19.  rows (8, n) int32 [qid qs qe tid ts te flags gid], the starts
+    the ORIGINAL ones; out: K1's final-pass output (15, n); marks (3, T)
+    int32 0/1 [used cont pal], OR-reduced over the ranks; mdel (T,) bool,
+    the merged sub-deletion.  Returns (arcmat (7, n_arc) int32 [u l v ol
+    gid side-read start] of the arcs between surviving reads, all q-sides
+    in row order, then all m-sides; cnt (2,) int64 [m_contained, n_arc])."""
+    if rows.device.type == "cpu":
+        return shard_arcs_plain(rows, out, marks, mdel)
+    n, T = rows.shape[1], marks.shape[1]
+    dev = rows.device
+    if rows.dtype != torch.int32 or out.dtype != torch.int32 \
+            or marks.dtype != torch.int32 or mdel.dtype != torch.bool:
+        raise TypeError("shard_arcs: int32 rows, output and marks, a bool "
+                        "mask expected")
+    if rows.shape[0] != 8 or out.shape != (fused2.CUT_ROWS_FINAL, n) \
+            or marks.shape[0] != 3 or mdel.shape != (T,):
+        raise ValueError("shard_arcs: shape mismatch")
+    if n >= 1 << 30 or not 0 < T < 1 << 31:
+        raise ValueError("shard_arcs: at most 2**30 - 1 rows and 2**31 - 1 "
+                         "reads")
+    if n == 0:
+        return (torch.empty((7, 0), dtype=torch.int32, device=dev),
+                torch.zeros(2, dtype=torch.int64, device=dev))
+    bsum = torch.empty((2 * n + 1023) // 1024, dtype=torch.int32,
+                       device=dev)
+    cnt = torch.empty(2, dtype=torch.int64, device=dev)
+    buf = torch.empty(14 * n, dtype=torch.int32, device=dev)
+    K_SHARD_ARCS(ptr(rows[0]), ptr(rows[1]), ptr(rows[3]), ptr(rows[4]),
+                 ptr(rows[7]), ptr(out), n, ptr(marks),
+                 ptr(mdel.view(torch.uint8)), T, ptr(bsum), ptr(cnt),
+                 ptr(buf))
+    n_arc = int(cnt[1])
+    return buf[:7 * n_arc].view(7, n_arc), cnt
+
+
 def _owner_of(ids, block: int, n_sh: int, valid):
     """Destination shard of each id, n_sh (dropped) where not valid."""
     return torch.where(valid, torch.div(ids, block, rounding_mode="floor"),
@@ -119,8 +194,7 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     i32, i64 = torch.int32, torch.int64
     n_sh = g.size
     T = n_seq + 2  # slot T-1 is never a real read
-    dump = T - 1
-    qid, tid, fl, gid = rows[0], rows[3], rows[6], rows[7]
+    qid, tid, fl = rows[0], rows[3], rows[6]
     valid0 = (fl & 1) != 0
     iden = ((fl >> 2) & 1) != 0
     not_self = qid != tid
@@ -208,7 +282,6 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     vq = (bits & 1) != 0
     vm = (bits & 2) != 0
     n_cut2 = vq.sum() + vm.sum()
-    rq_raw, rm_raw = out[5], out[10]
 
     # --- merge (ma_sub_merge, hit.c:218-223) ---
     ms = s1 + s2
@@ -218,29 +291,14 @@ def select_step(rows, n_seq: int, block: int, opt, g):
     # --- containment / used / palindrome marks (hit.c:225-236,
     #     asm.c:9-39): amax per rank (K12), then an OR across ranks ---
     tab = fused2.read_marks(rows, out, T)
-    qsl = qid.clamp(0, dump).long()
-    tsl = tid.clamp(0, dump).long()
     marks = torch.stack([tab & 1, (tab >> 1) & 1, (tab >> 2) & 1])
     g.all_reduce(marks, "max")
     used, cont, pal = marks[0] != 0, marks[1] != 0, marks[2] != 0
 
-    # a read survives iff used, not sub-deleted, not contained
-    # (hit.c:237-251); arcs touching dropped reads go here
-    read_alive = used & ~mdel & ~cont
-    aq = read_alive[qsl]
-    at = read_alive[tsl]
-    m_cont = (vq & aq & at).sum() + (vm & aq & at).sum()
-    arc_q = vq & (rq_raw >= 0) & not_self & aq & at
-    arc_m = vm & (rm_raw >= 0) & not_self & aq & at
-    idx = torch.nonzero(torch.cat([arc_q, arc_m])).flatten()
-    arcmat = torch.stack([
-        torch.cat([out[6], out[11]])[idx], torch.cat([out[8], out[13]])[idx],
-        torch.cat([out[7], out[12]])[idx], torch.cat([out[9], out[14]])[idx],
-        torch.cat([gid, gid | 1])[idx], torch.cat([qid, tid])[idx],
-        torch.cat([rows[1], rows[4]])[idx]]).contiguous()
-
-    c = torch.stack([n_cut1, n_flt, n_cut2, m_cont,
-                     torch.tensor(idx.shape[0], device=dev), tot_dp]).to(i64)
+    # --- m_contained and the arcs between surviving reads (K19) ---
+    arcmat, mc_arcs = shard_arcs(rows, out, marks, mdel)
+    c = torch.cat([torch.stack([n_cut1, n_flt, n_cut2]).to(i64), mc_arcs,
+                   tot_dp.reshape(1)])
     g.all_reduce(c, "sum")
     n_cut1, n_flt, n_cut2, m_cont, n_arc, tot_dp = [int(x) for x in c.cpu()]
     counts = [int(fused2._n_region(tab1)), n_cut1, n_flt,

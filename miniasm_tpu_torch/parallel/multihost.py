@@ -195,7 +195,7 @@ def worker(paf_fn: str, out_fn: str, *, coordinator: str, num_procs: int,
     # the modules of the kernels this process may not launch, so that the
     # launch counts name every kernel
     from ..graph import clean, devbub, devclean  # noqa: F401
-    from ..select import cut  # noqa: F401
+    from ..select import cut, filter as _filter  # noqa: F401
     from ..utils import arrays  # noqa: F401
     from ..utils.timers import StageClock, log
     from . import group as grp

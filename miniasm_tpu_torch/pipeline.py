@@ -409,7 +409,7 @@ def _select_staged(hits, d, opt, stage, no_first, no_second):
     trim tables, None when no selection pass ran."""
     from .select.contained import hit_contained
     from .select.cut import apply_cut
-    from .select.filter import flt_coverage, hit_flt
+    from .select.filter import flt_coverage, hit_flt_sums
     from .select.subregion import hit_sub, log_sub
 
     sub = None
@@ -422,13 +422,14 @@ def _select_staged(hits, d, opt, stage, no_first, no_second):
             hits = apply_cut(hits, sub, opt.min_span)
             log("hit_cut", "%d hits remain after cut", hits.n)
         if stage >= 3:
-            keep, dp = hit_flt(hits, sub, int(opt.max_hang * 1.5),
-                               int(opt.min_ovlp * 0.5))
-            dp_sum = int(dp.to(torch.int64).sum())
+            # K17, then K16
+            keep, _, dp_sum, present = hit_flt_sums(
+                hits.cols, sub, int(opt.max_hang * 1.5),
+                int(opt.min_ovlp * 0.5))
             hits = hits.take(keep)
             log("hit_flt", "%d hits remain after filtering; crude coverage "
                 "after filtering: %.2f", hits.n,
-                flt_coverage(hits.qid, dp_sum, sub))
+                flt_coverage(present, int(dp_sum), sub))
     if not no_second:
         sys.stderr.write("[M::main] ===> Step 3: 2-pass (fine) read "
                          "selection <===\n")

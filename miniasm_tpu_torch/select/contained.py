@@ -2,10 +2,11 @@
 hit.c:225-256), for the staged selection path.
 
 Port of miniasm_tpu/select/contained.py.  Device part: classify every hit
-with the final parameters (the hit2arc kernel, K6) and mark the contained
-reads.  Host part: propagate deletions into the name dictionary, drop
-reads appearing in no hit (hit.c:24-36), squeeze ids (order-preserving);
-then remap and compact the hits on the device.
+with the final parameters and mark the contained reads (the hit_marks
+kernel, K18).  Host part: propagate deletions into the name dictionary,
+drop reads appearing in no hit (hit.c:24-36; K18's "used" marks), squeeze
+ids (order-preserving); then, on the device, compact the trim table and
+remap and compact the hits (the compact kernel, K16).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from ..core import hit2arc as h2a
 from ..core.hits import Hits, mark_unused
+from ..utils import compact as kc
 from ..utils.timers import log
 
 
@@ -22,11 +24,8 @@ def contained_marks(hits: Hits, sub: torch.Tensor, n_seq: int,
                     min_ovlp: int) -> torch.Tensor:
     """Per-read containment deletion mask, (n_seq,) bool."""
     lens = (sub[1] - sub[0]).contiguous()
-    r = h2a.hit2arc_rows(hits.cols, lens, max_hang, int_frac, min_ovlp)[0]
-    mask = torch.zeros(n_seq, dtype=torch.bool, device=hits.cols.device)
-    mask[hits.qid[r == h2a.MA_HT_QCONT].long()] = True
-    mask[hits.tid[r == h2a.MA_HT_TCONT].long()] = True
-    return mask
+    return h2a.hit_marks(hits.cols, "contained", n_seq, lens, max_hang,
+                         int_frac, min_ovlp).view(torch.bool)
 
 
 def hit_contained(opt, d, sub: torch.Tensor, hits: Hits):
@@ -47,14 +46,10 @@ def apply_contained(d, sub: torch.Tensor, cont_mask: torch.Tensor,
     d.mark_deleted(sub_del.cpu().numpy())
     # reads appearing in no hit -> deleted (ma_hit_mark_unused)
     mark_unused(d, hits)
-    mp = torch.from_numpy(d.squeeze()).to(dev)  # order-preserving renumber
-    keep_read = mp >= 0
-    sub = torch.stack([sub[0][keep_read], sub[1][keep_read],
-                       sub_del[keep_read].to(torch.int32)])
-    c = hits.cols
-    qn, tn = mp[c[0].long()], mp[c[3].long()]
-    keep = (qn >= 0) & (tn >= 0)
-    new = Hits(torch.cat([qn[None], c[1:3], tn[None], c[4:]])[:, keep])
+    # order-preserving renumber (int32 -1 where dropped)
+    mp = torch.from_numpy(d.squeeze()).to(dev)
+    sub = kc.compact([sub[0], sub[1], sub_del.to(torch.int32)], mp >= 0)
+    new = Hits(kc.compact(hits.cols, mp=mp))
     log("hit_contained", "%d sequences and %d hits remain after "
         "containment removal", d.n_seq, new.n)
     return new, sub

@@ -18,6 +18,7 @@ import torch
 
 from ..core.hits import Hits
 from ..cuda import I32, I64, P, Kernel, ptr
+from ..utils import compact as kc
 from ..utils.u32 import as_i32, as_u32
 
 K_HIT_CUT = Kernel(
@@ -83,8 +84,10 @@ def hit_cut(cols, sub, min_span: int):
 
 def apply_cut(hits: Hits, sub, min_span: int) -> Hits:
     """Cut every hit against the trim tables `sub` and keep the survivors,
-    in hit order (the staged path's _apply_cut, pipeline.py:41-47)."""
+    in hit order (the staged path's _apply_cut, pipeline.py:41-47): K5's
+    keep byte and coordinates feed K16, which composes the cut columns
+    (the coordinates for rows 1, 2, 4, 5) as it compacts them."""
     coords, keep = hit_cut(hits.cols, sub.contiguous(), min_span)
     c = hits.cols
-    return Hits(torch.cat([c[0:1], coords[0:2], c[3:4], coords[2:4],
-                           c[6:9]])[:, keep])
+    return Hits(kc.compact([c[0], coords[0], coords[1], c[3], coords[2],
+                            coords[3], c[6], c[7], c[8]], keep))

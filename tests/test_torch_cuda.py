@@ -726,7 +726,10 @@ def test_staged_run_on_card_matches_cpu(dev, tmp_path, args):
         outs[d] = buf.getvalue()
     assert outs["cuda"] == outs["cpu"] and outs["cpu"]
     n = cuda.launch_counts()
-    assert n["cut_hit2arc"] == 0 and n["hit2arc"] > 0
+    # every run compacts (K16) and either filters (K17) or marks (K18);
+    # K6 is the graft entry's alone
+    assert n["cut_hit2arc"] == 0 and n["hit2arc"] == 0
+    assert n["compact"] > 0 and n["hit_flt"] + n["hit_marks"] > 0
 
 
 I32MAX = 2**31 - 1
@@ -1542,3 +1545,242 @@ def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
         else:
             assert v == dets["cuda"][k], k
     assert dets["cpu"]["counters"][2] > 0
+
+
+# K16 compact, K17 hit_flt, K18 hit_marks (the staged path's compactions,
+# filter and marks) and K19 shard_arcs (the sharded step's arc tail); K13
+# again at the edges of its read scan (its block scan is common.cuh's)
+
+# columns on both sides of a block (1024 columns for K16; 512 rows, 1024
+# lanes, for K19) and of the scan of the block counts (1024 blocks)
+EDGES = [0, 1, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
+         (1 << 20) + 3]
+
+
+def _count(name):
+    from miniasm_tpu_torch import cuda
+
+    return cuda.launch_counts()[name]
+
+
+def _compact_case(rng, n, mode, T=5000):
+    """(rows, keep, mp) for K16: 9 int32 rows (ids in rows 0 and 3), a
+    keep byte (none, 40% or all kept) and a remap dropping about a third
+    of the reads."""
+    rows = rng.integers(-2**31, 2**31, (9, n))
+    rows[0] = rng.integers(0, T, n)
+    rows[3] = rng.integers(0, T, n)
+    rows = torch.from_numpy(rows.astype(np.int32))
+    p = {"none": 0.0, "all": 1.0}.get(mode, 0.4)
+    keep = torch.from_numpy((rng.random(n) < p).astype(np.uint8))
+    mp = np.where(rng.random(T) < 0.33, -1, 0).astype(np.int32)
+    mp[mp == 0] = np.arange(int((mp == 0).sum()), dtype=np.int32)
+    return rows, keep, torch.from_numpy(mp)
+
+
+@pytest.mark.parametrize("n", EDGES)
+@pytest.mark.parametrize("mode", ["keep", "none", "all", "remap",
+                                  "keep_remap", "composed"])
+def test_compact_kernel_matches_plain(dev, n, mode):
+    from miniasm_tpu_torch.utils import compact as cp
+
+    rows, keep, mp = (x.to(dev) for x in _compact_case(
+        np.random.default_rng(n % 997), n, mode))
+    kw = {"keep": None if mode == "remap" else keep,
+          "mp": mp if "remap" in mode else None}
+    cols = rows
+    if mode == "composed":
+        # apply_cut's: rows 1, 2, 4, 5 from another tensor
+        other = rows.flip(0).contiguous()
+        cols = [rows[0], other[1], other[2], rows[3], other[4], other[5],
+                rows[6], rows[7], rows[8]]
+    before = _count("compact")
+    got = cp.compact(cols, **kw)
+    torch.cuda.synchronize()
+    assert _count("compact") - before == (1 if n else 0)
+    want = cp.compact_plain(cols, **kw)
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert got.is_contiguous()
+    if mode == "all" and n:
+        assert got.shape[1] == n
+    if mode == "none":
+        assert got.shape[1] == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, (1 << 20) + 3])
+def test_hit_flt_kernel_matches_plain(dev, n):
+    from miniasm_tpu_torch.select import filter as flt
+
+    cols, sub = staged_inputs(np.random.default_rng(7 + n % 101), n=n)
+    sub[0, :50] = -100   # e - s wraps: ql and tl past 2**31
+    args = (torch.from_numpy(cols).to(dev), torch.from_numpy(sub).to(dev),
+            1500, 1000)
+    before = _count("hit_flt")
+    got = flt.hit_flt_sums(*args)
+    torch.cuda.synchronize()
+    assert _count("hit_flt") - before == (1 if n else 0)
+    want = flt.hit_flt_plain(*args)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if n > 1000:
+        assert want[0].any() and not want[0].all() and want[3].any()
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, (1 << 20) + 3])
+@pytest.mark.parametrize("mode", ["contained", "sg", "used"])
+def test_hit_marks_kernel_matches_plain(dev, n, mode):
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    rng = np.random.default_rng(17 + n % 89)
+    # twice as many reads as hits: some reads in no hit
+    cols, sub = staged_inputs(rng, n=n, T=max(500, 2 * n))
+    pal = rng.random(n) < 0.05
+    cols[3, pal], cols[4, pal], cols[5, pal] = cols[0, pal], cols[1, pal], \
+        cols[2, pal]
+    cols[8, pal] = 1
+    lens = torch.from_numpy(sub[1] - sub[0]).to(dev)
+    c = torch.from_numpy(cols).to(dev)
+    T = lens.shape[0]
+    kw = dict(lens=None if mode == "used" else lens, max_hang=1000,
+              int_frac=0.8, min_ovlp=2000)
+    before = _count("hit_marks")
+    got = h2a.hit_marks(c, mode, T, **kw)
+    torch.cuda.synchronize()
+    assert _count("hit_marks") - before == (1 if n else 0)
+    want = h2a.hit_marks_plain(c, mode, T, **kw)
+    got, want = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if n > 1000:
+        assert want[0].any() and not want[0].all()
+
+
+def _shard_case(rng, n, T=3000):
+    """(rows, out, marks, mdel) for K19: tail_inputs' rows and K1 output
+    with a gid row; the marks as 0/1 rows [used cont pal]."""
+    colmat, out, tab, mdel = tail_inputs(rng, n=n, T=T)
+    gid = torch.arange(n, dtype=torch.int32) * 2
+    rows = torch.cat([colmat, gid[None]]).contiguous()
+    marks = torch.stack([tab & 1, (tab >> 1) & 1, (tab >> 2) & 1])
+    return rows, out, marks.contiguous(), mdel
+
+
+@pytest.mark.parametrize("n", EDGES)
+def test_shard_arcs_kernel_matches_plain(dev, n):
+    from miniasm_tpu_torch.parallel import full
+
+    args = [x.to(dev) for x in _shard_case(
+        np.random.default_rng(19 + n % 83), n)]
+    before = _count("shard_arcs")
+    arcmat, cnt = full.shard_arcs(*args)
+    torch.cuda.synchronize()
+    assert _count("shard_arcs") - before == (1 if n else 0)
+    want, wcnt = full.shard_arcs_plain(*args)
+    assert torch.equal(cnt, wcnt)
+    assert arcmat.shape == want.shape and torch.equal(arcmat, want)
+    if n > 1000:
+        side = want[4] & 1
+        assert side.any() and not side.all() and int(wcnt[0]) > want.shape[1]
+
+
+@pytest.mark.parametrize("T", [5, 1023, 1024, 1025, 2049])
+def test_arc_order_kernel_scan_edges(dev, T):
+    """K13 with its block scan in common.cuh: reads on both sides of a
+    scan block (1024 reads)."""
+    colmat, out, tab, mdel = tail_inputs(np.random.default_rng(T), n=20_000,
+                                         T=T)
+    want, _ = check_arc_order(dev, colmat, out, tab, mdel)
+    assert int(want[1]) > 0
+
+
+MASK_OPS = {"nonzero", "masked_select", "masked_scatter", "bool_index"}
+
+
+class _MaskOps(_TailOps):
+    """_TailOps, and each boolean-mask index or index_put on CUDA
+    tensors (recorded as "bool_index")."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops, inner = self, self.mode
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.overloadpacket.__name__
+                if name in ("index", "index_put", "index_put_"):
+                    idx = args[1] if len(args) > 1 else []
+                    if any(isinstance(i, torch.Tensor)
+                           and i.dtype in (torch.bool, torch.uint8)
+                           for i in idx or []):
+                        ops.names.add("bool_index")
+                return inner.__torch_dispatch__(func, types, args, kwargs)
+
+        self.mode = Mode()
+
+
+def test_staged_and_sharded_device_paths_have_no_mask_ops(dev, tmp_path):
+    """On the card the staged selection (-S 5: both passes and the
+    containment), the staged graph build and the sharded step (a one-rank
+    NCCL group) run no nonzero, boolean-mask index or masked_select: their
+    compactions go through K16 and K19; each K16-K19 launches as counted;
+    the results equal the CPU's."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.core.hits import build_hits
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.graph.asg import graph_from_hits
+    from miniasm_tpu_torch.io.paf import load_paf
+    from miniasm_tpu_torch.parallel import group
+    from miniasm_tpu_torch.parallel.full import select_step, shard_rows
+    from miniasm_tpu_torch.pipeline import _select_staged
+    from miniasm_tpu_torch.utils.timers import StageClock
+
+    paf = str(tmp_path / "r.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    opt = Opt()
+    res = {}
+    for d in ("cpu", "cuda"):
+        load = load_paf(paf, opt.min_span, opt.min_match)
+        hits = build_hits(load, device=torch.device(d))
+        ops = _MaskOps()
+        cuda.reset_launches()
+        with ops.mode:
+            h, sub = _select_staged(hits, load.d, opt, 100, False, False)
+            g = graph_from_hits(opt, load.d.lens_array(),
+                                load.d.del_array(), sub, h)
+        res[d] = (h.cols.cpu(), sub.cpu(), g)
+        if d == "cuda":
+            n = cuda.launch_counts()
+            assert not ops.names & MASK_OPS, ops.names & MASK_OPS
+            # cut, filter, cut, the trim table, the hits, the arcs
+            assert n["compact"] == 6 and n["hit_flt"] == 1
+            # contained, used, sg
+            assert n["hit_marks"] == 3 and n["hit2arc"] == 0
+    (ch, cs, cg), (gh, gs, gg) = res["cpu"], res["cuda"]
+    assert torch.equal(ch, gh) and torch.equal(cs, gs) and gh.shape[1] > 0
+    for f in ("u", "v", "l", "ol", "sdel", "slen"):
+        assert np.array_equal(getattr(cg, f), getattr(gg, f)), f
+
+    steps = {}
+    for d in ("cpu", "cuda"):
+        rdv = tmp_path / ("rdv_" + d)
+        g = group.init(0, 1, "file://" + str(rdv), device=d)
+        try:
+            rows, n_seq, block, _ = shard_rows(paf, opt, None, g,
+                                               StageClock({}, g.device))
+            ops = _MaskOps()
+            cuda.reset_launches()
+            with ops.mode:
+                arcmat, meta, counts = select_step(rows, n_seq, block, opt,
+                                                   g)
+            steps[d] = (arcmat.cpu(), meta, counts)
+            if d == "cuda":
+                assert cuda.launch_counts()["shard_arcs"] == 1
+                assert not ops.names & MASK_OPS, ops.names & MASK_OPS
+        finally:
+            group.destroy()
+    assert torch.equal(steps["cpu"][0], steps["cuda"][0])
+    assert np.array_equal(steps["cpu"][1], steps["cuda"][1])
+    assert steps["cpu"][2] == steps["cuda"][2] and steps["cpu"][2][6] > 0

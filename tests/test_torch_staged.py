@@ -232,8 +232,11 @@ def test_hit_flt_matches_jax(chain):
     dp_sum = int(dp.to(torch.int64).sum())
     assert dp_sum == int(np.sum(jdp, dtype=np.int64))
     h2, s1 = chain["h2"], chain["s1"]
-    assert tflt.flt_coverage(to_port_hits(h2).qid, dp_sum,
-                             to_port_sub(*s1)) == \
+    _, _, k_sum, present = tflt.hit_flt_sums(
+        to_port_hits(chain["h1"]).cols, to_port_sub(*s1),
+        int(o.max_hang * 1.5), int(o.min_ovlp * 0.5))
+    assert int(k_sum) == dp_sum
+    assert tflt.flt_coverage(present, dp_sum, to_port_sub(*s1)) == \
         jflt.flt_coverage(h2.qid, dp_sum, s1[0], s1[1], h2.n)
 
 

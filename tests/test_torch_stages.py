@@ -43,6 +43,29 @@ def test_stages_cold_and_warm_on_cpu(small_paf, tmp_path, capsys):
     assert "select.fetch_s" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("warm", [False, True])
+def test_stages_staged_and_sharded_runs_on_cpu(small_paf, tmp_path, warm):
+    """--runs: the staged path's -1, -2 and -S 4 -p bed and run_sharded on
+    a one-rank gloo group, each with its select stage's own seconds."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "runs.json")
+    runs = ["ecoli_s1_ug", "noisy_s2_ug", "ecoli_S4_bed", "sharded_ug"]
+    argv = ["--device", "cpu", "--paf", small_paf, "--noisy", small_paf,
+            "--rounds", "1", "--json", out, "--runs", ",".join(runs), root]
+    assert stages.main(argv + (["--warm"] if warm else [])) == 0
+    with open(out) as f:
+        rep = json.load(f)
+    assert [r["run"] for r in rep["runs"]] == runs
+    for r in rep["runs"]:
+        assert r["bytes"] > 0 and 0 < r["select_s"] < r["wall_s"]
+    assert "select" in rep["runs"][3]["stages"]
+    assert "gather" in rep["runs"][3]["stages"]
+    with pytest.raises(SystemExit):
+        stages.main(argv[:-2] + ["--runs", "warmup", root])
+
+
 def test_select_calls_sums_the_select_window(tmp_path):
     ev = [{"name": "stage:select+fetch", "ts": 100, "dur": 50},
           {"name": "aten::index", "cat": "cpu_op", "ts": 110, "dur": 20},

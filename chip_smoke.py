@@ -32,14 +32,17 @@ What it does, in order:
      and K18 on the staged runs (K6 never: only the graft entry's forward
      step, phase 6, launches it), K3, K7 and K8 on the oracle runs, K11 (its layout
      pass once per Layout, its scatter once per payload), K1-K4, K12 and
-     K19 on the sharded runs, and K14 and K15 once per detection of every
-     run's hybrid clean (clean.detect_n);
+     K19 on the sharded runs, and K14 (stage B) once per detection of
+     every run's hybrid clean (clean.detect_n);
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events, the
      wrapper also by torch.profiler's device time, each timed call alone
      after a write of 128 MB that evicts the 50 MB L2 (the main path's
-     caller finds a kernel's inputs cold); beside K13 and K14 it times
+     caller finds a kernel's inputs cold), K14 also without the flush
+     (as the path finds its inputs, right after K3) and beside an empty
+     cooperative launch of its grid (its latency floor, with one grid
+     sync and without); beside K13 and K14 it times
      the PyTorch calls that do their costly part (a stable int64
      torch.sort; a torch.sort and searchsorted), beside K16 a boolean-mask
      index of the same columns, beside K19 a torch.nonzero and its seven
@@ -96,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -123,12 +127,11 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
 # another (pafread.cpp) and launches neither.  The main path's select
 # launches K12 and K13 once; every detection of the hybrid clean launches
-# K14 and K15 once (each run is also held to its clean.detect_n,
-# _check_detects).
+# K14 once (each run is also held to its clean.detect_n, _check_detects).
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
          "decode3": ">0", "unpack4": "=decode3", "route": 0,
          "route_layout": 0, "read_marks": 1, "arc_order": 1,
-         "clean_arcs": "=clean_ends", "clean_ends": "any", "compact": 0,
+         "clean_stage_b": "any", "compact": 0,
          "hit_flt": 0, "hit_marks": 0, "shard_arcs": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
               bubble_bfs="any")
@@ -153,7 +156,7 @@ def _staged(cut_passes, flt, contained, graph):
             "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0,
             "route_layout": 0, "read_marks": 0, "arc_order": 0,
             "shard_arcs": 0,
-            "clean_arcs": "=clean_ends", "clean_ends": ">0" if graph else 0}
+            "clean_stage_b": ">0" if graph else 0}
 
 
 def _oracle(symm_calls):
@@ -161,8 +164,7 @@ def _oracle(symm_calls):
     # and one K7 launch per symm: after del_trans, and in py mode after
     # each del_short that drops arcs; the oracles never run K4
     return dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=1, bubble_bfs=0,
-                key_member=symm_calls, dup_mark=symm_calls, clean_arcs=0,
-                clean_ends=0)
+                key_member=symm_calls, dup_mark=symm_calls, clean_stage_b=0)
 
 
 EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
@@ -233,14 +235,14 @@ AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
 for _tag in ("noisy_ug", "noisy_sg", "noisy_s2_ug", "noisy_s12_sg",
              "noisy_R_ug", "noisy_s1_R_f_ug", "sharded_noisy_ug",
              "noisy_v2_ug", "noisy_v2_sg"):
-    for _k in ("trans_multi", "clean_arcs", "clean_ends"):
+    for _k in ("trans_multi", "clean_stage_b"):
         AT_ECOLI[(_tag, _k)] = 19
     AT_ECOLI[(_tag, "bubble_bfs")] = 11
 for _tag, _want in EXPECT.items():
     if _want["decode3"] == ">0" and _tag != "noisy_R_ug":
         AT_ECOLI[(_tag, "decode3")] = 3 if _tag.startswith("noisy") else 6
 # the run whose counts the kernels line reports for each kernel: the main
-# path's run in which K1-K4 all launch (and K14, K15 once per detection),
+# path's run in which K1-K4 all launch (and K14 once per detection),
 # the staged -1 run for K5, K16, K18, the staged -S 4 run for K17, the
 # graft entry's forward step for K6, the py oracle run for K7, K8, the
 # clean set's warm run for K9, K10, K12, K13, and its sharded run for K11
@@ -253,8 +255,7 @@ RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
                  "decode3": "ecoli_ug", "unpack4": "ecoli_ug",
                  "route": "sharded_ug", "read_marks": "ecoli_ug",
-                 "arc_order": "ecoli_ug", "clean_arcs": "noisy_ug",
-                 "clean_ends": "noisy_ug"}
+                 "arc_order": "ecoli_ug", "clean_stage_b": "noisy_ug"}
 # the path whose calls each kernel's row times (K6: the graft entry's
 # forward step, the one caller left); a kernel reused on another path gets
 # a sub-row of its own there, with the launches of a run that makes those
@@ -266,7 +267,7 @@ ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
             "shard_arcs": "sharded",
             "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
             "unpack4": "main", "route": "sharded", "read_marks": "main",
-            "arc_order": "main", "clean_arcs": "main", "clean_ends": "main"}
+            "arc_order": "main", "clean_stage_b": "main"}
 # a kernel whose row times one call, not the sum of its path's variants:
 # K11's largest call of the run of record (its other calls are listed as
 # cases beside it)
@@ -281,9 +282,8 @@ _MH = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
        "cut_hit2arc": 2, "sweep": 2, "read_marks": 1, "arc_order": 0,
        "compact": 0, "hit_flt": 0, "hit_marks": 0, "shard_arcs": 1}
 MH_EXPECT = {0: dict(_MH, trans_multi=">0", bubble_bfs=">0",
-                     clean_arcs="=clean_ends", clean_ends=">0"),
-             1: dict(_MH, trans_multi=0, bubble_bfs=0, clean_arcs=0,
-                     clean_ends=0)}
+                     clean_stage_b=">0"),
+             1: dict(_MH, trans_multi=0, bubble_bfs=0, clean_stage_b=0)}
 MH_PROCS = len(MH_EXPECT)
 REUSE = {"sweep": ("hit_sub", "staged", "ecoli_S4_bed"),
          "trans_multi": ("del_trans", "oracle", "noisy_native_ug")}
@@ -408,13 +408,12 @@ def _check_launches(tag: str, launches: dict, expect=None) -> None:
 
 
 def _check_detects(tag: str, launches: dict, stages: dict) -> None:
-    """K14 and K15 launch once per detection of the run (clean.detect_n,
+    """K14 (stage B) launches once per detection of the run (clean.detect_n,
     counted by devclean.detect)."""
     n = int(stages.get("extra.clean.detect_n", 0))
-    if not launches["clean_arcs"] == launches["clean_ends"] == n:
-        _fail("%s: clean_arcs launched %d times and clean_ends %d, the run "
-              "detected %d times" % (tag, launches["clean_arcs"],
-                                      launches["clean_ends"], n))
+    if launches["clean_stage_b"] != n:
+        _fail("%s: clean_stage_b launched %d times, the run detected %d "
+              "times" % (tag, launches["clean_stage_b"], n))
 
 
 def _gfa_summary(gfa: str) -> dict:
@@ -460,24 +459,33 @@ def _flush_names() -> set:
 
         _flush()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _flush()
-            torch.cuda.synchronize()
-        FLUSH["names"] = {e.name for e in prof.events()
-                          if e.device_type == DeviceType.CUDA}
+        # the first profiling session of a process can come back without
+        # device events (seen once in a smoke run, at this call): three
+        # sessions at most
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _flush()
+                torch.cuda.synchronize()
+            FLUSH["names"] = {e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA}
+            if FLUSH["names"]:
+                break
         if not FLUSH["names"]:
-            _fail("the profiler recorded no event of the L2 flush")
+            _fail("the profiler recorded no event of the L2 flush in "
+                  "three sessions")
     return FLUSH["names"]
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean CUDA-event time of fn, each call alone after an L2 flush."""
+def _time_ms(fn, reps: int, flush: bool = True) -> float:
+    """Mean CUDA-event time of fn, each call alone after an L2 flush (with
+    flush=False, after the call before it)."""
     fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for a, b in ev:
-        _flush()
+        if flush:
+            _flush()
         a.record()
         fn()
         b.record()
@@ -485,12 +493,13 @@ def _time_ms(fn, reps: int) -> float:
     return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
-def _device_ms(fn, reps: int):
+def _device_ms(fn, reps: int, flush: bool = True):
     """Device time per call of what fn launches, from the device events
     torch.profiler records over reps calls, each after an L2 flush (whose
-    events are left out): each kernel's mean duration times its launches
-    per call, summed (a trace that misses some events of a kernel still
-    gives its mean); None where it records none."""
+    events are left out; with flush=False, none): each kernel's mean
+    duration times its launches per call, summed (a trace that misses
+    some events of a kernel still gives its mean); None where it records
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -499,7 +508,8 @@ def _device_ms(fn, reps: int):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            _flush()
+            if flush:
+                _flush()
             fn()
         torch.cuda.synchronize()
     us: dict = {}
@@ -661,23 +671,26 @@ def _cost(name, args, kw, out):
         n_arc = int(out[1])
         return (4 * n + 16 * act + _nbytes(tab, mdel) + 20 * n_arc
                 + 4 * 3 + 20 * n_arc, 20 * n + sort)
-    if name == "clean_arcs":
-        # the CSR columns and K3's bits read once, the complement rows'
-        # targets and bits as far as each live arc scans them (to its
-        # match), the words and rows written once; a compare per scanned
-        # arc, about 10 ops per arc and 6 per ratio of a weak-test arc
-        first, av, aol, bits, ratios = args[:5]
-        scanned, tested = _clean_scan(first, av, bits, out)
-        return (_nbytes(first, av, aol, bits) + 5 * scanned
-                + _nbytes(*out), 2 * scanned + 10 * av.numel()
-                + 6 * len(ratios) * tested)
-    if name == "clean_ends":
-        # nlive, fl_v, sdel_v read once, the bytes written once; per
-        # vertex its start code and each step of its walk (about 8 ops)
-        nlive, fl_v, sdel_v, max_ext = args[:4]
-        steps = _walk_steps(nlive, fl_v, int(max_ext))
-        return _nbytes(nlive, fl_v, sdel_v) + _nbytes(out), 8 * (
-            steps + nlive.numel())
+    if name == "clean_stage_b":
+        # what the function moves: the CSR columns, K3's bits and sdel_v
+        # read once, the complement rows' targets and bits as far as each
+        # live arc scans them (to its match), the counters, the arc words
+        # and the vertex bytes written once.  Each row's (live arcs, first
+        # live target) pair passes from the arc half to the vertex half
+        # inside the launch (scratch, not an input or an output): its
+        # reads count as ops of the walk only.  Ops: a compare per scanned
+        # arc, about 10 per arc and 6 per ratio of a weak-test arc; per
+        # vertex its start code and each step of its walk (about 8)
+        first, av, aol, bits, sdel_v, ratios = args[:6]
+        max_ext = args[8]
+        _res, rows = _stage_b_rows(args)
+        scanned, tested = _clean_scan(first, av, bits, rows[0])
+        V = sdel_v.numel()
+        steps = _walk_steps(rows[0], rows[1], int(max_ext))
+        return (_nbytes(first, av, aol, bits, sdel_v) + 5 * scanned
+                + 4 * (3 + len(ratios) + av.numel()) + V,
+                2 * scanned + 10 * av.numel() + 6 * len(ratios) * tested
+                + 8 * (steps + V))
     if name == "bubble_bfs":
         first, av, al, adel, live_out, sources = args[:6]
         res, vis, par = out
@@ -718,11 +731,19 @@ def _arcs_per_read(res, colmat, T):
     return torch.bincount(read, minlength=T)
 
 
-def _clean_scan(first, av, bits, out):
+def _stage_b_rows(args):
+    """K14's recorded call through the twin's arc half: (res, rows), rows
+    (2, V) the live arcs and first live target of each row."""
+    from miniasm_tpu_torch.graph.devclean import clean_arcs_plain
+
+    return clean_arcs_plain(*args[:4], *args[5:7])
+
+
+def _clean_scan(first, av, bits, nlive):
     """K14's complement scans on this call: the arcs read in the rows
     v^1 (each live1 arc's scan stops at its match), and the arcs that
     take the weak-overlap test (live, not their row's first, in a row of
-    two or more live arcs)."""
+    two or more live arcs; nlive: each row's live arcs)."""
     from miniasm_tpu_torch.graph.devclean import comp_keys
 
     i64 = torch.int64
@@ -738,14 +759,14 @@ def _clean_scan(first, av, bits, out):
     hit = skey[pos] == q
     scanned = torch.where(hit, sidx[pos] - first[w] + 1, deg[w])
     # in a row of nl >= 2 live arcs, the nl - 1 after its first
-    nl = out[1][0].long()
+    nl = nlive.long()
     tested = int((nl - 1)[nl >= 2].sum())
     return int(scanned[live1].to(i64).sum()), tested
 
 
 def _walk_steps(nlive, fl_v, max_ext):
-    """K15's walk steps over all vertices: each walk reads codes until a
-    non-zero one, at most max_ext."""
+    """The walk steps of K14's vertex half over all vertices: each walk
+    reads codes until a non-zero one, at most max_ext."""
     nl = nlive.long()
     fl = fl_v.long()
     code = torch.where(nl == 0, 1, torch.where(
@@ -869,15 +890,76 @@ def _measure(name, fn, plain, args, kw, reps):
         if not torch.equal(lib(), got[0]):
             _fail("shard_arcs disagrees with torch.nonzero and its gathers")
         m["library_ms"] = _time_ms(lib, reps)
-    if name == "clean_arcs":
+    if name == "clean_stage_b":
         # the complement test as the twin does it: one int64 torch.sort of
         # the live arcs' keys and one searchsorted of the complements
-        from miniasm_tpu_torch.graph.devclean import comp_keys
+        from miniasm_tpu_torch.graph import devclean
 
-        _au, _live1, key, q = comp_keys(args[0], args[1], args[3])
+        _au, _live1, key, q = devclean.comp_keys(args[0], args[1], args[3])
         m["library_ms"] = _time_ms(
             lambda: torch.searchsorted(torch.sort(key).values, q), reps)
+        m.update(_stage_b_floor(fn, args, kw, reps))
     return m
+
+
+def _host_us(fn, reps: int) -> float:
+    """Mean host time of one call of fn (its enqueue: the card is busy
+    with an L2 flush meanwhile, so no call waits on it), in us."""
+    fn()
+    torch.cuda.synchronize()
+    tot = 0.0
+    for _ in range(reps):
+        _flush()
+        t0 = time.perf_counter()
+        fn()
+        tot += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return tot / reps * 1e6
+
+
+def _coop_floor(blocks: int, sync: int):
+    """A launcher of clean.cu's ma_coop_floor: an empty cooperative launch
+    of `blocks` blocks of 256 threads, with one grid sync when sync is 1
+    (a measurement's entry, called through the library, counted
+    nowhere)."""
+    from miniasm_tpu_torch import cuda
+
+    f = cuda._lib("clean.cu").ma_coop_floor
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def launch():
+        err = f(blocks, sync, torch.cuda.current_stream().cuda_stream)
+        if err:
+            _fail("coop_floor: launch failed (cudaError %d)" % err)
+    return launch
+
+
+def _stage_b_floor(fn, args, kw, reps) -> dict:
+    """K14 as the path finds its inputs (right after K3 wrote the bits,
+    so in L2: no flush between calls), its wrapper's host time, and its
+    latency floor: an empty cooperative launch of the grid K14 chose on
+    this call, with one grid sync and without, each timed as K14 is
+    (after a flush, and without)."""
+    grid = [0, 0]
+    call = lambda: fn(*args, **dict(kw, grid=grid))  # noqa: E731
+    call()
+    blocks = grid[0]
+    out = {"grid": {"blocks": blocks, "lanes": grid[1],
+                    "vertices": int(args[4].numel())},
+           "ms_unflushed": _time_ms(call, reps, flush=False),
+           "device_ms_unflushed": _device_ms(call, reps, flush=False),
+           "host_us": _host_us(call, reps)}
+    for sync in (1, 0):
+        f = _coop_floor(blocks, sync) if blocks else None
+        key = "floor" if sync else "floor_nosync"
+        out[key] = None if f is None else {
+            "ms": _time_ms(f, reps),
+            "device_ms": _device_ms(f, reps),
+            "ms_unflushed": _time_ms(f, reps, flush=False),
+            "device_ms_unflushed": _device_ms(f, reps, flush=False),
+            "host_us": _host_us(f, reps)}
+    return out
 
 
 def _sweep_tiers(row, calls, cases):
@@ -1047,10 +1129,8 @@ def _kernel_phase(recs, runs, cases):
              "read_marks": fused2.read_marks_plain,
              "arc_order": lambda *a, smem_cap=None, res=None:
                  fused2.arc_order_plain(*a),
-             "clean_arcs": lambda *a, res=None:
-                 devclean.clean_arcs_plain(*a[:6]),
-             "clean_ends": lambda *a, out=None:
-                 devclean.clean_ends_plain(*a),
+             "clean_stage_b": lambda *a, out=None:
+                 devclean.clean_stage_b_plain(*a[:7], a[8]),
              "compact": kc.compact_plain,
              "hit_flt": flt.hit_flt_plain,
              "hit_marks": h2a.hit_marks_plain,
@@ -1059,7 +1139,7 @@ def _kernel_phase(recs, runs, cases):
             "bubble_bfs": 10, "hit_cut": 50, "hit2arc": 50,
             "key_member": 50, "dup_mark": 50, "decode3": 50, "unpack4": 50,
             "route": 50, "read_marks": 50, "arc_order": 20,
-            "clean_arcs": 20, "clean_ends": 50, "compact": 50,
+            "clean_stage_b": 20, "compact": 50,
             "hit_flt": 50, "hit_marks": 50, "shard_arcs": 50}
     by_name = {k.name: k for k in cuda.KERNELS}
     rows = []
@@ -1119,6 +1199,14 @@ def _kernel_phase(recs, runs, cases):
         # every timed call on its own: times, bound and shapes
         row["cases"] = {"/".join(k): dict(m, **_sum([m]))
                         for k, m in measured.items()}
+        if name == "clean_stage_b":
+            # the largest detection: its grid, its times without the
+            # flush, its latency floor
+            row["note"] = ("carries K15 clean_ends: the vertex half runs "
+                           "in the same launch, behind a grid-wide sync")
+            for k in ("grid", "ms_unflushed", "device_ms_unflushed",
+                      "host_us", "floor", "floor_nosync"):
+                row[k] = own[0][k]
         if name == "sweep":
             _sweep_tiers(row, calls, cases.get(name, {}))
         if name == "arc_order":
@@ -1569,10 +1657,9 @@ DEVICE_FUNCS = {"cut_hit2arc": ("cut_hit2arc_kernel",),
                               "scan_blocks_kernel", "scan_offsets_kernel",
                               "arc_scatter_kernel", "arc_sort_warp_kernel",
                               "arc_sort_big_kernel"),
-                "clean_arcs": ("clean_arcs_kernel",),
-                "clean_ends": ("clean_ends_kernel",)}
+                "clean_stage_b": ("clean_stage_b_kernel",)}
 # the kernels each profiled run must show in its trace
-_TAILS = ("read_marks", "arc_order", "clean_arcs", "clean_ends")
+_TAILS = ("read_marks", "arc_order", "clean_stage_b")
 PROFILED = {"noisy_ug": ("cut_hit2arc", "sweep", "trans_multi",
                          "bubble_bfs", "decode3", "unpack4") + _TAILS,
             "ecoli_ug": ("cut_hit2arc", "sweep", "trans_multi", "decode3",
@@ -1816,7 +1903,7 @@ def main(argv=None) -> int:
     if a.genome == ECOLI_BP:
         for (tag, name), want in AT_ECOLI.items():
             EXPECT[tag][name] = want
-        for k in ("trans_multi", "clean_arcs", "clean_ends"):
+        for k in ("trans_multi", "clean_stage_b"):
             MH_EXPECT[0][k] = 19
         MH_EXPECT[0]["bubble_bfs"] = 11
     report: dict = {}
@@ -1982,12 +2069,11 @@ def main(argv=None) -> int:
                      size_fn=lambda a_, k: a_[1]),
             # K11: the largest call of each run
             Recorder(pfull, "route", on_path(lambda a_, k: PATH["tag"])),
-            # K12 (the main path's and the sharded step's), K13; K14, K15:
+            # K12 (the main path's and the sharded step's), K13; K14:
             # the largest detection
             Recorder(fused2, "read_marks", on_path(lambda a_, k: "all")),
             Recorder(fused2, "arc_order", on_path(lambda a_, k: "all")),
-            Recorder(devclean, "clean_arcs", on_path(lambda a_, k: "all")),
-            Recorder(devclean, "clean_ends", on_path(lambda a_, k: "all")),
+            Recorder(devclean, "clean_stage_b", on_path(lambda a_, k: "all")),
             # K16 by its kind of call (the cuts and the take, the trim
             # table, the remapped hits, the arcs)
             Recorder(kc, "compact", on_path(_compact_kind),

@@ -21,13 +21,14 @@ arc order, so "live slots in slot order" here is the sequence the
 reference's next pass scans.
 
 Steps 1-2 are the `trans_multi` kernel (K3, csrc/clean.cu), a group of
-lanes per vertex row over the CSR arc list; steps 3-4 and each row's live
-count and first live arc are the `clean_arcs` kernel (K14), the same
-shape; steps 5-6 are the `clean_ends` kernel (K15), a thread per vertex.
-The arc words, the candidate bytes and the counters come to the host in
-one copy.  The host applies the masks and commits the candidates in
-reference order (graph/hybrid.py).  Under a process group
-(the sharded path) every rank runs K3 on its block of vertex rows
+lanes per vertex row over the CSR arc list; steps 3-6 are one
+cooperative launch of the `clean_stage_b` kernel (K14): steps 3-4 and
+each row's live count and first live arc by lane groups per row, the
+same shape, then behind a grid-wide sync steps 5-6 by a thread per
+vertex.  The arc words, the candidate bytes and the counters come to the
+host in one copy.  The host applies the masks and commits the candidates
+in reference order (graph/hybrid.py).  Under a process group (the
+sharded path) every rank runs K3 on its block of vertex rows
 (detect(group=), follow, release).
 """
 
@@ -48,17 +49,13 @@ K_TRANS = Kernel(
     [P, P, P, P, I64, I64, I32, I32, I32, P],
     replaces="miniasm_tpu/graph/devclean.py:143")
 
-# _clean_kernel stage B (l.236-275): asymmetric arcs, each row's live
-# count and first live arc, the weak-overlap masks at every ratio
-K_ARCS = Kernel(
-    "clean_arcs", "clean.cu", "ma_clean_arcs",
-    [P, P, P, P, I64, I32, P, I32, F32, I32, P, P],
+# _clean_kernel stage B (l.236-308): asymmetric arcs, each row's live
+# count and first live arc, the weak-overlap masks at every ratio, then
+# behind a grid-wide sync the unitig ends and the candidates
+K_STAGE_B = Kernel(
+    "clean_stage_b", "clean.cu", "ma_clean_stage_b",
+    [P, P, P, P, P, I64, I32, P, I32, F32, I32, I32, P, P, P, P],
     replaces="miniasm_tpu/graph/devclean.py:236")
-# _clean_kernel stage B (l.276-308): unitig ends and the candidates
-K_ENDS = Kernel(
-    "clean_ends", "clean.cu", "ma_clean_ends",
-    [P, P, P, I64, I32, P],
-    replaces="miniasm_tpu/graph/devclean.py:276")
 # the ratios an arc's word holds: bits 3..31
 MAX_RATIOS = 29
 
@@ -101,6 +98,9 @@ def _short_frac_cut() -> float:
     if float(c32) < c:
         c32 = np.nextafter(c32, np.float32(2.0))
     return float(c32)
+
+
+_FRAC_CUT = _short_frac_cut()
 
 
 def _ratio_schedule(opt):
@@ -226,13 +226,13 @@ def comp_keys(first, av, bits):
 
 
 def clean_arcs_plain(first, av, aol, bits, ratios, do_symm: bool):
-    """Plain PyTorch version of the clean_arcs kernel: the complement test
-    by one int64 torch.sort and searchsorted, each row's live count and
-    first live slot by scatters, one mask per ratio.  Returns (res, rows):
-    res (3 + R + A,) int32, the counters [elim, multi, asymm, weak at each
-    ratio] then one word an arc (bit 0 eliminated, 1 multi, 2 asymmetric,
-    3 + k weak at ratio k); rows (2, V) int32 [live arcs, first live
-    target (0 without one)]; at most MAX_RATIOS ratios."""
+    """Plain PyTorch version of clean_stage_b's arc half: the complement
+    test by one int64 torch.sort and searchsorted, each row's live count
+    and first live slot by scatters, one mask per ratio.  Returns (res,
+    rows): res (3 + R + A,) int32, the counters [elim, multi, asymm, weak
+    at each ratio] then one word an arc (bit 0 eliminated, 1 multi, 2
+    asymmetric, 3 + k weak at ratio k); rows (2, V) int32 [live arcs,
+    first live target (0 without one)]; at most MAX_RATIOS ratios."""
     dev = av.device
     i32, i64 = torch.int32, torch.int64
     R = len(ratios)
@@ -270,7 +270,7 @@ def clean_arcs_plain(first, av, aol, bits, ratios, do_symm: bool):
     if A:
         first_ol = aol[fa].to(torch.float32)
         is_first = arc_id == first_live[au]
-        frac_cut = torch.tensor(np.float32(_short_frac_cut()), device=dev)
+        frac_cut = torch.tensor(np.float32(_FRAC_CUT), device=dev)
         for k, r in enumerate(ratios):
             part = first_ol * torch.tensor(np.float32(r), device=dev)
             base = torch.floor(part)
@@ -288,45 +288,11 @@ def clean_arcs_plain(first, av, aol, bits, ratios, do_symm: bool):
     return res, torch.stack([nlive, fl_v]).to(i32)
 
 
-def clean_arcs(first, av, aol, bits, ratios, do_symm: bool, D: int, *,
-               res=None):
-    """K14.  first (V+1,) int64 CSR offsets; av/aol (A,) int32 targets and
-    overlaps; bits: trans_multi's (A,) uint8; ratios: the R drop ratios
-    (R <= 29); D: the longest row.  Returns (res, rows) as
-    clean_arcs_plain, res written into `res` when given."""
-    R = len(ratios)
-    if R > MAX_RATIOS:
-        raise ValueError("clean_arcs: %d drop ratios, an arc's word holds "
-                         "at most %d" % (R, MAX_RATIOS))
-    if av.device.type == "cpu":
-        got, rows = clean_arcs_plain(first, av, aol, bits, ratios, do_symm)
-        return (got if res is None else res.copy_(got)), rows
-    if first.dtype != torch.int64 or av.dtype != torch.int32 \
-            or aol.dtype != torch.int32 or bits.dtype != torch.uint8:
-        raise TypeError("clean_arcs: int64 offsets, int32 arcs, uint8 bits "
-                        "expected")
-    V = first.shape[0] - 1
-    A = av.shape[0]
-    if aol.shape != (A,) or bits.shape != (A,):
-        raise ValueError("clean_arcs: shape mismatch")
-    if res is None:
-        res = torch.empty(3 + R + A, dtype=torch.int32, device=av.device)
-    elif res.shape != (3 + R + A,) or res.dtype != torch.int32:
-        raise ValueError("clean_arcs: res must be (%d,) int32" % (3 + R + A))
-    rows = torch.empty((2, V), dtype=torch.int32, device=av.device)
-    rs = (ctypes.c_float * max(R, 1))(*[float(np.float32(r))
-                                        for r in ratios])
-    K_ARCS(ptr(first), ptr(av), ptr(aol), ptr(bits), V, int(D),
-           ctypes.addressof(rs), R, _short_frac_cut(), 1 if do_symm else 0,
-           ptr(res), ptr(rows))
-    return res, rows
-
-
 def clean_ends_plain(nlive, fl_v, sdel_v, max_ext: int):
-    """Plain PyTorch version of the clean_ends kernel: the end code of
-    every row as a table, the asg_extend walk as max_ext vectorized steps.
-    Returns (V,) uint8 [bit 0 tip, 1 internal, 2 bi-loop, 3 bubble
-    source]."""
+    """Plain PyTorch version of clean_stage_b's vertex half: the end code
+    of every row as a table, the asg_extend walk as max_ext vectorized
+    steps.  Returns (V,) uint8 [bit 0 tip, 1 internal, 2 bi-loop, 3
+    bubble source]."""
     dev = nlive.device
     i64 = torch.int64
     V = nlive.shape[0]
@@ -358,25 +324,71 @@ def clean_ends_plain(nlive, fl_v, sdel_v, max_ext: int):
             | (bubble.to(u8) << 3))
 
 
-def clean_ends(nlive, fl_v, sdel_v, max_ext: int, *, out=None):
-    """K15.  nlive, fl_v: clean_arcs' rows (V,) int32; sdel_v (V,) uint8.
-    Returns (V,) uint8 as clean_ends_plain, written into `out` when
-    given."""
-    if nlive.device.type == "cpu":
-        got = clean_ends_plain(nlive, fl_v, sdel_v, max_ext)
+def _stage_b_size(V: int, A: int, R: int) -> int:
+    """int32 words of stage B's buffer: [counters (3 + R) | one word an
+    arc (A) | one byte a vertex, padded with zero bytes to a word]."""
+    return 3 + R + A + (V + 3) // 4
+
+
+def clean_stage_b_plain(first, av, aol, bits, sdel_v, ratios,
+                        do_symm: bool, max_ext: int):
+    """Plain PyTorch version of the clean_stage_b kernel: clean_arcs_plain,
+    then clean_ends_plain on its rows, into stage B's buffer (the
+    counters, the arc words, the candidate bytes; _stage_b_size)."""
+    V = first.shape[0] - 1
+    A = av.shape[0]
+    R = len(ratios)
+    res, rows = clean_arcs_plain(first, av, aol, bits, ratios, do_symm)
+    ends = clean_ends_plain(rows[0], rows[1], sdel_v, max_ext)
+    buf = torch.zeros(_stage_b_size(V, A, R), dtype=torch.int32,
+                      device=av.device)
+    buf[:3 + R + A] = res
+    buf[3 + R + A:].view(torch.uint8)[:V] = ends
+    return buf
+
+
+def clean_stage_b(first, av, aol, bits, sdel_v, ratios, do_symm: bool,
+                  D: int, max_ext: int, *, out=None, grid=None):
+    """K14.  first (V+1,) int64 CSR offsets (V even); av/aol (A,) int32
+    targets and overlaps; bits: trans_multi's (A,) uint8; sdel_v (V,)
+    uint8; ratios: the R drop ratios (R <= 29); D: the longest row.
+    Returns stage B's buffer as clean_stage_b_plain, written into `out`
+    when given.  On CUDA tensors one cooperative launch, whose blocks and
+    lanes a row a list `grid` receives ([0, 0] where V == 0, no launch);
+    it raises where the card cannot launch one."""
+    R = len(ratios)
+    if R > MAX_RATIOS:
+        raise ValueError("clean_stage_b: %d drop ratios, an arc's word "
+                         "holds at most %d" % (R, MAX_RATIOS))
+    V = first.shape[0] - 1
+    A = av.shape[0]
+    size = _stage_b_size(V, A, R)
+    if out is not None and (out.shape != (size,) or out.dtype != torch.int32):
+        raise ValueError("clean_stage_b: out must be (%d,) int32" % size)
+    if av.device.type == "cpu":
+        got = clean_stage_b_plain(first, av, aol, bits, sdel_v, ratios,
+                                  do_symm, max_ext)
         return got if out is None else out.copy_(got)
-    V = nlive.shape[0]
-    if nlive.dtype != torch.int32 or fl_v.dtype != torch.int32 \
+    if first.dtype != torch.int64 or av.dtype != torch.int32 \
+            or aol.dtype != torch.int32 or bits.dtype != torch.uint8 \
             or sdel_v.dtype != torch.uint8:
-        raise TypeError("clean_ends: int32 rows, uint8 delete bits "
-                        "expected")
-    if fl_v.shape != (V,) or sdel_v.shape != (V,):
-        raise ValueError("clean_ends: shape mismatch")
+        raise TypeError("clean_stage_b: int64 offsets, int32 arcs, uint8 "
+                        "bits and delete bits expected")
+    if aol.shape != (A,) or bits.shape != (A,) or sdel_v.shape != (V,) \
+            or V % 2:
+        raise ValueError("clean_stage_b: shape mismatch (or an odd V)")
     if out is None:
-        out = torch.empty(V, dtype=torch.uint8, device=nlive.device)
-    elif out.shape != (V,) or out.dtype != torch.uint8:
-        raise ValueError("clean_ends: out must be (%d,) uint8" % V)
-    K_ENDS(ptr(nlive), ptr(fl_v), ptr(sdel_v), V, int(max_ext), ptr(out))
+        out = torch.empty(size, dtype=torch.int32, device=av.device)
+    rows = torch.empty(2 * V, dtype=torch.int32, device=av.device)
+    rs = (ctypes.c_float * max(R, 1))(*[float(np.float32(r))
+                                        for r in ratios])
+    g = (ctypes.c_int * 2)()
+    K_STAGE_B(ptr(first), ptr(av), ptr(aol), ptr(bits), ptr(sdel_v), V,
+              int(D), ctypes.addressof(rs), R, _FRAC_CUT,
+              1 if do_symm else 0, int(max_ext), ptr(out),
+              ptr(out[3 + R + A:]), ptr(rows), ctypes.addressof(g))
+    if grid is not None:
+        grid[:] = list(g)
     return out
 
 
@@ -437,7 +449,6 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
     add_extra("clean.build_s", _time.time() - t0)
     ratios = _ratio_schedule(opt)
     V, A = c["V"], g.n_arc
-    dev = device
     args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
             int(opt.gap_fuzz), do_trans)
     if group is None or A == 0:
@@ -447,15 +458,11 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
         for t in args[:4]:
             group.broadcast(t)
         bits = _stage_a(group, *args)
-    # stage B (K14, K15) into one buffer, which comes to the host in one
-    # copy: [counters (3 + R) | one word an arc (A) | one byte a vertex]
+    # stage B (K14) into one buffer, which comes to the host in one copy:
+    # [counters (3 + R) | one word an arc (A) | one byte a vertex]
     R = len(ratios)
-    buf = torch.empty(3 + R + A + (V + 3) // 4, dtype=torch.int32,
-                      device=dev)
-    _, rows = clean_arcs(c["first"], c["av"], c["aol"], bits, ratios,
-                         do_symm, c["D"], res=buf[:3 + R + A])
-    clean_ends(rows[0], rows[1], c["sdel_v"], int(opt.max_ext),
-               out=buf[3 + R + A:].view(torch.uint8)[:V])
+    buf = clean_stage_b(c["first"], c["av"], c["aol"], bits, c["sdel_v"],
+                        ratios, do_symm, c["D"], int(opt.max_ext))
     host = to_host(buf).numpy()
     counters = [int(x) for x in host[:3 + R]]
     words = host[3 + R:3 + R + A]

@@ -1238,8 +1238,8 @@ def test_fuzz_cases_on_card(dev, k):
 
 
 # ---------------------------------------------------------------------------
-# K12 read_marks, K13 arc_order (the select program's tail), K14 clean_arcs,
-# K15 clean_ends (the clean program's stage B)
+# K12 read_marks, K13 arc_order (the select program's tail), K14
+# clean_stage_b (the clean program's stage B)
 
 
 def tail_inputs(rng, n=60_000, T=3000, start_hi=5000, read_p=None):
@@ -1396,27 +1396,28 @@ def _clean_graph_args(dev, g, n_rounds=2):
     return c, bits, devclean._ratio_schedule(opt)
 
 
-def check_clean(dev, c, bits, ratios, do_symm, max_ext):
+def check_clean(dev, c, bits, ratios, do_symm, max_ext, grid=None):
+    """The fused stage-B kernel against its twin, the whole buffer bit for
+    bit (counters, arc words, candidate bytes and their zero pad); returns
+    the buffer and the candidate bytes (the launch's blocks and lanes into
+    the list `grid`, when given)."""
     from miniasm_tpu_torch.graph import devclean
 
-    got, rows = devclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
-                                    ratios, do_symm, c["D"])
+    args = (c["first"], c["av"], c["aol"], bits, c["sdel_v"], ratios,
+            do_symm)
+    got = devclean.clean_stage_b(*args, c["D"], max_ext, grid=grid)
     torch.cuda.synchronize()
-    want, wrows = devclean.clean_arcs_plain(c["first"], c["av"], c["aol"],
-                                            bits, ratios, do_symm)
-    assert torch.equal(got, want) and torch.equal(rows, wrows)
-    ends = devclean.clean_ends(rows[0], rows[1], c["sdel_v"], max_ext)
-    torch.cuda.synchronize()
-    assert torch.equal(ends, devclean.clean_ends_plain(
-        rows[0], rows[1], c["sdel_v"], max_ext))
-    return want, ends
+    want = devclean.clean_stage_b_plain(*args, max_ext)
+    assert torch.equal(got, want)
+    V, A = c["V"], c["av"].shape[0]
+    return want, want[3 + len(ratios) + A:].view(torch.uint8)[:V]
 
 
 @pytest.mark.parametrize("n_rounds", [1, 2, 6, 27])
 @pytest.mark.parametrize("do_symm", [False, True])
 def test_clean_stage_b_kernels_match_plain(dev, n_rounds, do_symm):
-    """K14 and K15 on a random graph with asymmetric singletons, at 3 to 29
-    ratios (27 rounds fill all 32 bits of an arc's word)."""
+    """K14 on a random graph with asymmetric singletons, at 3 to
+    29 ratios (27 rounds fill all 32 bits of an arc's word)."""
     rng = np.random.default_rng(20 + n_rounds)
     g = random_graph(rng, n_seq=400, n_pairs=800)
     keep = rng.random(g.n_arc) > 0.1  # drop a tenth: asymmetric arcs
@@ -1434,11 +1435,80 @@ def test_clean_stage_b_kernels_match_plain(dev, n_rounds, do_symm):
 @pytest.mark.parametrize("kind", ["wide", "mid"])
 def test_clean_stage_b_kernels_long_rows(dev, kind):
     """Rows of more than 32 arcs: 32 lanes take a row's slots 32 at a
-    time."""
+    time, and the complement scans run past one 16-arc chunk."""
     c, bits, ratios = _clean_graph_args(dev, _dense_graph(kind))
     assert c["D"] > 32
     for do_symm in (False, True):
         check_clean(dev, c, bits, ratios, do_symm, 4)
+
+
+def _short_row_graph(rng, n_seq, n_pairs):
+    """A random symmetric graph of n_seq reads and short rows, drawn in
+    bulk (random_graph's loop is too slow at this size)."""
+    lens = rng.integers(3000, 20000, n_seq).astype(np.uint32)
+    a = rng.integers(0, 2 * n_seq, n_pairs)
+    b = rng.integers(0, 2 * n_seq, n_pairs)
+    ok = (a >> 1) != (b >> 1)
+    a, b = a[ok], b[ok]
+    la = lens[a >> 1].astype(np.int64)
+    lb = lens[b >> 1].astype(np.int64)
+    ol = rng.integers(500, np.minimum(la, lb))
+    u = np.concatenate([a, b ^ 1])
+    v = np.concatenate([b, a ^ 1])
+    lu = np.concatenate([la - ol, lb - ol])
+    o2 = np.concatenate([ol, ol])
+    drop = rng.random(u.size) < 0.05  # a few asymmetric arcs
+    g = Graph(u=u[~drop].astype(np.int32), l=lu[~drop].astype(np.int32),
+              v=v[~drop].astype(np.int32), ol=o2[~drop].astype(np.int32),
+              adel=np.zeros(int((~drop).sum()), bool), slen=lens,
+              sdel=rng.random(n_seq) < 0.05,
+              idx_start=np.zeros(2 * n_seq, np.int64),
+              idx_cnt=np.zeros(2 * n_seq, np.int32))
+    return cleanup(g)
+
+
+@pytest.mark.parametrize("do_symm", [False, True])
+def test_clean_stage_b_grid_strides(dev, do_symm):
+    """600,000 vertices with short rows: more rows and more vertices than
+    one resident grid covers, so both grid-stride loops take more than
+    one round (the grid the wrapper chose), bit-equal."""
+    g = _short_row_graph(np.random.default_rng(31), 300_000, 400_000)
+    c, bits, ratios = _clean_graph_args(dev, g)
+    V = c["V"]
+    assert V == 600_000
+    grid = [0, 0]
+    check_clean(dev, c, bits, ratios, do_symm, 7, grid)
+    blocks, lanes = grid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 0 < blocks <= 8 * sms  # at most 2,048 threads an SM
+    # blocks of 256 threads: 256 / lanes rows, 256 vertices a round
+    row_rounds = -(-V // (blocks * (256 // lanes)))
+    vertex_rounds = -(-V // (blocks * 256))
+    assert row_rounds > 1 and vertex_rounds > 1, (grid, V)
+
+
+@pytest.mark.parametrize("kind", ["no_vertex", "no_arc"])
+def test_clean_stage_b_empty(dev, kind):
+    """V == 0 (the counters only, no kernel) and A == 0 with V > 0 (every
+    vertex still classified: a tip, unless its read is deleted)."""
+    n_seq = 0 if kind == "no_vertex" else 7
+    lens = np.full(n_seq, 5000, np.uint32)
+    e32 = np.zeros(0, np.int32)
+    g = cleanup(Graph(u=e32, l=e32, v=e32, ol=e32, adel=np.zeros(0, bool),
+                      slen=lens, sdel=np.arange(n_seq) == 3,
+                      idx_start=np.zeros(2 * n_seq, np.int64),
+                      idx_cnt=np.zeros(2 * n_seq, np.int32)))
+    c, bits, ratios = _clean_graph_args(dev, g)
+    assert c["av"].shape[0] == 0 and c["V"] == 2 * n_seq
+    grid = [-1, -1]
+    want, ends = check_clean(dev, c, bits, ratios, True, 4, grid)
+    assert want.shape[0] == 3 + len(ratios) + (c["V"] + 3) // 4
+    assert not want[:3 + len(ratios)].any()
+    if kind == "no_vertex":
+        assert grid == [0, 0]
+    else:
+        assert ends.tolist() == [0 if v >> 1 == 3 else 1
+                                 for v in range(2 * n_seq)]
 
 
 def test_clean_arcs_raises_past_29_ratios(dev):
@@ -1447,8 +1517,8 @@ def test_clean_arcs_raises_past_29_ratios(dev):
     c, bits, _ = _clean_graph_args(dev, random_graph(
         np.random.default_rng(3), n_seq=20, n_pairs=40))
     with pytest.raises(ValueError, match="drop ratios"):
-        devclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
-                            (0.5,) * 30, True, c["D"])
+        devclean.clean_stage_b(c["first"], c["av"], c["aol"], bits,
+                               c["sdel_v"], (0.5,) * 30, True, c["D"], 4)
 
 
 class _TailOps:
@@ -1485,7 +1555,7 @@ FORBIDDEN = {"sort", "nonzero", "searchsorted", "scatter_reduce",
 def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
     """On CUDA tensors select_build2 and detect run no sort, nonzero,
     searchsorted or scatter_reduce, and each makes one device-to-host
-    copy; their results equal the CPU's, and K12-K15 launch once a call."""
+    copy; their results equal the CPU's, and K12-K14 launch once a call."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.config import Opt
     from miniasm_tpu_torch.eval.simulate import simulate, write_paf
@@ -1532,7 +1602,7 @@ def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
                                       device=torch.device(d))
         if d == "cuda":
             n = cuda.launch_counts()
-            assert n["trans_multi"] == n["clean_arcs"] == n["clean_ends"] == 1
+            assert n["trans_multi"] == n["clean_stage_b"] == 1
             assert not ops.names & FORBIDDEN, ops.names & FORBIDDEN
             assert ops.d2h == 1
     for k, v in dets["cpu"].items():

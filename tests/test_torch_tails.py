@@ -1,6 +1,6 @@
 """The plain twins of the select program's tail (read_marks K12, arc_order
 K13: miniasm_tpu_torch/select/fused2.py) and of the clean program's stage B
-(clean_arcs K14, clean_ends K15: miniasm_tpu_torch/graph/devclean.py)
+(clean_stage_b K14: miniasm_tpu_torch/graph/devclean.py)
 against the JAX package on the same inputs, made from a seed with numpy.
 On the CPU every wrapper runs its twin, so select_build2 and detect below
 run the twins end to end.  Everything compared is an integer or a bool:
@@ -33,7 +33,7 @@ def port_opt(**kw):
 
 
 # ---------------------------------------------------------------------------
-# the clean program's stage B: K14 and K15 through detect
+# the clean program's stage B: K14 through detect
 
 
 def _graph(us, vs, lens, rng, sdel=None):
@@ -167,25 +167,135 @@ def test_clean_arcs_raises_on_too_many_ratios():
     c = tclean.build_arcs(Graph.from_arrays(g), CPU)
     bits = torch.zeros(g.n_arc, dtype=torch.uint8)
     with pytest.raises(ValueError, match="drop ratios"):
-        tclean.clean_arcs(c["first"], c["av"], c["aol"], bits,
-                          (0.5,) * 30, True, c["D"])
+        tclean.clean_stage_b(c["first"], c["av"], c["aol"], bits,
+                             c["sdel_v"], (0.5,) * 30, True, c["D"], 4)
 
 
 def test_clean_ends_walk_stops_at_max_ext():
     """A path of unique arcs longer than max_ext: the walk runs out while
     mergeable (ext code 0), so no tip; with room it reaches the path's end
-    (a tip)."""
+    (a tip).  Rows of one live arc each (no symm: every arc not eliminated
+    is live), rows 0 and 10 empty."""
     V = 12
-    nlive = torch.ones(V, dtype=torch.int32)
-    nlive[0] = 0  # vertex 1's row (1 ^ 1) holds no arc: a tip start
-    nlive[10] = 0  # the path 1 -> 3 -> ... -> 11 ends at row 11 ^ 1
-    fl_v = torch.tensor([0, 3, 1, 5, 3, 7, 5, 9, 7, 11, 9, 0],
-                        dtype=torch.int32)
+    fl_v = [0, 3, 1, 5, 3, 7, 5, 9, 7, 11, 9, 0]
+    empty = (0, 10)  # vertex 1's row (1 ^ 1) holds no arc: a tip start;
+    # the path 1 -> 3 -> ... -> 11 ends at row 11 ^ 1
+    first = torch.tensor(np.concatenate([[0], np.cumsum(
+        [0 if r in empty else 1 for r in range(V)])]), dtype=torch.int64)
+    av = torch.tensor([fl_v[r] for r in range(V) if r not in empty],
+                      dtype=torch.int32)
+    aol = torch.full_like(av, 1000)
+    bits = torch.zeros(av.shape[0], dtype=torch.uint8)
     sdel = torch.zeros(V, dtype=torch.uint8)
-    far = tclean.clean_ends(nlive, fl_v, sdel, 3)
-    near = tclean.clean_ends(nlive, fl_v, sdel, 7)
-    assert far.dtype == torch.uint8
+    R, A = 1, av.shape[0]
+
+    def ends(max_ext):
+        buf = tclean.clean_stage_b(first, av, aol, bits, sdel, (0.5,),
+                                   False, 1, max_ext)
+        assert buf.dtype == torch.int32
+        return buf[3 + R + A:].view(torch.uint8)[:V]
+
+    far, near = ends(3), ends(7)
     assert int(far[1]) & 1 == 0 and int(near[1]) & 1 == 1
+
+
+def stage_b_graph(kind, seed):
+    """Graphs for the fused kernel's edges: "hub", a vertex of 40 arcs
+    (more than one 32-lane round) whose targets' complement rows hold 20
+    to 28 arcs (more than one 16-arc chunk of the scan), some of them
+    without the arc back (asymmetric); "dead", arcs but none live: every
+    arc a self loop short enough that the transitive reduction eliminates
+    it; "empty", no arc."""
+    rng = np.random.default_rng(seed)
+    if kind == "empty":
+        return clean_graph("empty", seed)
+    if kind == "dead":
+        n_seq = 9
+        lens = rng.integers(3000, 9000, n_seq).astype(np.uint32)
+        us = np.arange(2 * n_seq)
+        la = lens[us >> 1].astype(np.int64)
+        ol = la - rng.integers(1, 400, us.size)
+        g = Graph(u=us.astype(np.int32), l=(la - ol).astype(np.int32),
+                  v=us.astype(np.int32), ol=ol.astype(np.int32),
+                  adel=np.zeros(us.size, bool), slen=lens,
+                  sdel=np.zeros(n_seq, bool),
+                  idx_start=np.zeros(2 * n_seq, np.int64),
+                  idx_cnt=np.zeros(2 * n_seq, np.int32))
+        return cleanup(g)
+    n_spoke, n_seq = 40, 80
+    lens = rng.integers(12000, 20000, n_seq).astype(np.uint32)
+    us, vs = [], []
+    for b in range(1, n_spoke + 1):
+        us.append(0)  # the hub: read 0 forward
+        vs.append(2 * b)
+        if rng.random() > 0.2:  # else asymmetric: no arc 2b+1 -> 1
+            us.append(2 * b + 1)
+            vs.append(1)
+        # the complement row 2b+1: 20-28 more arcs, and their complements
+        for c in rng.choice(np.arange(n_spoke + 1, n_seq),
+                            int(rng.integers(20, 29)), replace=False):
+            us += [2 * b + 1, 2 * int(c) + 1]
+            vs += [2 * int(c), 2 * b]
+    return _graph(us, vs, lens, rng)
+
+
+def _unpack_stage_b(buf, V, A, R):
+    """stage B's buffer as detect's dict: the masks, candidates and
+    counters."""
+    host = buf.numpy()
+    words = host[3 + R:3 + R + A]
+    cands = host[3 + R + A:].view(np.uint8)
+    assert cands.shape == (4 * ((V + 3) // 4),) and not cands[V:].any()
+    m = [((words >> k) & 1).astype(bool) for k in range(3 + R)]
+    cb = [((cands[:V] >> k) & 1).astype(bool) for k in range(4)]
+    return {"trans": m[0], "multi": m[1], "asymm": m[2], "shorts": m[3:],
+            "tip": cb[0], "internal": cb[1], "biloop": cb[2],
+            "bubble": cb[3], "counters": [int(x) for x in host[:3 + R]]}
+
+
+@pytest.mark.parametrize("max_ext", [1, 7])
+@pytest.mark.parametrize("do_symm", [False, True])
+@pytest.mark.parametrize("kind", ["hub", "dead", "empty"])
+def test_stage_b_plain_matches_jax_detect(kind, do_symm, max_ext):
+    """clean_stage_b_plain's buffer, unpacked, against the JAX detect on
+    the same graph, bit for bit, with and without the transitive
+    reduction (K3's plain version gives the twin its bits)."""
+    g = stage_b_graph(kind, 50 + max_ext)
+    tg = Graph.from_arrays(g)
+    opt, jopt = port_opt(max_ext=max_ext), JOpt(max_ext=max_ext)
+    c = tclean.build_arcs(tg, CPU)
+    ratios = tclean._ratio_schedule(opt)
+    V, A, R = c["V"], g.n_arc, len(ratios)
+    for do_trans in (False, True):
+        j = jclean.detect(g, jopt, do_trans=do_trans, do_symm=do_symm)
+        bits = tclean.trans_multi(c["first"], c["av"], c["al"], c["sdel_v"],
+                                  c["D"], int(opt.gap_fuzz), do_trans)
+        buf = tclean.clean_stage_b_plain(c["first"], c["av"], c["aol"],
+                                         bits, c["sdel_v"], ratios, do_symm,
+                                         max_ext)
+        assert buf.dtype == torch.int32
+        t = _unpack_stage_b(buf, V, A, R)
+        t["ratios"] = ratios
+        _assert_same(j, t)
+        d = tclean.detect(tg, opt, do_trans=do_trans, do_symm=do_symm,
+                          device=CPU)
+        _assert_same(j, d)
+    if kind == "hub":
+        # a row past 32 lanes, complement rows past one scan chunk, and
+        # arcs back found in the second chunk
+        assert c["D"] > 32
+        first, av = c["first"].numpy(), c["av"].numpy()
+        back = [int(np.nonzero(av[first[w]:first[w + 1]] == 1)[0][0])
+                for w in range(3, 2 * 41, 2)
+                if (av[first[w]:first[w + 1]] == 1).any()]
+        assert max(back) >= 16 and len(back) < 40
+        assert t["counters"][2] > 0
+    if kind == "dead":
+        # every arc eliminated: every row empty, every vertex a tip
+        assert A > 0 and t["counters"][0] == A
+        assert t["tip"].all() and not t["bubble"].any()
+    if kind == "empty":
+        assert A == 0 and V > 0
 
 
 # ---------------------------------------------------------------------------

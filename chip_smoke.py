@@ -45,9 +45,14 @@ What it does, in order:
      sync and without); beside K13 and K14 it times
      the PyTorch calls that do their costly part (a stable int64
      torch.sort; a torch.sort and searchsorted), beside K16 a boolean-mask
-     index of the same columns, beside K19 a torch.nonzero and its seven
-     gathers, and runs K13's largest call again with every read sorted in
-     device memory; K9 also on seeded
+     index of the same columns (each of its five kinds of call on a line
+     of its own), beside K19 a torch.nonzero and its seven gathers, each
+     compaction also by launch, with its wrapper's wall time and beside
+     an empty cooperative launch of its grid (its floor, with one grid
+     sync and without), and runs K13's largest call again with every read
+     sorted in device memory; every device time comes from a profiling
+     session that holds each launch of every timed call, or the smoke
+     fails; K9 also on seeded
      pieces with edge-case run tables; K7 and K8 also on seeded keys
      with duplicates, with (-1, -1) (all ones, as the hash table's empty
      slots) and pads, and on 4,194,304 keys (a table past L2); K11 also on an 8-way routing of
@@ -100,10 +105,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import inspect
 import io
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -493,21 +500,15 @@ def _time_ms(fn, reps: int, flush: bool = True) -> float:
     return sum(a.elapsed_time(b) for a, b in ev) / reps
 
 
-def _device_ms(fn, reps: int, flush: bool = True):
-    """Device time per call of what fn launches, from the device events
-    torch.profiler records over reps calls, each after an L2 flush (whose
-    events are left out; with flush=False, none): each kernel's mean
-    duration times its launches per call, summed (a trace that misses
-    some events of a kernel still gives its mean); None where it records
-    none."""
+def _device_profile(fn, calls: int, flush: set) -> dict:
+    """{device event name: [durations in us]} of one profiling session
+    over `calls` calls of fn, each after an L2 flush when `flush` holds
+    the flush's event names (whose events are left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    flush = _flush_names()
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(calls):
             if flush:
                 _flush()
             fn()
@@ -516,10 +517,42 @@ def _device_ms(fn, reps: int, flush: bool = True):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and e.name not in flush:
             us.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not us:
-        return None
-    return sum(sum(d) / len(d) * max(1, round(len(d) / reps))
-               for d in us.values()) / 1e3
+    return us
+
+
+def _device_split(fn, reps: int, flush: bool = True) -> dict:
+    """Device time per call of what fn launches, by event name (ms): each
+    name's mean duration times its events per call, from torch.profiler
+    over reps calls, each after an L2 flush (with flush=False, none).  A
+    session of one call first counts each name's events per call; the
+    session of reps calls must show every name of it reps times as often,
+    and no other.  A session that records no event, or misses or adds
+    some, is made again, three times at most; then the smoke fails: it
+    never reports a partial sum."""
+    names = _flush_names() if flush else set()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        one = _device_profile(fn, 1, names)
+        many = _device_profile(fn, reps, names)
+        per = {k: len(v) for k, v in one.items()}
+        if per and {k: len(v) for k, v in many.items()} == {
+                k: c * reps for k, c in per.items()}:
+            return {k: sum(d) / len(d) * per[k] / 1e3
+                    for k, d in many.items()}
+    _fail("the profiler recorded an incomplete session of %r three times"
+          % getattr(fn, "__name__", fn))
+
+
+def _device_ms(fn, reps: int, flush: bool = True) -> float:
+    """The sum of _device_split: the device ms of one call of fn."""
+    return sum(_device_split(fn, reps, flush).values())
+
+
+def _short(name: str) -> str:
+    """A device event's name without its namespaces and arguments."""
+    m = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
+    return m.group(1) if m else name
 
 
 def _nbytes(*ts) -> int:
@@ -573,14 +606,16 @@ def _cost(name, args, kw, out):
         n = cols.shape[1]
         return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
     if name == "compact":
-        # every row of every column and the keep bytes read once, mp once;
-        # the survivors' rows and the count written; per column its test,
-        # the block counts and scans (about 12 integer ops)
+        # what the call needs on these inputs, not every row of every
+        # column: each column's keep byte, with a remap also its two ids
+        # and the map once, the k words of each survivor read (with a
+        # remap k - 2 more) and written, the count; per column its test,
+        # per survivor its place (about 12 integer ops a column)
         rows, keep, mp = _compact_args(args, kw)
-        k, n = len(rows), rows[0].numel()
-        return (4 * k * n + (0 if keep is None else n)
-                + (0 if mp is None else _nbytes(mp)) + _nbytes(out) + 8,
-                12 * n)
+        k, n, m = len(rows), rows[0].numel(), out.shape[1]
+        return ((0 if keep is None else n)
+                + (0 if mp is None else 8 * n + _nbytes(mp) - 8 * m)
+                + 8 * k * m + 8, 12 * n)
     if name == "hit_flt":
         # 7 hit rows in, the trim table read once; keep, dp, the sum and
         # the present bytes out; per hit hit2arc (~35 ops), the tests, dp
@@ -715,10 +750,16 @@ def _compact_args(args, kw):
 
 
 def _compact_kind(args, kw):
-    """K16's kind of call: its rows, with a keep, with a remap."""
+    """K16's five kinds of call: the cut (apply_cut's nine rows from two
+    tensors), the take (Hits.take: the hit matrix by a keep), the trim
+    table (apply_contained's three rows), the remapped hits (its id remap)
+    and the graph's arcs (graph_from_hits: four rows)."""
     rows, keep, mp = _compact_args(args, kw)
-    return "%dr%s%s" % (len(rows), "" if keep is None else "_keep",
-                        "" if mp is None else "_remap")
+    if mp is not None:
+        return "remap"
+    if isinstance(args[0], torch.Tensor):
+        return {9: "take", 4: "arcs"}.get(len(rows), "%dr" % len(rows))
+    return {9: "cut", 3: "trim"}.get(len(rows), "%dr_list" % len(rows))
 
 
 def _arcs_per_read(res, colmat, T):
@@ -826,8 +867,9 @@ def _measure(name, fn, plain, args, kw, reps):
     else:
         err = _max_abs_err(got, want)
     b, o = _cost(name, args, kw, got)
+    split = _device_split(lambda: fn(*args, **kw), reps)
     m = {"err": err, "ms": _time_ms(lambda: fn(*args, **kw), reps),
-         "device_ms": _device_ms(lambda: fn(*args, **kw), reps),
+         "device_ms": sum(split.values()),
          "plain_ms": _time_ms(lambda: plain(*args, **kw), 2),
          "bytes": b, "ops": o, "library_ms": None,
          "shapes": [list(x.shape) for a in args
@@ -868,6 +910,7 @@ def _measure(name, fn, plain, args, kw, reps):
             ok = ok & (mp[mat[0].clamp(0, T - 1).long()] >= 0) \
                 & (mp[mat[3].clamp(0, T - 1).long()] >= 0)
         m["library_ms"] = _time_ms(lambda: mat[:, ok], reps)
+        m.update(_compaction_extras(fn, args, kw, split, reps))
     if name == "shard_arcs":
         # torch.nonzero of the arc lanes and the seven gathers, from the
         # concatenated lanes (made before the timing)
@@ -890,6 +933,7 @@ def _measure(name, fn, plain, args, kw, reps):
         if not torch.equal(lib(), got[0]):
             _fail("shard_arcs disagrees with torch.nonzero and its gathers")
         m["library_ms"] = _time_ms(lib, reps)
+        m.update(_compaction_extras(fn, args, kw, split, reps))
     if name == "clean_stage_b":
         # the complement test as the twin does it: one int64 torch.sort of
         # the live arcs' keys and one searchsorted of the complements
@@ -900,6 +944,64 @@ def _measure(name, fn, plain, args, kw, reps):
             lambda: torch.searchsorted(torch.sort(key).values, q), reps)
         m.update(_stage_b_floor(fn, args, kw, reps))
     return m
+
+
+def _compaction_extras(fn, args, kw, split, reps) -> dict:
+    """K16's or K19's call: its device time by launch (split: by event
+    name), its wrapper's wall time, and, where the wrapper takes a `grid`
+    argument (a wrapper of a design without a cooperative grid takes
+    none), the grid and its latency floor: an empty cooperative launch of
+    as many blocks of 256 threads, with one grid sync and without, each
+    timed after a flush."""
+    by: dict = {}
+    for k, v in split.items():
+        by[_short(k)] = by.get(_short(k), 0.0) + v
+    out = {"device_split": by, "wall_us": _wall_us(
+        lambda: fn(*args, **kw), reps)}
+    if "grid" in inspect.signature(fn).parameters:
+        grid = [0, 0, 0, 0]
+        fn(*args, **dict(kw, grid=grid))
+        out["grid"] = {"blocks": grid[0], "items_a_block": grid[1],
+                       "most_blocks": grid[2], "spill_words": grid[3]}
+        for sync in (1, 0):
+            f = _coop_floor(grid[0], sync)
+            out["floor" if sync else "floor_nosync"] = {
+                "ms": _time_ms(f, reps), "device_ms": _device_ms(f, reps)}
+    return out
+
+
+def _wall_us(fn, reps: int) -> float:
+    """Mean wall time, in us, of one call of fn that ends in a sync (a
+    compaction's wrapper reads its count back), each started on an idle
+    card: the host's work, the device's and the read-back's."""
+    fn()
+    tot = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        tot += time.perf_counter() - t0
+    return tot / reps * 1e6
+
+
+def _read_us(reps: int) -> dict:
+    """Host time, in us, of reading one int64 count back from an idle
+    card: int() of the device tensor (a pageable copy) and int() of
+    device.to_host's pinned copy, the two ways a compaction's wrapper can
+    learn its survivor count."""
+    from miniasm_tpu_torch.device import to_host
+
+    t = torch.zeros(1, dtype=torch.int64, device="cuda")
+    out = {}
+    for key, read in (("item", lambda: int(t)),
+                      ("to_host", lambda: int(to_host(t)))):
+        read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            read()
+        out[key] = (time.perf_counter() - t0) / reps * 1e6
+    return out
 
 
 def _host_us(fn, reps: int) -> float:
@@ -1049,11 +1151,10 @@ def _calls(name, rec) -> list:
 def _sum(parts) -> dict:
     """Times, bound and library time of a set of measured calls."""
     ms = sum(p["ms"] for p in parts)
-    dev = [p["device_ms"] for p in parts]
     t_bytes = sum(p["bytes"] for p in parts) / HBM_BYTES_S * 1e3
     t_ops = sum(p["ops"] for p in parts) / INT32_OPS_S * 1e3
     lib = [p["library_ms"] for p in parts]
-    return {"ms": ms, "device_ms": None if None in dev else sum(dev),
+    return {"ms": ms, "device_ms": sum(p["device_ms"] for p in parts),
             "plain_ms": sum(p["plain_ms"] for p in parts),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1207,6 +1308,19 @@ def _kernel_phase(recs, runs, cases):
             for k in ("grid", "ms_unflushed", "device_ms_unflushed",
                       "host_us", "floor", "floor_nosync"):
                 row[k] = own[0][k]
+        if name in ("compact", "shard_arcs"):
+            # each call on a line of its own: its columns, its times by
+            # launch beside the library call, its grid and floor
+            for k, m in sorted(measured.items()):
+                _say("[%s] %s: %s" % (name, "/".join(k), json.dumps({
+                    x: m.get(x) for x in (
+                        "shapes", "ms", "device_ms", "device_split",
+                        "library_ms", "wall_us", "grid", "floor",
+                        "floor_nosync")}
+                    | {"bound_ms": _sum([m])["bound_ms"]})))
+            if name == "compact":
+                row["read_us"] = _read_us(reps[name])
+                _say("[compact] reading m: %s" % json.dumps(row["read_us"]))
         if name == "sweep":
             _sweep_tiers(row, calls, cases.get(name, {}))
         if name == "arc_order":

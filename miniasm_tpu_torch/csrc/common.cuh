@@ -5,7 +5,10 @@
 // C++, so every add/sub/shift that can wrap goes through uint32_t.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
@@ -36,7 +39,8 @@ __device__ __forceinline__ int32_t warp_incl_sum(int32_t x, int lane) {
 // exclusive scan of x over the block (every thread calls it, blockDim a
 // multiple of 32, at most 1024); returns the threads' sum before this one
 // and the block's total in *tot.  sh: 32 words of shared memory.  Used by
-// K13 (select.cu), K16 (compact.cu) and K19 (select.cu).
+// K13 (select.cu), and by K16 (compact.cu) and K19 (select.cu) through
+// block_scan_in_place.
 __device__ __forceinline__ int32_t block_excl_scan(int32_t x, int32_t* sh,
                                                    int32_t* tot) {
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -53,6 +57,185 @@ __device__ __forceinline__ int32_t block_excl_scan(int32_t x, int32_t* sh,
     *tot = sh[(blockDim.x >> 5) - 1];
     __syncthreads();
     return before;
+}
+
+// ---- the stable stream compactions K16 (compact.cu) and K19 (select.cu):
+// one cooperative launch each, every keep decision made once ----
+//
+// A block of COOP_THREADS threads owns one contiguous chunk of items.  The
+// chunk is W words of the block's warps: in word s, warp w owns the slice
+// of J * 32 items from chunk + (s * COOP_WARPS + w) * J * 32, and lane j of
+// the warp holds the keep bits of the slice's round j (items j * 32 to
+// j * 32 + 31, bit l for item j * 32 + l), made by one ballot or one
+// vector load of keep bytes.  So items go in the order (s, w, j, l), the
+// order of the input, and a survivor's place in its block is the survivors
+// of the (s, w) slices before its own, of the rounds before its own, and of
+// the lanes before its own in its round: block_scan_in_place, a warp scan
+// of the lanes' popcounts, a popcount.  grid_block_offsets adds the
+// survivors of the blocks before, after one grid sync.
+constexpr int COOP_THREADS = 256;
+constexpr int COOP_WARPS = COOP_THREADS / 32;
+
+// exclusive scan in place of the len words a[] (shared memory), by the
+// whole block; returns their total.  sh: 32 words of shared memory.
+__device__ __forceinline__ int32_t block_scan_in_place(int32_t* a, int len,
+                                                       int32_t* sh) {
+    int32_t carry = 0;
+    for (int e0 = 0; e0 < len; e0 += blockDim.x) {
+        const int e = e0 + threadIdx.x;
+        const int32_t x = e < len ? a[e] : 0;
+        int32_t tot;
+        const int32_t before = block_excl_scan(x, sh, &tot);
+        if (e < len) a[e] = carry + before;
+        carry += tot;
+    }
+    return carry;
+}
+
+// The block offsets of a cooperative launch, shared by K16 and K19: each
+// block's N counts (count[], the same in every thread) go to bsum[N *
+// blockIdx.x ...], the grid syncs once, and every thread learns, for each
+// c < N, the counts of the blocks before its own (before[c]) and of all
+// blocks (total[c]), read back through L2.  sh: 2 * N * 32 words of shared
+// memory.
+template <int N>
+__device__ __forceinline__ void grid_block_offsets(const int32_t (&count)[N],
+                                                   int32_t* bsum,
+                                                   int32_t (&before)[N],
+                                                   int32_t (&total)[N],
+                                                   int32_t* sh) {
+    if (threadIdx.x == 0)
+        for (int c = 0; c < N; ++c) bsum[N * blockIdx.x + c] = count[c];
+    cooperative_groups::this_grid().sync();
+    int32_t b[N] = {}, t[N] = {};
+    for (unsigned i = threadIdx.x; i < gridDim.x; i += blockDim.x)
+        for (int c = 0; c < N; ++c) {
+            const int32_t v = __ldcg(bsum + N * i + c);
+            t[c] += v;
+            if (i < blockIdx.x) b[c] += v;
+        }
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    for (int c = 0; c < N; ++c) {
+        b[c] = __reduce_add_sync(FULL, b[c]);
+        t[c] = __reduce_add_sync(FULL, t[c]);
+        if (lane == 0) {
+            sh[(2 * c) * 32 + w] = b[c];
+            sh[(2 * c + 1) * 32 + w] = t[c];
+        }
+    }
+    __syncthreads();
+    for (int c = 0; c < N; ++c) {
+        before[c] = total[c] = 0;
+        for (unsigned k = 0; k < blockDim.x / 32; ++k) {
+            before[c] += sh[(2 * c) * 32 + k];
+            total[c] += sh[(2 * c + 1) * 32 + k];
+        }
+    }
+    __syncthreads();
+}
+
+// the launch of a compaction over n items (n >= 1) with `words` keep-bit
+// words a thread a word s (K16 1, K19 2).  Each block keeps `words` bit
+// arrays of W words a thread and `words` arrays of W * COOP_WARPS slice
+// counts: words * W * (COOP_THREADS + COOP_WARPS) words, in shared memory
+// where they fit (smem bytes; spill 0), else in global scratch (spill
+// words a block, smem 0), so that every n a kernel accepts has a launch.
+// In shared memory the grid is as many blocks as the card holds at once
+// (the occupancy, with that shared memory, times the SMs, at most
+// max_grid), each thread takes J <= 32 rounds of the warp's slice per
+// word, W words (more than one only past 32 rounds), and the grid only
+// the blocks the items need.  In global scratch a lane takes 32 rounds a
+// word and the grid the card holds without dynamic shared memory.
+struct CoopPlan {
+    int grid, J, W, max_grid;
+    int64_t chunk;  // items a block
+    size_t smem;
+    int64_t spill;  // words of global scratch a block
+};
+
+// the global scratch a compaction of n items may spill its bits to: at
+// most grid * W * COOP_THREADS < n / 16 + 256 words a bit array, as the
+// grid's chunks of W * COOP_THREADS * 32 items cover n, plus the slice
+// counts (COOP_WARPS / COOP_THREADS = 1 / 32 more).  The wrappers
+// (utils/compact.py, parallel/full.py) allocate this much.
+static inline int64_t coop_spill_words(int64_t n, int words) {
+    return words * (33 * n / 512 + 265);
+}
+
+static inline cudaError_t coop_plan(const void* kernel, int64_t n, int words,
+                                    int max_grid, int64_t smem_cap,
+                                    int64_t spill_words, CoopPlan* p) {
+    // a block's words for one word of bits a thread
+    const int64_t unit = static_cast<int64_t>(words) *
+                         (COOP_THREADS + COOP_WARPS);
+    int dev = 0, coop = 0, sms = 0, per_sm = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    // the kernels' static shared memory takes under 1 KB of it
+    int64_t cap = static_cast<int64_t>(optin) - 1024;
+    if (smem_cap > 0) cap = std::min(cap, smem_cap);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, COOP_THREADS, 4 * unit);
+    // fewer blocks fit where the bits take more shared memory: shrink the
+    // grid until the plan's shared memory lets it run at once
+    bool spill = false;
+    for (int it = 0; e == cudaSuccess; ++it) {
+        if (per_sm < 1 || it > 16) {
+            e = cudaErrorInvalidValue;
+            break;
+        }
+        p->max_grid = static_cast<int>(
+            std::min<int64_t>(static_cast<int64_t>(per_sm) * sms, max_grid));
+        const int64_t lanes = static_cast<int64_t>(p->max_grid) * COOP_THREADS;
+        const int64_t per_lane = (n + lanes - 1) / lanes;
+        p->J = static_cast<int>(std::min<int64_t>(per_lane, 32));
+        p->W = static_cast<int>((per_lane + 31) / 32);
+        p->chunk = static_cast<int64_t>(p->W) * p->J * COOP_THREADS;
+        p->grid = static_cast<int>((n + p->chunk - 1) / p->chunk);
+        p->smem = static_cast<size_t>(p->W * unit * 4);
+        p->spill = 0;
+        if (static_cast<int64_t>(p->smem) > cap) {
+            spill = true;
+            break;
+        }
+        if (p->smem > 48 * 1024)
+            e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(p->smem));
+        int fit = per_sm;  // W == 1: the query above
+        if (e == cudaSuccess && p->W != 1)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &fit, kernel, COOP_THREADS, p->smem);
+        if (e != cudaSuccess) break;
+        if (static_cast<int64_t>(fit) * sms >= p->grid) break;
+        per_sm = fit;
+    }
+    if (e != cudaSuccess || !spill) return e;
+    // the bits in global scratch
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      COOP_THREADS, 0);
+    if (e == cudaSuccess && per_sm < 1) e = cudaErrorInvalidValue;
+    if (e != cudaSuccess) return e;
+    p->max_grid = static_cast<int>(
+        std::min<int64_t>(static_cast<int64_t>(per_sm) * sms, max_grid));
+    const int64_t word = static_cast<int64_t>(COOP_THREADS) * 32;
+    const int64_t most = static_cast<int64_t>(p->max_grid) * word;
+    p->J = 32;
+    p->W = static_cast<int>((n + most - 1) / most);
+    p->chunk = static_cast<int64_t>(p->W) * word;
+    p->grid = static_cast<int>((n + p->chunk - 1) / p->chunk);
+    p->smem = 0;
+    p->spill = p->W * unit;
+    if (p->spill * p->grid > spill_words) return cudaErrorInvalidValue;
+    return cudaSuccess;
 }
 
 // number of blocks of `threads` covering n items

@@ -883,107 +883,206 @@ std::atomic<uint64_t> sweep_smem_done{0}, arc_smem_done{0};
 // (miniasm_tpu/parallel/full.py:358-378, inside the shard_map program of
 // _make_select_step): read_alive from the OR-reduced marks, the aq/at
 // gathers, m_contained, the arc lanes and their compaction into the seven
-// arcmat rows [u l v ol gid side-read start].  Lane j < n is row j's
-// q-side, lane n + j its m-side; the arcs go out in lane order, all
-// q-sides in row order, then all m-sides (the order of the JAX program's
-// jnp.nonzero over the concatenated lanes: order_arcs sorts them stably by
-// hit key, so ties keep it).  K16's three launches over the 2n lanes:
-// count (and m_contained, one atomic a block), the scan of the block
-// counts (n_arc), the scatter at stride n_arc.  Bound by bytes: a row's
-// lane bits, a live row's reads, codes and the four marks of its reads
-// (L2), an arc's five K1 words, gid and hit key read, seven words written.
-constexpr int SA_THREADS = 1024;
+// arcmat rows [u l v ol gid side-read start].  Row j's q-side is lane j
+// of the JAX program, its m-side lane n + j, and the arcs go out in lane
+// order: all q-sides in row order, then all m-sides (the order of its
+// jnp.nonzero over the concatenated lanes: order_arcs sorts them stably
+// by hit key, so ties keep it).
+//
+// Bound by bytes: a row's lane bits, a live row's reads, codes and the
+// marks of its reads (L2), an arc's five K1 words, gid and hit key read,
+// seven words written.  A row's two lanes share its reads and their six
+// marks, and a count, a scan and a scatter over the 2n lanes would gather
+// them four times (two threads far apart, in the count and again in the
+// scatter).  So one cooperative launch (common.cuh), one thread a row:
+//   1. each row's reads and marks are gathered once and decide both of its
+//      lanes, one ballot each a round of 32 rows; a lane's loads of four
+//      rounds are in flight together; the bits stay in shared memory (in
+//      global scratch past what shared memory holds, about 2**26 rows); a
+//      block counts its q-sides, its m-sides and its m_contained terms;
+//   2. one grid sync (grid_block_offsets): the three counts of the blocks
+//      before each block and over all;
+//   3. each block writes its q-sides at their q offset and its m-sides at
+//      the q total plus their m offset, a round of a warp at a time, both
+//      sides' words read before either is written; block 0 writes
+//      [m_contained, n_arc] (no atomic, no memset).
+struct ShardArcs {
+    const int32_t *qid, *qs0, *tid, *ts0, *gid, *out, *marks;
+    const uint8_t* mdel;
+    int64_t n, T;
+    int J, W;
+    int64_t chunk;
+    int32_t* spill;  // the blocks' bits and counts, or null: shared memory
+    int64_t spill_block;  // words a block there
+    int32_t* bsum;  // three words a block
+    int64_t* cnt;
+    int32_t* arcs;
+};
 
-// lane j's arc flag; mc: the lane is valid between two surviving reads
-// (m_contained's term)
-__device__ __forceinline__ bool shard_lane(
-    const int32_t* __restrict__ qid, const int32_t* __restrict__ tid,
-    const int32_t* __restrict__ out, const int32_t* __restrict__ marks,
-    const uint8_t* __restrict__ mdel, int64_t n, int64_t T, int64_t j,
-    bool& mc) {
-    const bool m = j >= n;
-    const int64_t i = m ? j - n : j;
-    mc = false;
-    if (!(out[4 * n + i] & (m ? 2 : 1))) return false;
-    const int32_t q = clamp_index(qid[i], T), t = clamp_index(tid[i], T);
-    // read_alive = used & ~mdel & ~cont
-    if (!marks[q] || marks[T + q] || mdel[q] || !marks[t] || marks[T + t] ||
-        mdel[t])
-        return false;
-    mc = true;
-    return qid[i] != tid[i] && out[(m ? 10 : 5) * n + i] >= 0;
-}
+// an arc's seven arcmat words, read for row i's side (m: the m-side)
+struct ArcWords {
+    int32_t u, l, v, ol, g, rd, st;
+};
 
-__global__ void __launch_bounds__(SA_THREADS)
-shard_count_kernel(const int32_t* __restrict__ qid,
-                   const int32_t* __restrict__ tid,
-                   const int32_t* __restrict__ out,
-                   const int32_t* __restrict__ marks,
-                   const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
-                   int32_t* __restrict__ bsum,
-                   unsigned long long* __restrict__ cnt) {
-    const int64_t j = static_cast<int64_t>(blockIdx.x) * SA_THREADS +
-                      threadIdx.x;
-    bool mc = false;
-    const bool a = j < 2 * n && shard_lane(qid, tid, out, marks, mdel, n, T,
-                                           j, mc);
-    const int c = __syncthreads_count(a);
-    const int m = __syncthreads_count(mc);
-    if (threadIdx.x == 0) {
-        bsum[blockIdx.x] = c;
-        if (m) atomicAdd(&cnt[0], static_cast<unsigned long long>(m));
-    }
-}
-
-__global__ void __launch_bounds__(SA_THREADS)
-shard_scan_kernel(int32_t* __restrict__ bsum, int64_t nb,
-                  int64_t* __restrict__ cnt) {
-    __shared__ int32_t sh[32];
-    int32_t carry = 0;
-    for (int64_t b0 = 0; b0 < nb; b0 += SA_THREADS) {
-        const int64_t b = b0 + threadIdx.x;
-        const int32_t x = b < nb ? bsum[b] : 0;
-        int32_t tot;
-        const int32_t before = block_excl_scan(x, sh, &tot);
-        if (b < nb) bsum[b] = carry + before;
-        carry += tot;
-    }
-    if (threadIdx.x == 0) cnt[1] = carry;
-}
-
-__global__ void __launch_bounds__(SA_THREADS)
-shard_scatter_kernel(const int32_t* __restrict__ qid,
-                     const int32_t* __restrict__ qs0,
-                     const int32_t* __restrict__ tid,
-                     const int32_t* __restrict__ ts0,
-                     const int32_t* __restrict__ gid,
-                     const int32_t* __restrict__ out,
-                     const int32_t* __restrict__ marks,
-                     const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
-                     const int32_t* __restrict__ bsum,
-                     const int64_t* __restrict__ cnt,
-                     int32_t* __restrict__ arcs) {
-    __shared__ int32_t sh[32];
-    const int64_t j = static_cast<int64_t>(blockIdx.x) * SA_THREADS +
-                      threadIdx.x;
-    bool mc;
-    const bool a = j < 2 * n && shard_lane(qid, tid, out, marks, mdel, n, T,
-                                           j, mc);
-    int32_t tot;
-    const int32_t before = block_excl_scan(a ? 1 : 0, sh, &tot);
-    if (!a) return;
-    const int64_t na = cnt[1];
-    const int64_t p = bsum[blockIdx.x] + before;
-    const bool m = j >= n;
-    const int64_t i = m ? j - n : j;
+__device__ __forceinline__ ArcWords load_arc(const ShardArcs& a, int64_t i,
+                                             bool m) {
+    const int64_t n = a.n;
     const int64_t src = (m ? 11 : 6) * n + i;  // u; v, l, ol follow
-    arcs[p] = out[src];
-    arcs[na + p] = out[src + 2 * n];
-    arcs[2 * na + p] = out[src + n];
-    arcs[3 * na + p] = out[src + 3 * n];
-    arcs[4 * na + p] = m ? (gid[i] | 1) : gid[i];
-    arcs[5 * na + p] = m ? tid[i] : qid[i];
-    arcs[6 * na + p] = m ? ts0[i] : qs0[i];
+    ArcWords w;
+    w.u = __ldg(a.out + src);
+    w.v = __ldg(a.out + src + n);
+    w.l = __ldg(a.out + src + 2 * n);
+    w.ol = __ldg(a.out + src + 3 * n);
+    w.g = __ldg(a.gid + i) | (m ? 1 : 0);
+    w.rd = __ldg((m ? a.tid : a.qid) + i);
+    w.st = __ldg((m ? a.ts0 : a.qs0) + i);
+    return w;
+}
+
+// the arc at column p of the (7, na) arcmat
+__device__ __forceinline__ void store_arc(const ShardArcs& a,
+                                          const ArcWords& w, int64_t na,
+                                          int64_t p) {
+    a.arcs[p] = w.u;
+    a.arcs[na + p] = w.l;
+    a.arcs[2 * na + p] = w.v;
+    a.arcs[3 * na + p] = w.ol;
+    a.arcs[4 * na + p] = w.g;
+    a.arcs[5 * na + p] = w.rd;
+    a.arcs[6 * na + p] = w.st;
+}
+
+// rounds a lane decides together: their loads are in flight at once
+constexpr int SA_BATCH = 4;
+
+__global__ void __launch_bounds__(COOP_THREADS)
+shard_arcs_kernel(ShardArcs a) {
+    extern __shared__ int32_t smem[];
+    __shared__ int32_t sh[192];
+    const int WT = a.W * COOP_THREADS, WW = a.W * COOP_WARPS;
+    int32_t* area = a.spill ? a.spill + blockIdx.x * a.spill_block : smem;
+    uint32_t* qbits = reinterpret_cast<uint32_t*>(area);
+    uint32_t* mbits = qbits + WT;
+    int32_t* qcnt = area + 2 * WT;
+    int32_t* mcnt = qcnt + WW;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int64_t n = a.n, T = a.T;
+    const int64_t slice_n = static_cast<int64_t>(a.J) * 32;
+    const int64_t chunk0 = static_cast<int64_t>(blockIdx.x) * a.chunk;
+
+    // ---- 1. both lanes of each row, decided once, SA_BATCH rounds at a
+    // time: their lane bits, then reads and codes, then marks ----
+    int32_t mc = 0;
+    for (int s = 0; s < a.W; ++s) {
+        const int64_t slice = chunk0 + (s * COOP_WARPS + w) * slice_n;
+        uint32_t mq = 0, mm = 0;
+        for (int j0 = 0; j0 < a.J; j0 += SA_BATCH) {
+            int32_t lanes[SA_BATCH], q0[SA_BATCH], t0[SA_BATCH],
+                cq[SA_BATCH], cm[SA_BATCH];
+            bool aq[SA_BATCH], am[SA_BATCH];
+#pragma unroll
+            for (int u = 0; u < SA_BATCH; ++u) {
+                const int64_t i = slice + 32 * (j0 + u) + lane;
+                lanes[u] = j0 + u < a.J && i < n
+                               ? __ldg(a.out + 4 * n + i) & 3
+                               : 0;
+            }
+            // the reads and both codes, then the six marks: each level's
+            // loads issued together (no short-circuit between them)
+#pragma unroll
+            for (int u = 0; u < SA_BATCH; ++u) {
+                const int64_t i = slice + 32 * (j0 + u) + lane;
+                q0[u] = t0[u] = 0;
+                cq[u] = cm[u] = -1;
+                if (lanes[u]) {
+                    q0[u] = __ldg(a.qid + i);
+                    t0[u] = __ldg(a.tid + i);
+                    cq[u] = __ldg(a.out + 5 * n + i);
+                    cm[u] = __ldg(a.out + 10 * n + i);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < SA_BATCH; ++u) {
+                const int32_t q = clamp_index(q0[u], T),
+                              t = clamp_index(t0[u], T);
+                // read_alive = used & ~mdel & ~cont, for both reads
+                const bool alive =
+                    lanes[u] != 0 && ((__ldg(a.marks + q) != 0) &
+                                      (__ldg(a.marks + T + q) == 0) &
+                                      (__ldg(a.mdel + q) == 0) &
+                                      (__ldg(a.marks + t) != 0) &
+                                      (__ldg(a.marks + T + t) == 0) &
+                                      (__ldg(a.mdel + t) == 0));
+                if (alive) mc += (lanes[u] & 1) + (lanes[u] >> 1);
+                const bool arc = alive && q0[u] != t0[u];
+                aq[u] = arc && (lanes[u] & 1) && cq[u] >= 0;
+                am[u] = arc && (lanes[u] & 2) && cm[u] >= 0;
+            }
+#pragma unroll
+            for (int u = 0; u < SA_BATCH; ++u) {
+                if (j0 + u >= a.J) break;  // the same in the whole warp
+                const uint32_t bq = __ballot_sync(FULL, aq[u]);
+                const uint32_t bm = __ballot_sync(FULL, am[u]);
+                if (lane == j0 + u) {
+                    mq = bq;
+                    mm = bm;
+                }
+            }
+        }
+        qbits[s * COOP_THREADS + threadIdx.x] = mq;
+        mbits[s * COOP_THREADS + threadIdx.x] = mm;
+        const int32_t nq = __reduce_add_sync(FULL, __popc(mq));
+        const int32_t nm = __reduce_add_sync(FULL, __popc(mm));
+        if (lane == 0) {
+            qcnt[s * COOP_WARPS + w] = nq;
+            mcnt[s * COOP_WARPS + w] = nm;
+        }
+    }
+    mc = __reduce_add_sync(FULL, mc);
+    if (lane == 0) sh[64 + w] = mc;
+    __syncthreads();
+    int32_t mc_block = 0;
+    for (int k = 0; k < COOP_WARPS; ++k) mc_block += sh[64 + k];
+
+    // ---- 2. the slices' offsets in the block, then the blocks' ----
+    const int32_t mine[3] = {block_scan_in_place(qcnt, WW, sh),
+                             block_scan_in_place(mcnt, WW, sh), mc_block};
+    int32_t before[3], total[3];
+    grid_block_offsets<3>(mine, a.bsum, before, total, sh);
+    const int64_t na = static_cast<int64_t>(total[0]) + total[1];
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        a.cnt[0] = total[2];
+        a.cnt[1] = na;
+    }
+
+    // ---- 3. a round's q-sides at their q offset and its m-sides after
+    // all q-sides, both read before either is written ----
+    const uint32_t lt = (1u << lane) - 1;
+    for (int s = 0; s < a.W; ++s) {
+        const int64_t slice = chunk0 + (s * COOP_WARPS + w) * slice_n;
+        const uint32_t mq = qbits[s * COOP_THREADS + threadIdx.x];
+        const uint32_t mm = mbits[s * COOP_THREADS + threadIdx.x];
+        const int32_t pq = __popc(mq), pm = __popc(mm);
+        const int32_t rq = warp_incl_sum(pq, lane) - pq;
+        const int32_t rm = warp_incl_sum(pm, lane) - pm;
+        const int64_t bq =
+            static_cast<int64_t>(before[0]) + qcnt[s * COOP_WARPS + w];
+        const int64_t bm = static_cast<int64_t>(total[0]) + before[1] +
+                           mcnt[s * COOP_WARPS + w];
+        for (int j = 0; j < a.J; ++j) {
+            const uint32_t mqj = __shfl_sync(FULL, mq, j);
+            const uint32_t mmj = __shfl_sync(FULL, mm, j);
+            const int32_t oq = __shfl_sync(FULL, rq, j);
+            const int32_t om = __shfl_sync(FULL, rm, j);
+            const int64_t i = slice + 32 * j + lane;
+            const bool hq = (mqj >> lane) & 1, hm = (mmj >> lane) & 1;
+            ArcWords wq{}, wm{};
+            if (hq) wq = load_arc(a, i, false);
+            if (hm) wm = load_arc(a, i, true);
+            if (hq) store_arc(a, wq, na, bq + oq + __popc(mqj & lt));
+            if (hm) store_arc(a, wm, na, bm + om + __popc(mmj & lt));
+        }
+    }
 }
 
 }  // namespace
@@ -1145,32 +1244,52 @@ extern "C" int ma_arc_order(const int32_t* qid, const int32_t* qs0,
 }
 
 // K19.  qid, qs0, tid, ts0, gid: n int32 (the step's rows 0, 1, 3, 4, 7:
-// the ORIGINAL starts); out: K1's final-pass output (15, n); marks: (3, T)
-// int32 0/1 [used cont pal], OR-reduced over the ranks; mdel: T bytes, the
-// merged sub-deletion; bsum: ceil(2n / 1024) int32 of scratch (at least
-// one); cnt: two int64 [m_contained, n_arc]; arcs: 14n int32, of which the
-// first 7 n_arc hold the arcs as 7 rows of n_arc words.
+// the ORIGINAL starts), n below 2**30; out: K1's final-pass output (15,
+// n); marks: (3, T) int32 0/1 [used cont pal], OR-reduced over the ranks;
+// mdel: T bytes, the merged sub-deletion; cnt: two int64 [m_contained,
+// n_arc]; bsum: bsum_words int32 of scratch, three a block (the grid
+// takes at most bsum_words / 3 blocks); spill: spill_words int32 for the
+// blocks' lane bits where they do not fit in shared memory, at least
+// coop_spill_words(n, 2) (common.cuh); smem_cap: the most bytes of shared
+// memory they may take (0: what the card allows); arcs: 14n int32, of
+// which the first 7 n_arc hold the arcs as 7 rows of n_arc words.  grid:
+// 4 host ints, as K16's (compact.cu).  Fails where the card cannot launch
+// a cooperative kernel.
 extern "C" int ma_shard_arcs(const int32_t* qid, const int32_t* qs0,
                              const int32_t* tid, const int32_t* ts0,
                              const int32_t* gid, const int32_t* out,
                              int64_t n, const int32_t* marks,
-                             const uint8_t* mdel, int64_t T, int32_t* bsum,
-                             int64_t* cnt, int32_t* arcs,
+                             const uint8_t* mdel, int64_t T, int64_t* cnt,
+                             int32_t* bsum, int64_t bsum_words,
+                             int32_t* spill, int64_t spill_words,
+                             int64_t smem_cap, int32_t* arcs, int* grid,
                              cudaStream_t stream) {
-    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30))
+    grid[0] = grid[1] = grid[2] = grid[3] = 0;
+    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30) ||
+        bsum_words < 3)
         return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaMemsetAsync(cnt, 0, sizeof(int64_t), stream);
+    if (n == 0)
+        return static_cast<int>(
+            cudaMemsetAsync(cnt, 0, 2 * sizeof(int64_t), stream));
+    const void* kernel = reinterpret_cast<const void*>(shard_arcs_kernel);
+    CoopPlan plan;
+    cudaError_t e = coop_plan(
+        kernel, n, 2,
+        static_cast<int>(std::min<int64_t>(bsum_words / 3, 1 << 30)),
+        smem_cap, spill ? spill_words : 0, &plan);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int64_t nb = (2 * n + SA_THREADS - 1) / SA_THREADS;
-    if (n > 0)
-        shard_count_kernel<<<static_cast<unsigned>(nb), SA_THREADS, 0,
-                             stream>>>(
-            qid, tid, out, marks, mdel, n, T, bsum,
-            reinterpret_cast<unsigned long long*>(cnt));
-    shard_scan_kernel<<<1, SA_THREADS, 0, stream>>>(bsum, nb, cnt);
-    if (n > 0)
-        shard_scatter_kernel<<<static_cast<unsigned>(nb), SA_THREADS, 0,
-                               stream>>>(
-            qid, qs0, tid, ts0, gid, out, marks, mdel, n, T, bsum, cnt, arcs);
+    ShardArcs a = {qid,  qs0,  tid,    ts0,    gid,        out,
+                   marks, mdel, n,     T,      plan.J,     plan.W,
+                   plan.chunk, plan.spill ? spill : nullptr, plan.spill,
+                   bsum, cnt,  arcs};
+    grid[0] = plan.grid;
+    grid[1] = static_cast<int>(plan.chunk);
+    grid[2] = plan.max_grid;
+    grid[3] = static_cast<int>(plan.spill);
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(plan.grid),
+                                    dim3(COOP_THREADS), args, plan.smem,
+                                    stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,7 @@ choice and go, as in select/fused2.py), and the buffers are exact-size
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import numpy as np
@@ -41,6 +42,7 @@ import torch
 from ..config import Opt
 from ..cuda import I64, P, Kernel, ptr
 from ..select import fused2
+from ..utils.compact import spill_words
 from ..utils.timers import StageClock, log
 from . import group as grp
 from .route import Layout, route
@@ -105,8 +107,10 @@ def _partition(cols, n_seq, n_sh):
 # compaction into the arcmat, inside _make_select_step (full.py:358-378)
 K_SHARD_ARCS = Kernel(
     "shard_arcs", "select.cu", "ma_shard_arcs",
-    [P, P, P, P, P, P, I64, P, P, I64, P, P, P],
+    [P, P, P, P, P, P, I64, P, P, I64, P, P, I64, P, I64, I64, P, P],
     replaces="miniasm_tpu/parallel/full.py:358")
+# scratch words a block (three counts), for up to this many blocks
+SA_BLOCKS = 4096
 
 
 def shard_arcs_plain(rows, out, marks, mdel):
@@ -138,13 +142,15 @@ def shard_arcs_plain(rows, out, marks, mdel):
     return arcmat, cnt
 
 
-def shard_arcs(rows, out, marks, mdel):
+def shard_arcs(rows, out, marks, mdel, grid=None, smem_cap=0):
     """K19.  rows (8, n) int32 [qid qs qe tid ts te flags gid], the starts
     the ORIGINAL ones; out: K1's final-pass output (15, n); marks (3, T)
     int32 0/1 [used cont pal], OR-reduced over the ranks; mdel (T,) bool,
     the merged sub-deletion.  Returns (arcmat (7, n_arc) int32 [u l v ol
     gid side-read start] of the arcs between surviving reads, all q-sides
-    in row order, then all m-sides; cnt (2,) int64 [m_contained, n_arc])."""
+    in row order, then all m-sides; cnt (2,) int64 [m_contained, n_arc]).
+    grid and smem_cap: as compact's (utils/compact.py), rows for
+    columns."""
     if rows.device.type == "cpu":
         return shard_arcs_plain(rows, out, marks, mdel)
     n, T = rows.shape[1], marks.shape[1]
@@ -162,16 +168,24 @@ def shard_arcs(rows, out, marks, mdel):
     if n == 0:
         return (torch.empty((7, 0), dtype=torch.int32, device=dev),
                 torch.zeros(2, dtype=torch.int64, device=dev))
-    bsum = torch.empty((2 * n + 1023) // 1024, dtype=torch.int32,
-                       device=dev)
-    cnt = torch.empty(2, dtype=torch.int64, device=dev)
-    buf = torch.empty(14 * n, dtype=torch.int32, device=dev)
+    # one allocation: cnt (two int64), the block counts, the lane bits'
+    # spill, the arcs
+    sw = spill_words(n, 2)
+    off = 4 + 3 * SA_BLOCKS + sw  # the arcs, in int32 words
+    buf = torch.empty((off + 14 * n + 1) // 2, dtype=torch.int64,
+                      device=dev)
+    g = (ctypes.c_int * 4)()
+    base = buf.data_ptr()
     K_SHARD_ARCS(ptr(rows[0]), ptr(rows[1]), ptr(rows[3]), ptr(rows[4]),
                  ptr(rows[7]), ptr(out), n, ptr(marks),
-                 ptr(mdel.view(torch.uint8)), T, ptr(bsum), ptr(cnt),
-                 ptr(buf))
+                 ptr(mdel.view(torch.uint8)), T, base, base + 16,
+                 3 * SA_BLOCKS, base + 16 + 12 * SA_BLOCKS, sw, smem_cap,
+                 base + 4 * off, ctypes.addressof(g))
+    if grid is not None:
+        grid[:] = list(g)
+    cnt = buf[:2]
     n_arc = int(cnt[1])
-    return buf[:7 * n_arc].view(7, n_arc), cnt
+    return buf.view(torch.int32)[off:off + 7 * n_arc].view(7, n_arc), cnt
 
 
 def _owner_of(ids, block: int, n_sh: int, valid):

@@ -20,9 +20,15 @@ from ..cuda import I32, I64, P, Kernel, ptr
 # pipeline.py:41 _apply_cut (and the Hits.take it and pipeline.py:121
 # call), select/contained.py:65-75
 K_COMPACT = Kernel(
-    "compact", "compact.cu", "ma_compact", [P, I32, I64, P, P, I64, P, P, P],
+    "compact", "compact.cu", "ma_compact",
+    [P, I32, I64, P, P, I64, P, I64, P, I64, I64, P, P],
     replaces="miniasm_tpu/pipeline.py:41")
 MAX_ROWS = 16  # csrc/compact.cu
+MAX_COLS = (1 << 31) - 1  # csrc/compact.cu
+# scratch words: m (an int64) and a word a block, for up to this many
+# blocks (an H100 holds 528-792 of the kernel's blocks at once, by its
+# row count)
+SCRATCH_BLOCKS = 4096
 
 
 def _rows(cols):
@@ -45,41 +51,71 @@ def compact_plain(cols, keep=None, mp=None) -> torch.Tensor:
     return torch.stack(rows)[:, ok]
 
 
-def compact(cols, keep=None, mp=None) -> torch.Tensor:
+def spill_words(n: int, words: int) -> int:
+    """Global scratch words a compaction of n items may keep its keep
+    bits in, `words` bit arrays (csrc/common.cuh coop_spill_words)."""
+    return words * (33 * n // 512 + 265)
+
+
+def compact(cols, keep=None, mp=None, grid=None,
+            smem_cap=0) -> torch.Tensor:
     """K16.  cols: a (k, n) int32 tensor or k (n,) int32 rows (1 <= k <=
     16); keep: (n,) bool or uint8, or None (every column); mp: (T,) int32
     or None.  Returns the (k, m) int32 columns that survive, in column
     order: those whose keep is set and, with mp, both of whose ids (rows 0
-    and 3) map to 0 or more, carrying the mapped ids in rows 0 and 3."""
-    rows = _rows(cols)
-    if rows[0].device.type == "cpu":
-        return compact_plain(rows, keep, mp)
-    k, n = len(rows), rows[0].shape[0]
-    dev = rows[0].device
+    and 3) map to 0 or more, carrying the mapped ids in rows 0 and 3.
+    grid: a list that, when given, receives the launch's [blocks, columns
+    a block, most blocks the card holds at once, global scratch words a
+    block keeps its keep bits in (0: shared memory)].  smem_cap: the most
+    bytes of shared memory those bits may take (0: what the card allows);
+    past it they go to global scratch."""
+    mat = isinstance(cols, torch.Tensor)
+    first = cols if mat else cols[0]
+    if first.device.type == "cpu":
+        return compact_plain(cols, keep, mp)
+    k = cols.shape[0] if mat else len(cols)
+    n = cols.shape[1] if mat else first.shape[0]
     if not 1 <= k <= MAX_ROWS or (mp is not None and k < 4):
         raise ValueError("compact: 1 to %d rows (4 with a remap) expected"
                          % MAX_ROWS)
-    if any(r.dtype != torch.int32 or r.shape != (n,) for r in rows):
+    if mat:
+        if cols.dtype != torch.int32 or cols.dim() != 2:
+            raise TypeError("compact: a (k, n) int32 matrix expected")
+    elif any(r.dtype != torch.int32 or r.shape != (n,) for r in cols):
         raise TypeError("compact: int32 rows of one length expected")
     if keep is not None and (keep.shape != (n,) or keep.dtype not in (
             torch.bool, torch.uint8)):
         raise ValueError("compact: keep must be (n,) bool or uint8")
     if n == 0:
-        return torch.empty((k, 0), dtype=torch.int32, device=dev)
+        return torch.empty((k, 0), dtype=torch.int32, device=first.device)
     if mp is not None and (mp.dtype != torch.int32 or mp.dim() != 1
                            or mp.numel() == 0):
         raise ValueError("compact: mp must be a non-empty (T,) int32 map")
-    if n >= 1 << 31:
+    if n > MAX_COLS:
         raise ValueError("compact: at most 2**31 - 1 columns")
-    # one pointer a row: the rows may come from several tensors
-    ptrs = (ctypes.c_void_p * k)(*[ptr(r) for r in rows])
-    bsum = torch.empty((n + 1023) // 1024, dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    out = torch.empty(k * n, dtype=torch.int32, device=dev)
-    K_COMPACT(ctypes.cast(ptrs, ctypes.c_void_p), k, n,
+    # one allocation: the output (k * n words, padded to an int64), the
+    # survivor count m, the block counts, the keep bits' spill
+    kn = (k * n + 1) & ~1
+    sw = spill_words(n, 1)
+    buf = torch.empty(kn + 2 + SCRATCH_BLOCKS + sw, dtype=torch.int32,
+                      device=first.device)
+    # one pointer a row: the rows may come from several tensors; a
+    # matrix's rows are at its row stride, with no tensor a row
+    if mat and cols.stride(1) == 1:
+        d, s = cols.data_ptr(), 4 * cols.stride(0)
+        ptrs = (ctypes.c_void_p * k)(*[d + s * j for j in range(k)])
+    else:
+        ptrs = (ctypes.c_void_p * k)(*[ptr(r) for r in _rows(cols)])
+    g = (ctypes.c_int * 4)()
+    base = buf.data_ptr()
+    scratch = base + 4 * kn
+    K_COMPACT(ctypes.addressof(ptrs), k, n,
               None if keep is None else ptr(keep.view(torch.uint8)),
               None if mp is None else ptr(mp),
-              0 if mp is None else mp.shape[0], ptr(bsum), ptr(total),
-              ptr(out))
-    m = int(total)
-    return out[:k * m].view(k, m)
+              0 if mp is None else mp.shape[0], scratch,
+              2 + SCRATCH_BLOCKS, scratch + 4 * (2 + SCRATCH_BLOCKS), sw,
+              smem_cap, base, ctypes.addressof(g))
+    if grid is not None:
+        grid[:] = list(g)
+    m = int(buf[kn:kn + 2].view(torch.int64))
+    return buf[:k * m].view(k, m)

@@ -31,6 +31,8 @@ from miniasm_tpu_torch.io.seqdict import SeqDict
 from miniasm_tpu_torch.select import contained as tcont
 from miniasm_tpu_torch.select import filter as tflt
 from miniasm_tpu_torch.utils.compact import compact, compact_plain
+from test_torch_cuda import (SHARD_KINDS, _compact_case, _compact_kw,
+                             _shard_case)
 
 JCOLS = ("qid", "qs", "qe", "tid", "ts", "te", "ml", "bl", "rev")
 KEEP_CASES = ["empty", "none", "all", "random"]
@@ -169,6 +171,113 @@ def test_compact_trim_table_and_rows_from_several_tensors():
     assert np.array_equal(got[0].numpy().view(np.uint32), s[keep])
     assert np.array_equal(got[1].numpy().view(np.uint32), e[keep])
     assert np.array_equal(got[2].numpy() != 0, dl[keep])
+
+
+# the card cases' inputs (tests/test_torch_cuda.py) at a few of their
+# item counts, through the port on the CPU and the JAX package's
+# compactions: Hits.take, _apply_cut, apply_contained's remap.  The
+# edges of a block's chunk and of the grid are the card's and stay with
+# the card cases: the plain twin has no grid
+JAX_MODES = ["keep", "none", "all", "remap", "keep_remap", "composed",
+             "drop_all"]
+CPU_NS = [0, 1, 257, 1025]
+COMPACT_EDGES = [(n, mode) for n in CPU_NS for mode in JAX_MODES]
+
+
+def _jax_compact(rows, keep, mp, mode):
+    """The JAX package's compaction of the nine rows for a mode."""
+    cols = [r.numpy() for r in rows]
+    kw = _compact_kw(mode, keep, mp)
+    ok = np.ones(len(cols[0]), bool) if kw["keep"] is None \
+        else kw["keep"].numpy() != 0
+    if mode == "composed":
+        # apply_cut's: rows 1, 2, 4, 5 from K5's coordinates
+        other = np.stack(cols)[::-1]
+        return jpipe._apply_cut(jhits.Hits(*cols), ok, other[1], other[2],
+                                other[4], other[5]).cols()
+    if kw["mp"] is not None:
+        # apply_contained's remap (JAX select/contained.py:65-75)
+        m = mp.numpy()
+        qn, tn = m[cols[0]], m[cols[3]]
+        ok &= (qn >= 0) & (tn >= 0)
+        cols = [qn, *cols[1:3], tn, *cols[4:]]
+    return jhits.Hits(*cols).take(ok).cols()
+
+
+@pytest.mark.parametrize("n,mode", COMPACT_EDGES)
+def test_compact_edges_match_jax(n, mode):
+    rows, keep, mp = _compact_case(np.random.default_rng(n % 997), n, mode)
+    kw = _compact_kw(mode, keep, mp)
+    cols = rows
+    if mode == "composed":
+        other = rows.flip(0).contiguous()
+        cols = [rows[0], other[1], other[2], rows[3], other[4], other[5],
+                rows[6], rows[7], rows[8]]
+    got = compact(cols, **kw)
+    want = _jax_compact(rows, keep, mp, mode)
+    assert got.shape == (9, len(want[0]))
+    for g, w in zip(got.numpy(), want):
+        w = np.asarray(w)
+        assert np.array_equal(g, w.view(np.int32) if w.dtype == np.uint32
+                              else w)
+
+
+def _jax_arc_tail(rows, out, marks, mdel):
+    """The JAX sharded step's arc tail (miniasm_tpu/parallel/full.py:
+    358-378) on one shard, in jnp as that program has it: read_alive, the
+    aq/at gathers, m_contained, the arc lanes and their jnp.nonzero into
+    [u l v ol gid]; with the arcs' side read and start below (the hit key
+    order_arcs sorts by), gathered by the same index."""
+    import jax.numpy as jnp
+
+    i32 = jnp.int32
+    r, o = jnp.asarray(rows.numpy()), jnp.asarray(out.numpy())
+    mk = jnp.asarray(marks.numpy())
+    n, T = r.shape[1], mk.shape[1]
+    dump = T - 1
+    qid, tid, gid = r[0], r[3], r[7]
+    vq, vm = (o[4] & 1) != 0, (o[4] & 2) != 0
+    read_alive = (mk[0] != 0) & ~jnp.asarray(mdel.numpy()) & ~(mk[1] != 0)
+    aq = read_alive[jnp.minimum(qid, dump)]
+    at = read_alive[jnp.minimum(tid, dump)]
+    m_cont = jnp.sum(vq & aq & at) + jnp.sum(vm & aq & at)
+    not_self = qid != tid
+    arc_q = vq & (o[5] >= 0) & not_self & aq & at
+    arc_m = vm & (o[10] >= 0) & not_self & aq & at
+    arc_rows = jnp.concatenate([arc_q, arc_m])
+    n_arc = int(jnp.sum(arc_rows))
+    arc_cap = 2 * n
+    idx = jnp.nonzero(arc_rows, size=arc_cap, fill_value=2 * n - 1)[0]
+    ok = jnp.arange(arc_cap, dtype=i32) < n_arc
+    arcmat = jnp.stack([
+        jnp.where(ok, jnp.concatenate([o[6], o[11]])[idx], 0),
+        jnp.where(ok, jnp.concatenate([o[8], o[13]])[idx], 0),
+        jnp.where(ok, jnp.concatenate([o[7], o[12]])[idx], 0),
+        jnp.where(ok, jnp.concatenate([o[9], o[14]])[idx], 0),
+        jnp.where(ok, jnp.concatenate([gid, gid | 1])[idx], -1),
+        jnp.concatenate([qid, tid])[idx],
+        jnp.concatenate([r[1], r[4]])[idx]])
+    return np.asarray(arcmat)[:, :n_arc], int(m_cont), n_arc
+
+
+SHARD_EDGES = [(n, kind) for n in CPU_NS for kind in SHARD_KINDS]
+
+
+@pytest.mark.parametrize("n,kind", SHARD_EDGES)
+def test_shard_arcs_edges_match_jax(n, kind):
+    from miniasm_tpu_torch.parallel.full import shard_arcs
+
+    args = _shard_case(np.random.default_rng(19 + n % 83), n, kind=kind)
+    arcmat, cnt = shard_arcs(*args)
+    if n == 0:
+        assert arcmat.shape == (7, 0) and cnt.tolist() == [0, 0]
+        return
+    want, m_cont, n_arc = _jax_arc_tail(*args)
+    assert cnt.tolist() == [m_cont, n_arc]
+    assert np.array_equal(arcmat.numpy(), want)
+    if n > 1000:
+        assert m_cont > n_arc and (n_arc > 0) == (kind in (
+            "mixed", "q_only", "m_only"))
 
 
 @pytest.mark.parametrize("seed", [41, 42])

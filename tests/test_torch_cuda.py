@@ -9,6 +9,10 @@ no JAX, so it also runs where only PyTorch is installed:
 """
 
 import io
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1621,8 +1625,11 @@ def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
 # filter and marks) and K19 shard_arcs (the sharded step's arc tail); K13
 # again at the edges of its read scan (its block scan is common.cuh's)
 
-# columns on both sides of a block (1024 columns for K16; 512 rows, 1024
-# lanes, for K19) and of the scan of the block counts (1024 blocks)
+# items (K16's columns, K19's rows) on both sides of a block's chunk while
+# a lane takes one round (256 items: 255-257), of two to four blocks
+# (511-1025), and several rounds a lane over the whole grid ((1 << 20) +
+# 3); GRID_EDGES adds the edges of the grid's first round.  The CPU cases
+# of tests/test_torch_compact.py take four of these counts
 EDGES = [0, 1, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025,
          (1 << 20) + 3]
 
@@ -1633,37 +1640,68 @@ def _count(name):
     return cuda.launch_counts()[name]
 
 
-def _compact_case(rng, n, mode, T=5000):
-    """(rows, keep, mp) for K16: 9 int32 rows (ids in rows 0 and 3), a
-    keep byte (none, 40% or all kept) and a remap dropping about a third
-    of the reads."""
-    rows = rng.integers(-2**31, 2**31, (9, n))
-    rows[0] = rng.integers(0, T, n)
-    rows[3] = rng.integers(0, T, n)
-    rows = torch.from_numpy(rows.astype(np.int32))
+# K16's kinds of input: which rows (k), keep and remap each mode passes
+COMPACT_MODES = ["keep", "none", "all", "remap", "keep_remap", "composed",
+                 "k1", "k16", "drop_all", "unaligned"]
+
+
+def _compact_case(rng, n, mode, T=5000, k=None):
+    """(rows, keep, mp) for K16: k int32 rows (9; 1 or 16 for modes k1,
+    k16; ids in rows 0 and 3 where k >= 4), a keep byte (none, 40% or all
+    kept) and a remap dropping about a third of the reads (every read for
+    drop_all).  Also the CPU cases of tests/test_torch_compact.py."""
+    k = k or {"k1": 1, "k16": 16}.get(mode, 9)
+    rows = rng.integers(-2**31, 2**31, (k, n), dtype=np.int32)
+    if k >= 4:
+        rows[0] = rng.integers(0, T, n)
+        rows[3] = rng.integers(0, T, n)
     p = {"none": 0.0, "all": 1.0}.get(mode, 0.4)
-    keep = torch.from_numpy((rng.random(n) < p).astype(np.uint8))
+    keep = (rng.random(n) < p).astype(np.uint8)
     mp = np.where(rng.random(T) < 0.33, -1, 0).astype(np.int32)
+    if mode == "drop_all":
+        mp[:] = -1
     mp[mp == 0] = np.arange(int((mp == 0).sum()), dtype=np.int32)
-    return rows, keep, torch.from_numpy(mp)
+    return torch.from_numpy(rows), torch.from_numpy(keep), torch.from_numpy(mp)
+
+
+def _compact_kw(mode, keep, mp):
+    """compact's keep and mp for a mode of COMPACT_MODES."""
+    remap = mode in ("remap", "keep_remap", "k16", "drop_all")
+    return {"keep": None if mode in ("remap", "drop_all") else keep,
+            "mp": mp if remap else None}
+
+
+def _unaligned(t, off):
+    """t's copy at `off` elements into a new tensor: its pointer off * the
+    element size past an aligned one."""
+    pad = torch.zeros(off + t.numel(), dtype=t.dtype, device=t.device)
+    pad[off:] = t
+    return pad[off:]
 
 
 @pytest.mark.parametrize("n", EDGES)
-@pytest.mark.parametrize("mode", ["keep", "none", "all", "remap",
-                                  "keep_remap", "composed"])
+@pytest.mark.parametrize("mode", COMPACT_MODES)
 def test_compact_kernel_matches_plain(dev, n, mode):
+    """K16 against its twin: the keep byte read as vectors (keep, none,
+    all, composed, k1), a ballot a round (the remaps, and unaligned: the
+    rows and the keep bytes at offsets that break 16-byte alignment), 1,
+    9 and 16 rows, a remap that drops every read."""
     from miniasm_tpu_torch.utils import compact as cp
 
     rows, keep, mp = (x.to(dev) for x in _compact_case(
         np.random.default_rng(n % 997), n, mode))
-    kw = {"keep": None if mode == "remap" else keep,
-          "mp": mp if "remap" in mode else None}
+    kw = _compact_kw(mode, keep, mp)
     cols = rows
     if mode == "composed":
         # apply_cut's: rows 1, 2, 4, 5 from another tensor
         other = rows.flip(0).contiguous()
         cols = [rows[0], other[1], other[2], rows[3], other[4], other[5],
                 rows[6], rows[7], rows[8]]
+    if mode == "unaligned":
+        cols = [_unaligned(r, 1 + j % 3) for j, r in enumerate(rows)]
+        kw["keep"] = _unaligned(keep, 3)
+        if n:
+            assert kw["keep"].data_ptr() % 16 and cols[0].data_ptr() % 16
     before = _count("compact")
     got = cp.compact(cols, **kw)
     torch.cuda.synchronize()
@@ -1673,8 +1711,69 @@ def test_compact_kernel_matches_plain(dev, n, mode):
     assert got.is_contiguous()
     if mode == "all" and n:
         assert got.shape[1] == n
-    if mode == "none":
+    if mode in ("none", "drop_all"):
         assert got.shape[1] == 0
+
+
+def _most_blocks(name, smem_cap=0):
+    """The most blocks K16 (on 3 rows) or K19 launches on this card (its
+    grid's third word), read from a call on a few items; with smem_cap,
+    with its bits in global scratch."""
+    from miniasm_tpu_torch.parallel import full
+    from miniasm_tpu_torch.utils import compact as cp
+
+    g = [0, 0, 0, 0]
+    if name == "compact":
+        cp.compact(torch.zeros((3, 5), dtype=torch.int32, device="cuda"),
+                   grid=g, smem_cap=smem_cap)
+    else:
+        full.shard_arcs(*[x.cuda() for x in _shard_case(
+            np.random.default_rng(0), 5)], grid=g, smem_cap=smem_cap)
+    assert g[0] == 1 and g[2] > 0 and (g[3] > 0) == (smem_cap > 0)
+    return g[2]
+
+
+# where the plan of a compaction changes: the card's whole grid at one
+# item a lane (most blocks x 256 items; past it a lane takes two rounds),
+# and at 32 (x 8192; past it a block takes a second word of bits)
+GRID_EDGES = [("lanes", -1), ("lanes", 0), ("lanes", 1), ("words", -1),
+              ("words", 0), ("words", 1)]
+
+
+# the rounds a lane takes at each edge
+ROUNDS = {("lanes", -1): 1, ("lanes", 0): 1, ("lanes", 1): 2,
+          ("words", -1): 32, ("words", 0): 32, ("words", 1): 64}
+
+
+def _grid_n(most, where, d):
+    return most * 256 * (1 if where == "lanes" else 32) + d
+
+
+def _check_plan(g, n, most, spill=False):
+    """The grid a compaction chose on n items: at most the card's blocks,
+    their chunks cover n, one chunk less would not; the bits in shared
+    memory, or with spill in global scratch."""
+    blocks, chunk, m, words = g
+    assert m == most and 1 <= blocks <= most
+    assert blocks * chunk >= n > (blocks - 1) * chunk
+    assert (words > 0) == spill
+
+
+@pytest.mark.parametrize("where,d", GRID_EDGES)
+def test_compact_kernel_grid_edges(dev, where, d):
+    """K16 at the edges of its grid's first round, 3 rows, 40% kept."""
+    from miniasm_tpu_torch.utils import compact as cp
+
+    most = _most_blocks("compact")
+    n = _grid_n(most, where, d)
+    rows, keep, _ = (x.to(dev) for x in _compact_case(
+        np.random.default_rng(5), n, "keep", k=3))
+    g = [0, 0, 0, 0]
+    got = cp.compact(rows, keep, grid=g)
+    torch.cuda.synchronize()
+    _check_plan(g, n, most)
+    assert g[1] // 256 == ROUNDS[where, d]
+    assert torch.equal(got, cp.compact_plain(rows, keep))
 
 
 @pytest.mark.parametrize("n", [0, 1, 255, 256, 257, (1 << 20) + 3])
@@ -1725,32 +1824,228 @@ def test_hit_marks_kernel_matches_plain(dev, n, mode):
         assert want[0].any() and not want[0].all()
 
 
-def _shard_case(rng, n, T=3000):
+SHARD_KINDS = ["mixed", "q_only", "m_only", "no_arcs", "self"]
+
+
+def _shard_case(rng, n, T=3000, kind="mixed"):
     """(rows, out, marks, mdel) for K19: tail_inputs' rows and K1 output
-    with a gid row; the marks as 0/1 rows [used cont pal]."""
+    with a gid row; the marks as 0/1 rows [used cont pal].  q_only and
+    m_only keep one lane bit of every row, no_arcs makes every code
+    negative (no arc, m_contained still counts), self makes every row a
+    self-hit.  Also the CPU cases of tests/test_torch_compact.py."""
     colmat, out, tab, mdel = tail_inputs(rng, n=n, T=T)
+    if kind == "q_only":
+        out[4] &= 1
+    elif kind == "m_only":
+        out[4] &= 2
+    elif kind == "no_arcs":
+        out[5] = out[10] = -1
+    elif kind == "self":
+        colmat[3] = colmat[0]
     gid = torch.arange(n, dtype=torch.int32) * 2
     rows = torch.cat([colmat, gid[None]]).contiguous()
     marks = torch.stack([tab & 1, (tab >> 1) & 1, (tab >> 2) & 1])
     return rows, out, marks.contiguous(), mdel
 
 
-@pytest.mark.parametrize("n", EDGES)
-def test_shard_arcs_kernel_matches_plain(dev, n):
+def _check_shard_arcs(args, kind="mixed", grid=None):
     from miniasm_tpu_torch.parallel import full
 
-    args = [x.to(dev) for x in _shard_case(
-        np.random.default_rng(19 + n % 83), n)]
     before = _count("shard_arcs")
-    arcmat, cnt = full.shard_arcs(*args)
+    arcmat, cnt = full.shard_arcs(*args, grid=grid)
     torch.cuda.synchronize()
+    n = args[0].shape[1]
     assert _count("shard_arcs") - before == (1 if n else 0)
     want, wcnt = full.shard_arcs_plain(*args)
     assert torch.equal(cnt, wcnt)
     assert arcmat.shape == want.shape and torch.equal(arcmat, want)
+    assert arcmat.is_contiguous()
     if n > 1000:
         side = want[4] & 1
-        assert side.any() and not side.all() and int(wcnt[0]) > want.shape[1]
+        assert int(wcnt[0]) > want.shape[1]
+        if kind == "mixed":
+            assert side.any() and not side.all()
+        elif kind in ("q_only", "m_only"):
+            assert want.shape[1] and bool((side == 0).all()) == (
+                kind == "q_only")
+        else:
+            assert want.shape[1] == 0
+
+
+@pytest.mark.parametrize("n", EDGES)
+@pytest.mark.parametrize("kind", SHARD_KINDS)
+def test_shard_arcs_kernel_matches_plain(dev, n, kind):
+    args = [x.to(dev) for x in _shard_case(
+        np.random.default_rng(19 + n % 83), n, kind=kind)]
+    _check_shard_arcs(args, kind)
+
+
+@pytest.mark.parametrize("where,d", GRID_EDGES)
+def test_shard_arcs_kernel_grid_edges(dev, where, d):
+    """K19 at the edges of its grid's first round."""
+    most = _most_blocks("shard_arcs")
+    n = _grid_n(most, where, d)
+    args = [x.to(dev) for x in _shard_case(np.random.default_rng(23), n)]
+    g = [0, 0, 0, 0]
+    _check_shard_arcs(args, grid=g)
+    _check_plan(g, n, most)
+    assert g[1] // 256 == ROUNDS[where, d]
+
+
+# the bits of a launch in global scratch (a shared-memory cap of one
+# byte): one word of 32 rounds a lane in one block, several blocks, and
+# several words a lane ("words": past the whole grid's first word)
+SPILL_NS = [1, 257, 8193, (1 << 20) + 3, "words"]
+
+
+def _spill_check(g, n, most):
+    """The plan in global scratch: 32 rounds a lane a word, as few words
+    as the card's grid needs."""
+    _check_plan(g, n, most, spill=True)
+    assert g[1] == 8192 * -(-n // (most * 8192))
+
+
+@pytest.mark.parametrize("n", SPILL_NS)
+@pytest.mark.parametrize("mode", ["keep", "none", "keep_remap"])
+def test_compact_kernel_bits_in_global_scratch(dev, n, mode):
+    """K16 with its keep bits in global scratch, as past what shared
+    memory holds: bit-equal to its twin, one launch."""
+    from miniasm_tpu_torch.utils import compact as cp
+
+    most = _most_blocks("compact", smem_cap=1)
+    if n == "words":
+        n = 2 * most * 8192 + 1
+    rows, keep, mp = (x.to(dev) for x in _compact_case(
+        np.random.default_rng(n % 991), n, mode,
+        k=9 if mode == "keep_remap" else 3))
+    kw = _compact_kw(mode, keep, mp)
+    g = [0, 0, 0, 0]
+    before = _count("compact")
+    got = cp.compact(rows, **kw, grid=g, smem_cap=1)
+    torch.cuda.synchronize()
+    assert _count("compact") - before == 1
+    _spill_check(g, n, most)
+    assert torch.equal(got, cp.compact_plain(rows, **kw))
+
+
+@pytest.mark.parametrize("n", SPILL_NS)
+def test_shard_arcs_kernel_bits_in_global_scratch(dev, n):
+    """K19 with its lane bits in global scratch."""
+    most = _most_blocks("shard_arcs", smem_cap=1)
+    if n == "words":
+        n = 2 * most * 8192 + 1
+    args = [x.to(dev) for x in _shard_case(np.random.default_rng(n % 89),
+                                           n)]
+    from miniasm_tpu_torch.parallel import full
+
+    g = [0, 0, 0, 0]
+    arcmat, cnt = full.shard_arcs(*args, grid=g, smem_cap=1)
+    torch.cuda.synchronize()
+    _spill_check(g, n, most)
+    want, wcnt = full.shard_arcs_plain(*args)
+    assert torch.equal(cnt, wcnt) and torch.equal(arcmat, want)
+
+
+def _tiled(t, n):
+    """t repeated along its last axis to n items."""
+    reps = -(-n // t.shape[-1])
+    return t.repeat(*([1] * (t.dim() - 1)), reps)[..., :n].contiguous()
+
+
+def test_compact_kernel_past_shared_memory(dev):
+    """K16 on 2**28 columns (its bits past what shared memory holds; the
+    kernel takes up to 2**31 - 1): a seeded case of 2**20 + 3 columns
+    tiled, one row, 40% kept."""
+    from miniasm_tpu_torch.utils import compact as cp
+
+    n = 1 << 28
+    rows, keep, _ = _compact_case(np.random.default_rng(31), (1 << 20) + 3,
+                                  "keep", k=1)
+    rows, keep = _tiled(rows.to(dev), n), _tiled(keep.to(dev), n)
+    g = [0, 0, 0, 0]
+    got = cp.compact(rows, keep, grid=g)
+    torch.cuda.synchronize()
+    assert g[3] > 0 and g[0] * g[1] >= n
+    want = cp.compact_plain(rows, keep)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_shard_arcs_kernel_past_shared_memory(dev):
+    """K19 on 2**27 rows (its bits past what shared memory holds; the
+    kernel takes up to 2**30 - 1): a seeded case of 2**20 + 3 rows
+    tiled."""
+    from miniasm_tpu_torch.parallel import full
+
+    n = 1 << 27
+    rows, out, marks, mdel = _shard_case(np.random.default_rng(37),
+                                         (1 << 20) + 3)
+    args = [_tiled(rows.to(dev), n), _tiled(out.to(dev), n),
+            marks.to(dev), mdel.to(dev)]
+    g = [0, 0, 0, 0]
+    arcmat, cnt = full.shard_arcs(*args, grid=g)
+    torch.cuda.synchronize()
+    assert g[3] > 0 and g[0] * g[1] >= n
+    want, wcnt = full.shard_arcs_plain(*args)
+    assert torch.equal(cnt, wcnt) and torch.equal(arcmat, want)
+    assert int(wcnt[1]) > n // 4
+
+
+def _device_events(fn):
+    """The device events of one call of fn (after a warm call), by
+    torch.profiler; a session that records none is made again, three
+    times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if ev:
+            return ev
+    raise AssertionError("the profiler recorded no device event")
+
+
+def _one_call_events(name):
+    """Prints, as a JSON list, the device events of one call of K16 or
+    K19 on seeded inputs (run in a process of its own by
+    test_compaction_one_launch_a_call)."""
+    from miniasm_tpu_torch.parallel import full
+    from miniasm_tpu_torch.utils import compact as cp
+
+    rng = np.random.default_rng(29)
+    if name == "compact":
+        rows, keep, mp = (x.cuda() for x in _compact_case(
+            rng, 300_000, "keep_remap"))
+        fn = lambda: cp.compact(rows, keep, mp)  # noqa: E731
+    else:
+        args = [x.cuda() for x in _shard_case(rng, 300_000)]
+        fn = lambda: full.shard_arcs(*args)  # noqa: E731
+    print(json.dumps(_device_events(fn)))
+
+
+@pytest.mark.parametrize("name", ["compact", "shard_arcs"])
+def test_compaction_one_launch_a_call(dev, name):
+    """One call of K16 or K19 launches one kernel, and no memset (at most
+    one is allowed), besides the copy that reads its count back.  The
+    profiler runs in a process of its own: in the test process, after the
+    profiled CLI runs of other tests, a session held the copy but not the
+    kernel."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path[:0] = %r; import test_torch_cuda as t; "
+            "t._one_call_events(%r)" % ([os.path.dirname(here), here], name))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ev = json.loads(r.stdout.strip().splitlines()[-1])
+    kernels = [e for e in ev if not e.startswith(("Memset", "Memcpy"))]
+    memsets = [e for e in ev if e.startswith("Memset")]
+    assert len(kernels) == 1 and name in kernels[0], ev
+    assert len(memsets) <= 1, ev
 
 
 @pytest.mark.parametrize("T", [5, 1023, 1024, 1025, 2049])

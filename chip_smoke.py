@@ -28,7 +28,8 @@ What it does, in order:
      every kernel launch counter is set to 0 just before each run and read
      just after it, and the run fails unless each kernel launched as that
      run requires (EXPECT, and MH_EXPECT for each worker process): K1-K4,
-     K9, K10, K12 and K13 on the noisy main-path runs, K2, K5, K16, K17
+     K9, K10 and K13 (with K12's marks: K12 alone never) on the noisy
+     main-path runs, K2, K5, K16, K17
      and K18 on the staged runs (K6 never: only the graft entry's forward
      step, phase 6, launches it), K3, K7 and K8 on the oracle runs, K11 (its layout
      pass once per Layout, its scatter once per payload), K1-K4, K12 and
@@ -42,7 +43,11 @@ What it does, in order:
      caller finds a kernel's inputs cold), K14 also without the flush
      (as the path finds its inputs, right after K3) and beside an empty
      cooperative launch of its grid (its latency floor, with one grid
-     sync and without); beside K13 and K14 it times
+     sync and without), K13 each call by launch, also without the flush,
+     with its host time, and beside an empty cooperative launch of its
+     grid with 0, 1 and as many grid syncs as it makes (its floor); beside
+     K12 it times one scatter_reduce_ amax, the same function in one
+     PyTorch call, beside K13 and K14
      the PyTorch calls that do their costly part (a stable int64
      torch.sort; a torch.sort and searchsorted), beside K16 a boolean-mask
      index of the same columns (each of its five kinds of call on a line
@@ -133,11 +138,13 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # The loader launches K9 once per FMT3 piece and K10 once per FMT3 or
 # 4-row piece ("=decode3": as many as K9); the staged path's loader is
 # another (pafread.cpp) and launches neither.  The main path's select
-# launches K12 and K13 once; every detection of the hybrid clean launches
-# K14 once (each run is also held to its clean.detect_n, _check_detects).
+# launches K13 once, the marks of K12 inside it, and K12 alone never (the
+# sharded step launches it once a rank); every detection of the hybrid
+# clean launches K14 once (each run is also held to its clean.detect_n,
+# _check_detects).
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
          "decode3": ">0", "unpack4": "=decode3", "route": 0,
-         "route_layout": 0, "read_marks": 1, "arc_order": 1,
+         "route_layout": 0, "read_marks": 0, "arc_order": 1,
          "clean_stage_b": "any", "compact": 0,
          "hit_flt": 0, "hit_marks": 0, "shard_arcs": 0}
 _CLEAN = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=">0",
@@ -204,17 +211,21 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           # the sharded runs: rank 0 loads on the host (7-row pieces,
           # nothing to decode: no K9/K10); K11's layout pass once for the
           # select step's one Layout and its scatter once per sweep pass,
-          # then the main path's select kernels but K13: the step's arc
-          # tail is K19 (once; full.py select_step), then the clean kernels
+          # then K1, K2, K12 alone (its marks are OR-ed across the ranks)
+          # and, for the arc tail, K19 (once; full.py select_step) where
+          # the main path runs K13; then the clean kernels
           "sharded_ug": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                             unpack4=0, arc_order=0, shard_arcs=1),
+                             unpack4=0, read_marks=1, arc_order=0,
+                             shard_arcs=1),
           "sharded_ug_2": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0, arc_order=0, shard_arcs=1),
+                               unpack4=0, read_marks=1, arc_order=0,
+                               shard_arcs=1),
           "sharded_ug_3": dict(_CLEAN, route=2, route_layout=1, decode3=0,
-                               unpack4=0, arc_order=0, shard_arcs=1),
+                               unpack4=0, read_marks=1, arc_order=0,
+                               shard_arcs=1),
           "sharded_noisy_ug": dict(_NOISY, route=2, route_layout=1,
-                                   decode3=0, unpack4=0, arc_order=0,
-                                   shard_arcs=1),
+                                   decode3=0, unpack4=0, read_marks=1,
+                                   arc_order=0, shard_arcs=1),
           # the v2 loader: one copy of the colmat, no K9 or K10; -p paf
           # runs the staged path of both passes and the containment
           # (_run_staged), without a graph
@@ -252,7 +263,7 @@ for _tag, _want in EXPECT.items():
 # path's run in which K1-K4 all launch (and K14 once per detection),
 # the staged -1 run for K5, K16, K18, the staged -S 4 run for K17, the
 # graft entry's forward step for K6, the py oracle run for K7, K8, the
-# clean set's warm run for K9, K10, K12, K13, and its sharded run for K11
+# clean set's warm run for K9, K10, K13, and its sharded run for K11, K12
 # and K19
 RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "trans_multi": "noisy_ug", "bubble_bfs": "noisy_ug",
@@ -261,7 +272,7 @@ RUN_OF_RECORD = {"cut_hit2arc": "noisy_ug", "sweep": "noisy_ug",
                  "hit_marks": "ecoli_s1_ug", "shard_arcs": "sharded_ug",
                  "key_member": "noisy_py_sg", "dup_mark": "noisy_py_sg",
                  "decode3": "ecoli_ug", "unpack4": "ecoli_ug",
-                 "route": "sharded_ug", "read_marks": "ecoli_ug",
+                 "route": "sharded_ug", "read_marks": "sharded_ug",
                  "arc_order": "ecoli_ug", "clean_stage_b": "noisy_ug"}
 # the path whose calls each kernel's row times (K6: the graft entry's
 # forward step, the one caller left); a kernel reused on another path gets
@@ -273,7 +284,8 @@ ROW_PATH = {"cut_hit2arc": "main", "sweep": "main", "trans_multi": "main",
             "compact": "staged", "hit_flt": "staged", "hit_marks": "staged",
             "shard_arcs": "sharded",
             "key_member": "oracle", "dup_mark": "oracle", "decode3": "main",
-            "unpack4": "main", "route": "sharded", "read_marks": "main",
+            "unpack4": "main", "route": "sharded",
+            "read_marks": "sharded",
             "arc_order": "main", "clean_stage_b": "main"}
 # a kernel whose row times one call, not the sum of its path's variants:
 # K11's largest call of the run of record (its other calls are listed as
@@ -577,6 +589,8 @@ def _max_abs_err(got, want) -> float:
 def _cost(name, args, kw, out):
     """(bytes, ops) the function needs on these inputs: every input read
     once, every output written once; ops counted from this run's data."""
+    from miniasm_tpu_torch.select import fused2
+
     if name == "cut_hit2arc":
         colmat, coords, lanes, tab = args
         n = colmat.shape[1]
@@ -692,20 +706,27 @@ def _cost(name, args, kw, out):
         return (4 * o.shape[1] + 16 * n_act + 20 * n_self + _nbytes(out),
                 12 * n_act)
     if name == "arc_order":
-        # every row's lane bits, a row with a valid lane also its reads,
-        # codes and both reads' marks and deletion (tab, mdel: read once);
-        # each arc's start and its u, v, l, ol read, the head and the
-        # arc's five words written (the kernel writes the first n_arc rows
-        # of each column only); per row about 20 integer ops, per read of
-        # c arcs a comparison sort's c log2 c
-        colmat, o, tab, mdel = args[:4]
+        # K13 with K12's marks: every row's lane bits; a row with a valid
+        # lane also its reads and both codes, a self row also its flags
+        # and coordinates (K12's part); mdel read once; each arc's start
+        # and its u, v, l, ol read; the head, the flags row and the arc's
+        # five words written.  The per-read marks, counts and cursors are
+        # scratch inside the launch, not inputs or outputs: their bytes
+        # count nowhere.  Per row about 32 integer ops (its mark words,
+        # its arc lanes, their counts and places), per read of c arcs a
+        # comparison sort's c log2 c
+        colmat, o, mdel, n_seq = args[:4]
         n = o.shape[1]
-        act = int(((o[4] & 3) != 0).sum())
-        c = _arcs_per_read(out, colmat, tab.shape[0]).to(torch.float64)
+        act = (o[4] & 3) != 0
+        n_act = int(act.sum())
+        n_self = int((act & (colmat[0] == colmat[3])).sum())
+        arcs = fused2.arc_live(out, n_seq, kw.get("meta", 3))[2]
+        n_arc = arcs.shape[1]
+        c = _arcs_per_read(arcs, colmat, mdel.numel()).to(torch.float64)
         sort = float((c * torch.log2(c.clamp(min=1))).sum())
-        n_arc = int(out[1])
-        return (4 * n + 16 * act + _nbytes(tab, mdel) + 20 * n_arc
-                + 4 * 3 + 20 * n_arc, 20 * n + sort)
+        return (4 * n + 16 * n_act + 20 * n_self + mdel.numel()
+                + 20 * n_arc + 4 * 3 + 4 * n_seq + 20 * n_arc,
+                32 * n + sort)
     if name == "clean_stage_b":
         # what the function moves: the CSR columns, K3's bits and sdel_v
         # read once, the complement rows' targets and bits as far as each
@@ -762,14 +783,11 @@ def _compact_kind(args, kw):
     return {9: "cut", 3: "trim"}.get(len(rows), "%dr_list" % len(rows))
 
 
-def _arcs_per_read(res, colmat, T):
-    """K13's arcs per read (the bucket sizes its sorts take), from its
-    result's rows."""
-    n = colmat.shape[1]
-    n_arc = int(res[1])
-    row = res[3 + 8 * n:3 + 8 * n + n_arc].long()
-    read = torch.cat([colmat[0], colmat[3]])[row].clamp(0, T - 1).long()
-    return torch.bincount(read, minlength=T)
+def _arcs_per_read(arcs, colmat, T):
+    """K13's arcs per read (the bucket sizes its sorts take), from the row
+    column of its (5, n_arc) arcs."""
+    read = torch.cat([colmat[0], colmat[3]])[arcs[4].long()]
+    return torch.bincount(read.clamp(0, T - 1).long(), minlength=T)
 
 
 def _stage_b_rows(args):
@@ -859,11 +877,11 @@ def _measure(name, fn, plain, args, kw, reps):
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     if name == "arc_order":
-        # the part both write: the head and the first n_arc rows
+        # the part both write: the head, the flags row and the arcs
         from miniasm_tpu_torch.select.fused2 import arc_live
 
-        n = args[0].shape[1]
-        err = _max_abs_err(arc_live(got, n), arc_live(want, n))
+        live = (args[3], kw.get("meta", 3))
+        err = _max_abs_err(arc_live(got, *live), arc_live(want, *live))
     else:
         err = _max_abs_err(got, want)
     b, o = _cost(name, args, kw, got)
@@ -891,13 +909,33 @@ def _measure(name, fn, plain, args, kw, reps):
     if name == "arc_order":
         # the costly part as one PyTorch call: the stable torch.sort of the
         # compacted arcs' int64 hit keys (in row order, as the twin sorts)
-        colmat, n = args[0], args[0].shape[1]
-        row = got[3 + 8 * n:3 + 8 * n + int(got[1])].long().sort().values
+        from miniasm_tpu_torch.select.fused2 import arc_live
+
+        colmat = args[0]
+        arcs = arc_live(got, args[3], kw.get("meta", 3))[2]
+        row = arcs[4].long().sort().values
         hkey = ((torch.cat([colmat[0], colmat[3]])[row].long() << 32)
                 | ((torch.cat([colmat[1], colmat[4]])[row].long() + 2**31)
                    & 0xFFFFFFFF))
         m["library_ms"] = _time_ms(
             lambda: torch.sort(hkey, stable=True), reps)
+        m.update(_tail_extras(fn, args, kw, split, reps))
+    if name == "read_marks":
+        # the function as one PyTorch call: a scatter_reduce_ amax of the
+        # rows' mark words over the concatenated query and target indices
+        # (both made before the timing) into a zeroed word a read
+        from miniasm_tpu_torch.select.fused2 import mark_words
+
+        qi, qb, ti, tb = mark_words(*args[:3])
+        idx, val = torch.cat([qi, ti]), torch.cat([qb, tb])
+        lib = torch.zeros(args[2], dtype=torch.int32, device=idx.device)
+        if not torch.equal(lib.scatter_reduce_(0, idx, val, "amax"), got):
+            _fail("read_marks disagrees with its scatter_reduce_")
+        m["library_ms"] = _time_ms(
+            lambda: lib.scatter_reduce_(0, idx, val, "amax"), reps)
+        m["device_split"] = {_short(k): v for k, v in split.items()}
+        m["device_ms_unflushed"] = _device_ms(
+            lambda: fn(*args, **kw), reps, flush=False)
     if name == "compact":
         # one boolean-mask index of the same columns, as one matrix, by the
         # survivors' mask (with a remap: of the survivors of both ids)
@@ -970,6 +1008,29 @@ def _compaction_extras(fn, args, kw, split, reps) -> dict:
     return out
 
 
+def _tail_extras(fn, args, kw, split, reps) -> dict:
+    """K13's call: its device time by launch (split: by event name), and
+    without the L2 flush, its wrapper's host time, the grid it launched
+    and its latency floor: an empty cooperative launch of as many blocks
+    of 256 threads with 0, 1 and as many grid syncs as K13 makes, each
+    timed after a flush and without."""
+    grid = [0, 0, 0, 0]
+    call = lambda: fn(*args, **dict(kw, grid=grid))  # noqa: E731
+    call()
+    out = {"device_split": {_short(k): v for k, v in split.items()},
+           "grid": {"blocks": grid[0], "reads_a_block": grid[1],
+                    "most_blocks": grid[2], "syncs": grid[3]},
+           "ms_unflushed": _time_ms(call, reps, flush=False),
+           "device_ms_unflushed": _device_ms(call, reps, flush=False),
+           "host_us": _host_us(call, reps)}
+    for syncs in sorted({0, 1, grid[3]}):
+        f = _coop_floor(grid[0], syncs)
+        out["floor_%d" % syncs] = {
+            "ms": _time_ms(f, reps), "device_ms": _device_ms(f, reps),
+            "device_ms_unflushed": _device_ms(f, reps, flush=False)}
+    return out
+
+
 def _wall_us(fn, reps: int) -> float:
     """Mean wall time, in us, of one call of fn that ends in a sync (a
     compaction's wrapper reads its count back), each started on an idle
@@ -1019,11 +1080,10 @@ def _host_us(fn, reps: int) -> float:
     return tot / reps * 1e6
 
 
-def _coop_floor(blocks: int, sync: int):
+def _coop_floor(blocks: int, syncs: int):
     """A launcher of clean.cu's ma_coop_floor: an empty cooperative launch
-    of `blocks` blocks of 256 threads, with one grid sync when sync is 1
-    (a measurement's entry, called through the library, counted
-    nowhere)."""
+    of `blocks` blocks of 256 threads that makes `syncs` grid syncs (a
+    measurement's entry, called through the library, counted nowhere)."""
     from miniasm_tpu_torch import cuda
 
     f = cuda._lib("clean.cu").ma_coop_floor
@@ -1031,7 +1091,7 @@ def _coop_floor(blocks: int, sync: int):
     f.restype = ctypes.c_int
 
     def launch():
-        err = f(blocks, sync, torch.cuda.current_stream().cuda_stream)
+        err = f(blocks, syncs, torch.cuda.current_stream().cuda_stream)
         if err:
             _fail("coop_floor: launch failed (cudaError %d)" % err)
     return launch
@@ -1111,22 +1171,23 @@ def _arc_tiers(row, calls):
     _size, args, kw = max((calls[k] for k in calls
                            if k[0] == ROW_PATH["arc_order"]),
                           key=lambda c: c[0])
-    res, t = fused2.arc_order_tiers(*args)
-    c = _arcs_per_read(res, args[0], args[2].shape[0])
+    live = (args[3], kw.get("meta", 3))
+    res, t = fused2.arc_order_tiers(*args, meta=live[1])
+    head, _flags, arcs = fused2.arc_live(res, *live)
+    c = _arcs_per_read(arcs, args[0], args[2].numel())
     row["largest_call"] = {
-        "rows": args[0].shape[1], "arcs": int(res[1]),
+        "rows": args[0].shape[1], "arcs": int(head[1]),
         "most_arcs_a_read": int(c.max()),
-        "reads_with_arcs": int((c > 0).sum()), "dup_hit": int(res[2]),
+        "reads_with_arcs": int((c > 0).sum()), "dup_hit": int(head[2]),
         "block_reads": int(t[0]), "device_memory_reads": int(t[1])}
-    res0, t0 = fused2.arc_order_tiers(*args, smem_cap=0)
+    res0, t0 = fused2.arc_order_tiers(*args, meta=live[1], smem_cap=0)
     row["largest_call_smem0"] = {"block_reads": int(t0[0]),
                                  "device_memory_reads": int(t0[1])}
     _say("[arc_order] largest call: %s; smem_cap=0: %s"
          % (json.dumps(row["largest_call"]),
             json.dumps(row["largest_call_smem0"])))
-    n = args[0].shape[1]
     same = all(torch.equal(x, y) for x, y in zip(
-        fused2.arc_live(res0, n), fused2.arc_live(res, n)))
+        fused2.arc_live(res0, *live), fused2.arc_live(res, *live)))
     if not same or not int(t0[0]) == int(t0[1]) == int((c > 0).sum()):
         _fail("arc_order with smem_cap=0 took other branches than it was "
               "built for, or disagrees with the default cap")
@@ -1228,8 +1289,8 @@ def _kernel_phase(recs, runs, cases):
              # the recorded calls pass the main path's fetch buffer (res,
              # out), which the twins do not take
              "read_marks": fused2.read_marks_plain,
-             "arc_order": lambda *a, smem_cap=None, res=None:
-                 fused2.arc_order_plain(*a),
+             "arc_order": lambda *a, smem_cap=None, res=None, meta=3,
+                 grid=None: fused2.arc_order_plain(*a, meta=meta),
              "clean_stage_b": lambda *a, out=None:
                  devclean.clean_stage_b_plain(*a[:7], a[8]),
              "compact": kc.compact_plain,
@@ -1308,6 +1369,26 @@ def _kernel_phase(recs, runs, cases):
             for k in ("grid", "ms_unflushed", "device_ms_unflushed",
                       "host_us", "floor", "floor_nosync"):
                 row[k] = own[0][k]
+        if name in ("read_marks", "arc_order"):
+            # each call on a line of its own: its times by launch beside
+            # the library call; K13 also without the flush, its host time,
+            # its grid and floor
+            for k, m in sorted(measured.items()):
+                keys = ["shapes", "ms", "device_ms", "device_split",
+                        "device_ms_unflushed", "ms_unflushed", "host_us",
+                        "library_ms", "grid"]
+                keys += sorted(x for x in m if x.startswith("floor_"))
+                _say("[%s] %s: %s" % (name, "/".join(k), json.dumps({
+                    x: m[x] for x in keys if x in m}
+                    | {"bound_ms": _sum([m])["bound_ms"]})))
+            if name == "arc_order":
+                # the largest call: its grid, split, unflushed and host
+                # times, its latency floor
+                for x in own[0]:
+                    if x.startswith(("floor_", "grid", "device_split",
+                                     "ms_unflushed", "device_ms_unflushed",
+                                     "host_us")):
+                        row[x] = own[0][x]
         if name in ("compact", "shard_arcs"):
             # each call on a line of its own: its columns, its times by
             # launch beside the library call, its grid and floor
@@ -1767,13 +1848,10 @@ DEVICE_FUNCS = {"cut_hit2arc": ("cut_hit2arc_kernel",),
                 "decode3": ("decode3_kernel",),
                 "unpack4": ("unpack4_kernel",),
                 "read_marks": ("read_marks_kernel",),
-                "arc_order": ("arc_count_kernel", "scan_sums_kernel",
-                              "scan_blocks_kernel", "scan_offsets_kernel",
-                              "arc_scatter_kernel", "arc_sort_warp_kernel",
-                              "arc_sort_big_kernel"),
+                "arc_order": ("arc_order_kernel",),
                 "clean_stage_b": ("clean_stage_b_kernel",)}
 # the kernels each profiled run must show in its trace
-_TAILS = ("read_marks", "arc_order", "clean_stage_b")
+_TAILS = ("arc_order", "clean_stage_b")
 PROFILED = {"noisy_ug": ("cut_hit2arc", "sweep", "trans_multi",
                          "bubble_bfs", "decode3", "unpack4") + _TAILS,
             "ecoli_ug": ("cut_hit2arc", "sweep", "trans_multi", "decode3",

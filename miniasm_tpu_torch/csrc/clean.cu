@@ -431,34 +431,10 @@ clean_stage_b_kernel(StageB p, Ratios rs) {
     }
 }
 
-// the latency floor of the design: a cooperative launch of `blocks`
-// blocks of THREADS threads that does nothing but, with sync, one grid
-// sync
-__global__ void __launch_bounds__(THREADS) coop_floor_kernel(int sync) {
-    if (sync) cooperative_groups::this_grid().sync();
-}
-
-// the cooperative grid, into *grid: the blocks the card holds at once (the
-// occupancy limit times the SMs, both read per call), at most the blocks
-// the rows need
-cudaError_t coop_grid(const void* kernel, int64_t need, int* grid) {
-    int dev = 0, coop = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          THREADS, 0);
-    if (e == cudaSuccess && per_sm < 1)
-        e = cudaErrorCooperativeLaunchTooLarge;
-    if (e != cudaSuccess) return e;
-    *grid = static_cast<int>(
-        std::max<int64_t>(1, std::min<int64_t>(
-                                 static_cast<int64_t>(per_sm) * sms, need)));
-    return cudaSuccess;
+// the latency floor of a cooperative design: a launch of `blocks` blocks
+// of THREADS threads that does nothing but `syncs` grid syncs
+__global__ void __launch_bounds__(THREADS) coop_floor_kernel(int syncs) {
+    for (int k = 0; k < syncs; ++k) cooperative_groups::this_grid().sync();
 }
 
 template <int L>
@@ -466,7 +442,8 @@ int launch_stage_b(StageB p, Ratios rs, int* grid, cudaStream_t stream) {
     const void* kernel = reinterpret_cast<const void*>(
         clean_stage_b_kernel<L>);
     constexpr int64_t RPB = THREADS / L;
-    cudaError_t e = coop_grid(kernel, (p.V + RPB - 1) / RPB, grid);
+    cudaError_t e = coop_blocks(kernel, THREADS, 0, (p.V + RPB - 1) / RPB,
+                                grid);
     if (e != cudaSuccess) return static_cast<int>(e);
     grid[1] = L;
     void* args[] = {&p, &rs};
@@ -534,11 +511,13 @@ extern "C" int ma_clean_stage_b(const int64_t* first, const int32_t* av,
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The latency floor beside K14: an empty cooperative launch of `blocks`
-// blocks (K14's grid), with one grid sync when sync is 1.
-extern "C" int ma_coop_floor(int blocks, int sync, cudaStream_t stream) {
-    if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-    void* args[] = {&sync};
+// The latency floor beside a cooperative kernel (K13, K14, K16, K19): an
+// empty cooperative launch of `blocks` blocks of 256 threads (the
+// kernel's grid) that makes `syncs` grid syncs.
+extern "C" int ma_coop_floor(int blocks, int syncs, cudaStream_t stream) {
+    if (blocks < 1 || syncs < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    void* args[] = {&syncs};
     cudaError_t e = cudaLaunchCooperativeKernel(
         reinterpret_cast<const void*>(coop_floor_kernel), dim3(blocks),
         dim3(THREADS), args, 0, stream);

@@ -108,6 +108,7 @@ __device__ __forceinline__ void grid_block_offsets(const int32_t (&count)[N],
         for (int c = 0; c < N; ++c) bsum[N * blockIdx.x + c] = count[c];
     cooperative_groups::this_grid().sync();
     int32_t b[N] = {}, t[N] = {};
+#pragma unroll 4
     for (unsigned i = threadIdx.x; i < gridDim.x; i += blockDim.x)
         for (int c = 0; c < N; ++c) {
             const int32_t v = __ldcg(bsum + N * i + c);
@@ -236,6 +237,122 @@ static inline cudaError_t coop_plan(const void* kernel, int64_t n, int words,
     p->spill = p->W * unit;
     if (p->spill * p->grid > spill_words) return cudaErrorInvalidValue;
     return cudaSuccess;
+}
+
+// The blocks of a cooperative launch of `kernel` (blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory) that the card holds
+// at once: the occupancy limit times the SMs, both read per call, at most
+// `need` and at least 1, into *grid.  Used by K13 (select.cu) and K14
+// (clean.cu).
+static inline cudaError_t coop_blocks(const void* kernel, int threads,
+                                      size_t smem, int64_t need, int* grid) {
+    int dev = 0, coop = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (e == cudaSuccess && per_sm < 1)
+        e = cudaErrorCooperativeLaunchTooLarge;
+    if (e != cudaSuccess) return e;
+    *grid = static_cast<int>(
+        std::max<int64_t>(1, std::min<int64_t>(
+                                 static_cast<int64_t>(per_sm) * sms, need)));
+    return cudaSuccess;
+}
+
+// ---- warp-aggregated updates of per-read words (K12, K13: select.cu) ----
+//
+// Every lane of the warp calls them with K keys, its reads (a negative
+// key: no update).  With RUNS, for each k the lanes of a run of equal
+// keys, lanes next to each other, find each other by one shuffle and one
+// ballot, and one lane of the run makes its one atomic: the loader keeps a
+// query's rows together, so a warp's q-sides mostly form one or two runs,
+// which per-lane atomics would serialise on one word.  Without RUNS (the
+// targets, in no order) each lane makes its own.  Every shuffle names the
+// whole warp: a run's mask in __match_any_sync, __reduce_max_sync or
+// __shfl_sync costs more on the card than the atomics it saves.  The runs
+// of all K keys come first, then the atomics, so that a lane's K atomics
+// (and the loads before them) are in flight together.
+
+// the lanes below this one
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+    return (1u << lane) - 1u;
+}
+
+// the run of equal keys that holds this lane: its first and last lane
+struct Run32 {
+    int first, last;
+};
+
+__device__ __forceinline__ Run32 key_run(int32_t key, int lane) {
+    const int32_t prev = __shfl_up_sync(FULL, key, 1);
+    const unsigned heads = __ballot_sync(FULL, lane == 0 || prev != key);
+    const unsigned upto = lane == 31 ? FULL : (2u << lane) - 1u;
+    const unsigned after = heads & ~upto;  // the heads of the later runs
+    return {31 - __clz(static_cast<int>(heads & upto)),
+            after ? __ffs(static_cast<int>(after)) - 2 : 31};
+}
+
+// word[key] = max(word[key], the lanes' v), not where the word already
+// holds at least as much (read through L2, so that no SM keeps a copy of
+// a word in L1 while the words change).  A run's maximum comes to its
+// last lane by a segmented scan.
+template <int K, bool RUNS>
+__device__ __forceinline__ void warp_max_batch(int32_t* word,
+                                               const int32_t (&key)[K],
+                                               const int32_t (&v)[K],
+                                               int lane) {
+    int32_t m[K], have[K];
+    bool lead[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        m[k] = v[k];
+        lead[k] = key[k] >= 0;
+        if (RUNS) {
+            const Run32 run = key_run(key[k], lane);
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int32_t y = __shfl_up_sync(FULL, m[k], o);
+                if (lane - o >= run.first) m[k] = max(m[k], y);
+            }
+            lead[k] = lead[k] && lane == run.last;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        have[k] = lead[k] ? __ldcg(word + key[k]) : 0x7fffffff;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+        if (have[k] < m[k]) atomicMax(word + key[k], m[k]);
+}
+
+// word[key] += the lanes of key, by runs
+template <int K>
+__device__ __forceinline__ void warp_count_runs(int32_t* word,
+                                                const int32_t (&key)[K],
+                                                int lane) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        const Run32 run = key_run(key[k], lane);
+        if (key[k] >= 0 && lane == run.first)
+            atomicAdd(word + key[k], run.last - run.first + 1);
+    }
+}
+
+// cursor[key] += the lanes of key, by runs; returns the cursor before
+// that plus the lanes of the run below this one: the lane's own place
+__device__ __forceinline__ int32_t warp_slot(int32_t* cursor, int32_t key,
+                                             int lane) {
+    const Run32 run = key_run(key, lane);
+    int32_t at = 0;
+    if (key >= 0 && lane == run.first)
+        at = atomicAdd(cursor + key, run.last - run.first + 1);
+    return __shfl_sync(FULL, at, run.first) + lane - run.first;
 }
 
 // number of blocks of `threads` covering n items

@@ -551,322 +551,501 @@ ev_sweep_big_kernel(uint32_t* buf, const int32_t* __restrict__ off,
 
 // ---------------------------------------------------------------------------
 // K12 read_marks: the containment / used / palindrome marks of the final
-// pass (fused2.py:401-426; hit.c:225-236, asm.c:9-39).  One thread per
-// original row reads its lane bits and both sides' hit2arc codes from K1's
-// final-pass output and raises the per-read word of its query (used,
-// contained, palindrome: bits 0-2) and of its target (used, contained) by
-// atomicMax.  It is a max, not an or, because both packages reduce with
-// amax: a palindromic self-hit row (5) and a row that marks the same read
-// contained (3) leave 5.  A row with no valid lane adds 0 and is skipped;
-// a word that already holds at least the row's value is not touched.
+// pass (fused2.py:401-426; hit.c:225-236, asm.c:9-39).  Row i raises the
+// per-read word of its query (used, contained, palindrome: bits 0-2) and
+// of its target (used, contained).  It is a max, not an or, because both
+// packages reduce with amax: a palindromic self-hit row (5) and a row that
+// marks the same read contained (3) leave 5.  A row with no valid lane
+// adds nothing.  The lanes of a warp that mark one read raise its word by
+// one atomic, and not where the word already holds as much
+// (warp_max_batch, common.cuh): the loader keeps a query's rows together,
+// so a warp's q-sides mostly share one word.  K13's launch runs these
+// marks as its second phase; K12 alone serves the sharded step, whose
+// marks are OR-ed across the ranks before its arc tail (K19).
 
-__global__ void read_marks_kernel(const int32_t* __restrict__ qid,
-                                  const int32_t* __restrict__ tid,
-                                  const int32_t* __restrict__ flags,
-                                  const int32_t* __restrict__ out, int64_t n,
-                                  int64_t T, int32_t* __restrict__ tab) {
+// the words of B rows, i0 + u * stride, u < B, below lim, for their
+// marks: loaded
+// whatever the rows' lanes (nearly every row of the final pass has a
+// valid lane), so that the loads go out together
+template <int B>
+struct MarkRows {
+    int32_t bits[B], q[B], t[B], rq[B], rm[B];
+
+    __device__ __forceinline__ void load(const int32_t* __restrict__ qid,
+                                         const int32_t* __restrict__ tid,
+                                         const int32_t* __restrict__ out,
+                                         int64_t n, int64_t i0,
+                                         int64_t stride, int64_t lim) {
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+            const int64_t i = i0 + u * stride;
+            bits[u] = q[u] = t[u] = rq[u] = rm[u] = 0;
+            if (i < lim) {
+                bits[u] = __ldg(out + 4 * n + i) & 3;
+                q[u] = __ldg(qid + i);
+                t[u] = __ldg(tid + i);
+                rq[u] = __ldg(out + 5 * n + i);
+                rm[u] = __ldg(out + 10 * n + i);
+            }
+        }
+    }
+
+    // the rows' mark words raised into tab[T]; every lane of the warp
+    // calls it (a row past lim marks nothing).  With rowflag, each row's
+    // byte for K13's count: its lanes (bits 0-1), its codes that are arcs
+    // (bit 2 the q-side's, bit 3 the m-side's), a self hit (bit 4)
+    __device__ __forceinline__ void raise(const int32_t* __restrict__ flags,
+                                          const int32_t* __restrict__ out,
+                                          int64_t n, int64_t T, int64_t i0,
+                                          int64_t stride, int64_t lim,
+                                          int32_t* tab, uint8_t* rowflag,
+                                          int lane) const {
+        int32_t kq[B], vq_[B], kt[B], vt[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
+            const int64_t i = i0 + u * stride;
+            const bool vq = bits[u] & 1, vm = bits[u] & 2;
+            // a palindromic self hit: reverse strand, equal cut coordinates
+            const bool pal = vq && rq[u] >= 0 && q[u] == t[u] &&
+                             __ldg(out + i) == __ldg(out + 2 * n + i) &&
+                             __ldg(out + n + i) == __ldg(out + 3 * n + i) &&
+                             ((__ldg(flags + i) >> 1) & 1);
+            const int32_t cq = vq ? rq[u] : 0, cm = vm ? rm[u] : 0;
+            kq[u] = bits[u] ? clamp_index(q[u], T) : -1;
+            kt[u] = bits[u] ? clamp_index(t[u], T) : -1;
+            vq_[u] = 1 | ((cq == MA_HT_QCONT || cm == MA_HT_TCONT) << 1) |
+                     (pal << 2);
+            vt[u] = 1 | ((cq == MA_HT_TCONT || cm == MA_HT_QCONT) << 1);
+            if (rowflag && i < lim)
+                __stcg(rowflag + i,
+                       static_cast<uint8_t>(bits[u] | (rq[u] >= 0) << 2 |
+                                            (rm[u] >= 0) << 3 |
+                                            (q[u] == t[u]) << 4));
+        }
+        // the queries in runs, the targets lane by lane
+        warp_max_batch<B, true>(tab, kq, vq_, lane);
+        warp_max_batch<B, false>(tab, kt, vt, lane);
+    }
+};
+
+__global__ void __launch_bounds__(256)
+read_marks_kernel(const int32_t* __restrict__ qid,
+                  const int32_t* __restrict__ tid,
+                  const int32_t* __restrict__ flags,
+                  const int32_t* __restrict__ out, int64_t n, int64_t T,
+                  int32_t* __restrict__ tab) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-    if (i >= n) return;
-    const int32_t bits = out[4 * n + i];
-    const bool vq = bits & 1, vm = bits & 2;
-    if (!vq && !vm) return;
-    const int32_t rq_raw = out[5 * n + i], rm_raw = out[10 * n + i];
-    const int32_t rq = vq ? rq_raw : 0, rm = vm ? rm_raw : 0;
-    const int32_t q = qid[i], t = tid[i];
-    const bool pal = vq && rq_raw >= 0 && q == t && out[i] == out[2 * n + i] &&
-                     out[n + i] == out[3 * n + i] && ((flags[i] >> 1) & 1);
-    const int32_t qbits = 1 | ((rq == MA_HT_QCONT || rm == MA_HT_TCONT) << 1) |
-                          (pal << 2);
-    const int32_t tbits = 1 | ((rq == MA_HT_TCONT || rm == MA_HT_QCONT) << 1);
-    int32_t* wq = tab + clamp_index(q, T);
-    int32_t* wt = tab + clamp_index(t, T);
-    if (*wq < qbits) atomicMax(wq, qbits);
-    if (*wt < tbits) atomicMax(wt, tbits);
+    MarkRows<1> m;
+    m.load(qid, tid, out, n, i, 0, n);
+    m.raise(flags, out, n, T, i, 0, n, tab, nullptr, threadIdx.x & 31);
 }
 
 // ---------------------------------------------------------------------------
-// K13 arc_order: arc compaction and the stable hit-key order of the final
-// pass (fused2.py:428-520).  An arc row is a valid lane whose hit2arc code
-// is an arc (>= 0), not a self match, between two reads that survive (used,
-// not sub-deleted, not contained: hit.c:237-251).  Row i < n is the q-side
-// of original i, row n + i its m-side; the arcs go out ordered by the hit
-// key (the side's read, its ORIGINAL start), ties in row order.  K2's
-// pattern on arcs, one call making these launches after one memset:
-//   (a) count: each read's arcs (the side's read: qid, or tid for the
-//       m-side) and m_contained (hit.c:244: the valid lanes between two
-//       surviving reads), a warp sum and one atomic a warp;
-//   (b) scan: the exclusive scan of the counts in read order, in three
-//       launches (block sums, their scan in one block, each block's scan
-//       plus its offset), so that read r's bucket starts at its first
-//       position in the output; the total is n_arc;
-//   (c) scatter: each arc's 64-bit key, its start (sign bit flipped, so
-//       the unsigned order is the signed one) over its row, into its read's
-//       bucket at an atomic cursor: the bucket's order is arbitrary, but
-//       (start, row) is unique, so its sort restores the stable order;
-//   (d) sort: one warp a read of at most REG_EVENTS arcs, in registers (the
-//       bitonic network of K2 on 64-bit keys); a larger read goes on a list
-//       for (e), one block a listed read, in shared memory where it fits
-//       smem_cap bytes, else in place in device memory.  Each writes its
-//       read's arcs in order to the five output columns (u, v, l, ol from
-//       K1's final pass, the row) and counts the neighbours of equal key
-//       (dup_hit: equal starts within one read).
-// res: [m_contained, n_arc, dup_hit, u[2n], v[2n], l[2n], ol[2n], row[2n]];
-// only the first n_arc positions of each column are written (the JAX
-// program pads its arcmat to 2n rows; no reader of the port looks past
-// n_arc).
+// K13 arc_order: the select program's tail after the final cut pass
+// (fused2.py:401-520): K12's marks, the flags row, and the arc compaction
+// in the stable hit-key order.  An arc row is a valid lane whose hit2arc
+// code is an arc (>= 0), not a self match, between two reads that survive
+// (used, not sub-deleted, not contained: hit.c:237-251).  Row i < n is the
+// q-side of original i, row n + i its m-side; the arcs go out ordered by
+// the hit key (the side's read, its ORIGINAL start), ties in row order.
+//
+// It replaces a chain of 24 kernels and 3 memsets: K12's memset and
+// kernel, 16 elementwise torch ops for the flags row, K13's two memsets
+// and seven kernels (count, three scan launches, scatter, warp sort,
+// block sort).  What bounds the work is bytes: each row's lane bits,
+// reads and codes, mdel, each arc's start and four words read, the flags
+// row and the arcs written; a pass over the rows costs more than the
+// arcs, which are a few percent of the lanes.  So it is one cooperative
+// launch of every block the card holds at once (coop_blocks), 256 threads
+// a block, a contiguous range of rows and of reads a block, its phases
+// apart by six grid syncs, with no memset:
+//   1. zero: the per-read words tab[T] and arc counts cnt[T]; the head's
+//      dup_hit and the tier counters (the first round's row words for
+//      phase 2 are loaded before, to overlap);
+//   2. marks: K12's MarkRows, TAIL_BATCH rows a thread in flight, and a
+//      byte a row for phase 3 (its lanes, which codes are arcs, a self
+//      hit), so that phase 3 reads that byte and the reads, not the codes;
+//   3. count: each row's arc lanes from its byte, its reads, tab and mdel
+//      (arc_rows), added to its reads' cnt (the queries by runs of a
+//      warp, the targets lane by lane); each arc's hit key (its start, sign
+//      bit flipped so that the unsigned order is the signed one, over its
+//      row) and read to the block's own list; the block's m_contained
+//      terms; the flags row (mdel | cont << 1 | used << 2 | pal << 3), a
+//      thread a read;
+//   4. offsets: the arcs of each block's chunk of reads and its
+//      m_contained across the grid (grid_block_offsets, one more grid
+//      sync), then each block scans its chunk's cnt and writes each read's
+//      cursor, its first place in the output; block 0 writes the head's
+//      m_contained and n_arc;
+//   5. scatter: each block's list into the reads' buckets at the cursors
+//      (one atomic a run of a read): a pass over the arcs, not the rows.
+//      A bucket's order is arbitrary, but (start, row) is unique, so the
+//      sort restores the stable order;
+//   6. sort and write, a round of a block's reads at a time: the reads of
+//      at most min(smem_cap / 8, REG_EVENTS) arcs sorted by a warp each in
+//      registers, the warps taking them in turn, the larger by the whole
+//      block, in TAIL_SMEM_KEYS keys of shared memory at most (a moderate
+//      cap, so that the grid keeps every block it can hold), else in place
+//      in device memory; each arc written to the five columns (u, v, l,
+//      ol, the row) at a stride of n_arc; the neighbours of equal key
+//      (dup_hit: equal starts within a read) to the head, one atomic a
+//      block.
+// Within the launch every word another block wrote is read through L2
+// (__ldcg), and tab, written through L2 and by atomics until phase 2
+// ends, through L1 only after it.
 
 typedef unsigned long long u64;
-constexpr int SCAN_THREADS = 1024;
-constexpr int ARC_THREADS = 256;
+constexpr int TAIL_THREADS = 256;
+constexpr int TAIL_WARPS = TAIL_THREADS / 32;
+constexpr int TAIL_BATCH = 4;         // rows a thread has in flight
+constexpr int TAIL_SMEM_KEYS = 2048;  // a block-sorted read in shared memory
+constexpr int TAIL_SYNCS = 6;
+constexpr int TAIL_MIN_BLOCKS = 3;    // blocks an SM: at most 85 registers
 
-__device__ __forceinline__ bool read_alive(const int32_t* __restrict__ tab,
-                                           const uint8_t* __restrict__ mdel,
-                                           int32_t r) {
-    const int32_t w = tab[r];
-    return (w & 1) && !(w & 2) && !mdel[r];
-}
+struct SelectTail {
+    const int32_t *qid, *qs0, *tid, *ts0, *flags, *out;
+    const uint8_t* mdel;
+    int64_t n, T, n_meta;
+    int64_t rows;        // rows a block (phases 2, 3 and 5)
+    int64_t chunk;       // reads a block (phases 4 and 6)
+    uint32_t warp_cap;   // the largest read sorted by a warp
+    uint32_t smem_keys;  // the largest read sorted in shared memory
+    int32_t *tab, *cnt, *cur;  // T words each
+    int32_t* bsum;  // two words a block: its chunk's arcs, its m_contained
+    int32_t* aux;   // [reads sorted by a block, of them in device memory]
+    u64* keys;      // 2n: the buckets
+    u64* list_key;  // 2 rows a block: the block's arcs, in no order
+    int32_t* list_read;
+    uint8_t* rowflag;  // n: MarkRows::raise's byte a row
+    int32_t *head, *flags_row, *arcs;
+};
 
-// the row's arc lanes: bit 0 its q-side, bit 1 its m-side; with the
-// valid lanes between two surviving reads (m_contained's terms) in mc
-__device__ __forceinline__ int arc_lanes(
-    const int32_t* __restrict__ qid, const int32_t* __restrict__ tid,
-    const int32_t* __restrict__ out, const int32_t* __restrict__ tab,
-    const uint8_t* __restrict__ mdel, int64_t n, int64_t T, int64_t i,
-    int32_t& q, int32_t& t, int& mc) {
-    const int32_t bits = out[4 * n + i];
-    mc = 0;
-    if (!(bits & 3)) return 0;
-    q = clamp_index(qid[i], T);
-    t = clamp_index(tid[i], T);
-    if (!read_alive(tab, mdel, q) || !read_alive(tab, mdel, t)) return 0;
-    const bool vq = bits & 1, vm = bits & 2;
-    mc = vq + vm;
-    if (qid[i] == tid[i]) return 0;
-    return (vq && out[5 * n + i] >= 0 ? 1 : 0) |
-           (vm && out[10 * n + i] >= 0 ? 2 : 0);
-}
-
-__device__ __forceinline__ int32_t block_sum(int32_t x, int32_t* sh) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-    x = __reduce_add_sync(FULL, x);
-    if (lane == 0) sh[w] = x;
-    __syncthreads();
-    int32_t tot = 0;
-    for (int k = 0; k < static_cast<int>(blockDim.x >> 5); ++k) tot += sh[k];
-    __syncthreads();
-    return tot;
-}
-
-// (a)
-__global__ void __launch_bounds__(ARC_THREADS)
-arc_count_kernel(const int32_t* __restrict__ qid,
-                 const int32_t* __restrict__ tid,
-                 const int32_t* __restrict__ out,
-                 const int32_t* __restrict__ tab,
-                 const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
-                 int32_t* __restrict__ cnt, int32_t* __restrict__ res) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * ARC_THREADS +
-                      threadIdx.x;
-    int32_t q = 0, t = 0;
-    int mc = 0;
-    const int a = i < n ? arc_lanes(qid, tid, out, tab, mdel, n, T, i, q, t,
-                                    mc) : 0;
-    if (a & 1) atomicAdd(&cnt[q], 1);
-    if (a & 2) atomicAdd(&cnt[t], 1);
-    const int32_t s = __reduce_add_sync(FULL, mc);
-    if ((threadIdx.x & 31) == 0 && s) atomicAdd(&res[0], s);
-}
-
-// (b) 1: the sum of each block of SCAN_THREADS counts
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_sums_kernel(const int32_t* __restrict__ cnt, int64_t T,
-                 int32_t* __restrict__ bsum) {
-    __shared__ int32_t sh[32];
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS +
-                      threadIdx.x;
-    const int32_t s = block_sum(r < T ? cnt[r] : 0, sh);
-    if (threadIdx.x == 0) bsum[blockIdx.x] = s;
-}
-
-// (b) 2: the block sums' exclusive scan in place, by one block; the total
-// is n_arc
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_blocks_kernel(int32_t* __restrict__ bsum, int64_t nb,
-                   int32_t* __restrict__ res) {
-    __shared__ int32_t sh[32];
-    int32_t carry = 0;
-    for (int64_t b0 = 0; b0 < nb; b0 += SCAN_THREADS) {
-        const int64_t b = b0 + threadIdx.x;
-        const int32_t x = b < nb ? bsum[b] : 0;
-        int32_t tot;
-        const int32_t before = block_excl_scan(x, sh, &tot);
-        if (b < nb) bsum[b] = carry + before;
-        carry += tot;
+// rows i0 + u * stride, u < B, below lim: each row's arc lanes as its
+// reads (kq: the q-side's read, kt: the m-side's, -1 where that side is
+// no arc), its m_contained terms (the valid lanes between two surviving
+// reads) added to mc, and the arc sides' ORIGINAL starts (sq, st).  Each
+// level's loads are issued together: a row's byte from phase 2 and its
+// reads, then the marks and mdel of both reads (tab through L1: no SM
+// holds a copy of it from before the marks were done, see phase 1), then
+// the starts of the arcs.
+template <int B>
+__device__ __forceinline__ void arc_rows(const SelectTail& p, int64_t i0,
+                                         int64_t stride, int64_t lim,
+                                         int32_t (&kq)[B], int32_t (&kt)[B],
+                                         int32_t& mc, int32_t (&sq)[B],
+                                         int32_t (&st)[B]) {
+    const int64_t T = p.T;
+    int32_t fl[B], q[B], t[B], wq[B], wt[B];
+    uint8_t dq[B], dt[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+        const int64_t i = i0 + u * stride;
+        fl[u] = q[u] = t[u] = 0;
+        if (i < lim) {
+            fl[u] = __ldcg(p.rowflag + i);
+            q[u] = clamp_index(__ldg(p.qid + i), T);
+            t[u] = clamp_index(__ldg(p.tid + i), T);
+        }
     }
-    if (threadIdx.x == 0) res[1] = carry;
-}
-
-// (b) 3: off[r] = cur[r] = the first position of read r's arcs
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_offsets_kernel(const int32_t* __restrict__ cnt, int64_t T,
-                    const int32_t* __restrict__ bsum,
-                    int32_t* __restrict__ off, int32_t* __restrict__ cur) {
-    __shared__ int32_t sh[32];
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * SCAN_THREADS +
-                      threadIdx.x;
-    int32_t tot;
-    const int32_t before = block_excl_scan(r < T ? cnt[r] : 0, sh, &tot);
-    if (r < T) {
-        off[r] = bsum[blockIdx.x] + before;
-        cur[r] = off[r];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+        wq[u] = wt[u] = 0;
+        dq[u] = dt[u] = 1;
+        if (fl[u] & 3) {
+            wq[u] = __ldca(p.tab + q[u]);
+            wt[u] = __ldca(p.tab + t[u]);
+            dq[u] = __ldg(p.mdel + q[u]);
+            dt[u] = __ldg(p.mdel + t[u]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+        const int64_t i = i0 + u * stride;
+        // read_alive = used & ~cont & ~mdel, for both reads
+        const bool alive = (wq[u] & 1) && !(wq[u] & 2) && !dq[u] &&
+                           (wt[u] & 1) && !(wt[u] & 2) && !dt[u];
+        if (alive) mc += (fl[u] & 1) + ((fl[u] >> 1) & 1);
+        const bool arc = alive && !(fl[u] & 16);
+        kq[u] = arc && (fl[u] & 5) == 5 ? q[u] : -1;
+        kt[u] = arc && (fl[u] & 10) == 10 ? t[u] : -1;
+        sq[u] = kq[u] >= 0 ? __ldg(p.qs0 + i) : 0;
+        st[u] = kt[u] >= 0 ? __ldg(p.ts0 + i) : 0;
     }
 }
 
-// (c)
-__global__ void __launch_bounds__(ARC_THREADS)
-arc_scatter_kernel(const int32_t* __restrict__ qid,
-                   const int32_t* __restrict__ qs0,
-                   const int32_t* __restrict__ tid,
-                   const int32_t* __restrict__ ts0,
-                   const int32_t* __restrict__ out,
-                   const int32_t* __restrict__ tab,
-                   const uint8_t* __restrict__ mdel, int64_t n, int64_t T,
-                   int32_t* __restrict__ cur, u64* __restrict__ keys) {
-    const int64_t i = static_cast<int64_t>(blockIdx.x) * ARC_THREADS +
-                      threadIdx.x;
-    if (i >= n) return;
-    int32_t q = 0, t = 0;
-    int mc;
-    const int a = arc_lanes(qid, tid, out, tab, mdel, n, T, i, q, t, mc);
-    if (a & 1) {
-        const u64 k = (static_cast<u64>(static_cast<uint32_t>(qs0[i]) ^
-                                        0x80000000u) << 32) |
-                      static_cast<uint32_t>(i);
-        keys[atomicAdd(&cur[q], 1)] = k;
-    }
-    if (a & 2) {
-        const u64 k = (static_cast<u64>(static_cast<uint32_t>(ts0[i]) ^
-                                        0x80000000u) << 32) |
-                      static_cast<uint32_t>(n + i);
-        keys[atomicAdd(&cur[t], 1)] = k;
-    }
+// the hit key of an arc: its side's ORIGINAL start (sign bit flipped, so
+// that the unsigned order is the signed one) over its row
+__device__ __forceinline__ u64 hit_key(int32_t start, int64_t row) {
+    return (static_cast<u64>(static_cast<uint32_t>(start) ^ 0x80000000u)
+            << 32) | static_cast<uint32_t>(row);
 }
 
-// the arc of sorted key k at output position p
+// the arc of sorted key k at output position p of the (5, na) columns
 __device__ __forceinline__ void write_arc(const int32_t* __restrict__ out,
-                                          int64_t n, int64_t cap,
+                                          int64_t n, int64_t na,
                                           int32_t* __restrict__ cols,
                                           int64_t p, u64 k) {
     const int64_t row = static_cast<uint32_t>(k);
     const int64_t src = row < n ? 6 * n + row : 11 * n + (row - n);
-    cols[p] = out[src];
-    cols[cap + p] = out[src + n];
-    cols[2 * cap + p] = out[src + 2 * n];
-    cols[3 * cap + p] = out[src + 3 * n];
-    cols[4 * cap + p] = static_cast<int32_t>(row);
+    cols[p] = __ldg(out + src);
+    cols[na + p] = __ldg(out + src + n);
+    cols[2 * na + p] = __ldg(out + src + 2 * n);
+    cols[3 * na + p] = __ldg(out + src + 3 * n);
+    cols[4 * na + p] = static_cast<int32_t>(row);
 }
 
+// one read of cnt <= 32 * E arcs at keys[base...], sorted by a warp in
+// registers and written; returns the lane's neighbours of equal key
 template <int E>
-__device__ __forceinline__ int32_t arc_sort_warp(
-    const u64* __restrict__ a, uint32_t cnt, const int32_t* __restrict__ out,
-    int64_t n, int64_t cap, int32_t* __restrict__ cols, int64_t base,
-    int lane) {
+__device__ __forceinline__ int32_t arc_sort_warp(const SelectTail& p,
+                                                 uint32_t cnt, int64_t base,
+                                                 int64_t na, int lane) {
     u64 x[E];
     const uint32_t first = static_cast<uint32_t>(lane) * E;
 #pragma unroll
-    for (int e = 0; e < E; ++e) x[e] = first + e < cnt ? a[first + e] : ~0ull;
+    for (int e = 0; e < E; ++e)
+        x[e] = first + e < cnt ? __ldcg(p.keys + base + first + e) : ~0ull;
     reg_sort<E>(x, lane);
     u64 prev = __shfl_up_sync(FULL, x[E - 1], 1);
     int32_t dups = 0;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-        const uint32_t p = first + e;
-        if (p < cnt) {
-            write_arc(out, n, cap, cols, base + p, x[e]);
-            if (p > 0 && (prev >> 32) == (x[e] >> 32)) ++dups;
+        const uint32_t q = first + e;
+        if (q < cnt) {
+            write_arc(p.out, p.n, na, p.arcs, base + q, x[e]);
+            if (q > 0 && (prev >> 32) == (x[e] >> 32)) ++dups;
         }
         prev = x[e];
     }
     return dups;
 }
 
-// (d)
-__global__ void __launch_bounds__(SW_WARPS * 32)
-arc_sort_warp_kernel(const u64* __restrict__ keys,
-                     const int32_t* __restrict__ off,
-                     const int32_t* __restrict__ cnt, int64_t T,
-                     uint32_t warp_cap, const int32_t* __restrict__ out,
-                     int64_t n, int64_t cap, int32_t* __restrict__ res,
-                     int32_t* __restrict__ big, int32_t* __restrict__ nbig) {
-    const int lane = threadIdx.x & 31;
-    const int64_t r =
-        static_cast<int64_t>(blockIdx.x) * SW_WARPS + (threadIdx.x >> 5);
-    if (r >= T) return;  // the whole warp
-    const uint32_t c = static_cast<uint32_t>(cnt[r]);
-    if (c == 0) return;
-    if (c > warp_cap) {
-        if (lane == 0) big[atomicAdd(nbig, 1)] = static_cast<int32_t>(r);
-        return;
-    }
-    const int64_t base = off[r];
-    const u64* a = keys + base;
-    int32_t* cols = res + 3;
-    int32_t d;
-    if (c <= 32) {
-        d = arc_sort_warp<1>(a, c, out, n, cap, cols, base, lane);
-    } else if (c <= 64) {
-        d = arc_sort_warp<2>(a, c, out, n, cap, cols, base, lane);
-    } else if (c <= 128) {
-        d = arc_sort_warp<4>(a, c, out, n, cap, cols, base, lane);
-    } else {
-        d = arc_sort_warp<REG_EVENTS / 32>(a, c, out, n, cap, cols, base,
-                                           lane);
-    }
-    d = __reduce_add_sync(FULL, d);
-    if (lane == 0 && d) atomicAdd(&res[2], d);
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+    return a < b ? a : b;
 }
 
-// (e) one block a listed read: in dynamic shared memory where it fits
-// smem_keys keys, else in place in its bucket (counted in ndev)
-__global__ void __launch_bounds__(BIG_THREADS)
-arc_sort_big_kernel(u64* keys, const int32_t* __restrict__ off,
-                    const int32_t* __restrict__ cnt, uint32_t smem_keys,
-                    const int32_t* __restrict__ out, int64_t n, int64_t cap,
-                    int32_t* __restrict__ res,
-                    const int32_t* __restrict__ big,
-                    const int32_t* __restrict__ nbig,
-                    int32_t* __restrict__ ndev) {
+// the sum of x over the block; sh: TAIL_WARPS words of shared memory
+__device__ __forceinline__ int32_t tail_block_sum(int32_t x, int32_t* sh) {
+    x = __reduce_add_sync(FULL, x);
+    __syncthreads();  // sh's readers before
+    if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = x;
+    __syncthreads();
+    int32_t s = 0;
+    for (int k = 0; k < TAIL_WARPS; ++k) s += sh[k];
+    return s;
+}
+
+__global__ void __launch_bounds__(TAIL_THREADS, TAIL_MIN_BLOCKS)
+arc_order_kernel(SelectTail p) {
     extern __shared__ u64 skeys[];
-    const int32_t nb = *nbig;
-    int32_t* cols = res + 3;
-    for (int32_t li = blockIdx.x; li < nb; li += gridDim.x) {
-        const int64_t r = big[li];
-        const uint32_t c = static_cast<uint32_t>(cnt[r]);
-        const int64_t base = off[r];
-        u64* a = keys + base;
-        if (c <= smem_keys) {
-            for (uint32_t i = threadIdx.x; i < c; i += blockDim.x)
-                skeys[i] = a[i];
-            a = skeys;
-        } else if (threadIdx.x == 0) {
-            atomicAdd(ndev, 1);
+    __shared__ int32_t sh[4 * 32];
+    // a round's reads of arcs: those for the warps, those for the block
+    __shared__ int32_t wr_read[TAIL_THREADS], wr_cnt[TAIL_THREADS],
+        big_read[TAIL_THREADS];
+    __shared__ int64_t wr_base[TAIL_THREADS];
+    __shared__ int32_t n_list, n_warp, n_big;
+    cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int64_t n = p.n, T = p.T;
+    const int64_t g0 = static_cast<int64_t>(blockIdx.x) * TAIL_THREADS +
+                       threadIdx.x;
+    const int64_t gstride = static_cast<int64_t>(gridDim.x) * TAIL_THREADS;
+    // block b takes the rows [row0, row1), in rounds of TAIL_BATCH *
+    // TAIL_THREADS: row b0 + threadIdx.x + u * TAIL_THREADS, u <
+    // TAIL_BATCH, of round b0 (the same rounds in every thread: the warp
+    // intrinsics need every lane); and the reads [r0, r1)
+    const int64_t rnd = static_cast<int64_t>(TAIL_BATCH) * TAIL_THREADS;
+    const int64_t row0 = lmin(n, static_cast<int64_t>(blockIdx.x) * p.rows);
+    const int64_t row1 = lmin(n, row0 + p.rows);
+    const int64_t r0 = lmin(T, static_cast<int64_t>(blockIdx.x) * p.chunk);
+    const int64_t r1 = lmin(T, r0 + p.chunk);
+    // the block's arc list: 2 rows' room a row
+    u64* const lkey = p.list_key + 2 * blockIdx.x * p.rows;
+    int32_t* const lread = p.list_read + 2 * blockIdx.x * p.rows;
+
+    // the first round's words for the marks, loaded before the zeroing
+    // and its grid sync, so that their latency overlaps both
+    MarkRows<TAIL_BATCH> marks;
+    marks.load(p.qid, p.tid, p.out, n, row0 + threadIdx.x, TAIL_THREADS,
+               row1);
+
+    // ---- 1. zero (through L2: no SM may keep a line of tab in L1 until
+    // the marks are done) ----
+    for (int64_t r = g0; r < T; r += gstride) {
+        __stcg(p.tab + r, 0);
+        __stcg(p.cnt + r, 0);
+    }
+    if (g0 == 0) {
+        p.head[2] = 0;
+        p.aux[0] = p.aux[1] = 0;
+    }
+    if (threadIdx.x == 0) n_list = 0;
+    grid.sync();
+
+    // ---- 2. marks ----
+    for (int64_t b0 = row0; b0 < row1; b0 += rnd) {
+        if (b0 != row0)
+            marks.load(p.qid, p.tid, p.out, n, b0 + threadIdx.x,
+                       TAIL_THREADS, row1);
+        marks.raise(p.flags, p.out, n, T, b0 + threadIdx.x, TAIL_THREADS,
+                    row1, p.tab, p.rowflag, lane);
+    }
+    grid.sync();
+
+    // ---- 3. count: the arcs to their reads' counts and to the block's
+    // list; the m_contained terms; the flags row ----
+    int32_t mc = 0;
+    for (int64_t r = g0; r < p.n_meta; r += gstride) {
+        const int32_t m = __ldca(p.tab + r);
+        p.flags_row[r] = (__ldg(p.mdel + r) ? 1 : 0) | (m & 2) |
+                         ((m & 1) << 2) | ((m & 4) << 1);
+    }
+    for (int64_t b0 = row0; b0 < row1; b0 += rnd) {
+        const int64_t i0 = b0 + threadIdx.x;
+        int32_t kq[TAIL_BATCH], kt[TAIL_BATCH], sq[TAIL_BATCH],
+            st[TAIL_BATCH];
+        arc_rows<TAIL_BATCH>(p, i0, TAIL_THREADS, row1, kq, kt, mc, sq, st);
+        // the queries by runs, the targets lane by lane (a chunk count
+        // a read's arc here would cost more than the sync phase 4 takes)
+        warp_count_runs<TAIL_BATCH>(p.cnt, kq, lane);
+#pragma unroll
+        for (int u = 0; u < TAIL_BATCH; ++u)
+            if (kt[u] >= 0) atomicAdd(p.cnt + kt[u], 1);
+        // each side's arcs of the warp in lane order, at one shared
+        // atomic a side: the q-sides of a query stay together
+#pragma unroll
+        for (int k = 0; k < 2 * TAIL_BATCH; ++k) {
+            const int u = k >> 1;
+            const int32_t rd = k & 1 ? kt[u] : kq[u];
+            const unsigned has = __ballot_sync(FULL, rd >= 0);
+            if (!has) continue;  // the whole warp
+            int32_t at = 0;
+            if (lane == 0) at = atomicAdd(&n_list, __popc(has));
+            at = __shfl_sync(FULL, at, 0) + __popc(has & lanes_below(lane));
+            if (rd >= 0) {
+                const int64_t i = i0 + u * TAIL_THREADS;
+                __stcg(lkey + at, hit_key(k & 1 ? st[u] : sq[u],
+                                          k & 1 ? n + i : i));
+                __stcg(lread + at, rd);
+            }
+        }
+    }
+    mc = tail_block_sum(mc, sh);
+    grid.sync();
+
+    // ---- 4. offsets: the arcs of the block's chunk of reads and its
+    // m_contained, across the grid (grid_block_offsets syncs it), then
+    // each read's cursor, its first place in the output ----
+    int64_t na;  // n_arc
+    {
+        const int32_t c0 = r0 + threadIdx.x < r1
+                               ? __ldcg(p.cnt + r0 + threadIdx.x) : 0;
+        int32_t mine = c0;
+        for (int64_t r = r0 + threadIdx.x + TAIL_THREADS; r < r1;
+             r += TAIL_THREADS)
+            mine += __ldcg(p.cnt + r);
+        const int32_t counts[2] = {tail_block_sum(mine, sh), mc};
+        int32_t before[2], total[2];
+        grid_block_offsets<2>(counts, p.bsum, before, total, sh);
+        na = total[0];
+        if (blockIdx.x == 0 && threadIdx.x == 0) {
+            p.head[0] = total[1];
+            p.head[1] = total[0];
+        }
+        int32_t carry = before[0];
+        for (int64_t s0 = r0; s0 < r1; s0 += TAIL_THREADS) {
+            const int64_t r = s0 + threadIdx.x;
+            const int32_t x = s0 == r0 ? c0 : r < r1 ? __ldcg(p.cnt + r) : 0;
+            int32_t tot;
+            const int32_t ex = block_excl_scan(x, sh, &tot);
+            if (r < r1) __stcg(p.cur + r, carry + ex);
+            carry += tot;
+        }
+    }
+    grid.sync();
+
+    // ---- 5. scatter: the block's arcs from its list into their reads'
+    // buckets, at the cursors ----
+    for (int32_t e0 = 0; e0 < n_list; e0 += TAIL_THREADS) {
+        const int32_t e = e0 + threadIdx.x;
+        int32_t rd = -1;
+        u64 k = 0;
+        if (e < n_list) {
+            rd = __ldcg(lread + e);
+            k = __ldcg(lkey + e);
+        }
+        const int32_t slot = warp_slot(p.cur, rd, lane);
+        if (rd >= 0) __stcg(p.keys + slot, k);
+    }
+    grid.sync();
+
+    // ---- 6. sort and write, a round of the chunk's reads at a time: the
+    // reads of at most warp_cap arcs by the warps, in turn, then the larger
+    // ones by the whole block ----
+    int32_t dups = 0;
+    for (int64_t s0 = r0; s0 < r1; s0 += TAIL_THREADS) {
+        if (threadIdx.x == 0) n_warp = n_big = 0;
+        __syncthreads();
+        const int64_t r = s0 + threadIdx.x;
+        if (r < r1) {
+            const int32_t c = __ldcg(p.cnt + r);
+            const int32_t end = __ldcg(p.cur + r);
+            if (c > 0 && static_cast<uint32_t>(c) <= p.warp_cap) {
+                const int k = atomicAdd(&n_warp, 1);
+                wr_read[k] = static_cast<int32_t>(r);
+                wr_cnt[k] = c;
+                wr_base[k] = static_cast<int64_t>(end) - c;
+            } else if (c > 0) {
+                big_read[atomicAdd(&n_big, 1)] = static_cast<int32_t>(r);
+            }
         }
         __syncthreads();
-        bitonic_sort(a, c);
-        int32_t d = 0;
-        for (uint32_t p = threadIdx.x; p < c; p += blockDim.x) {
-            write_arc(out, n, cap, cols, base + p, a[p]);
-            if (p > 0 && (a[p - 1] >> 32) == (a[p] >> 32)) ++d;
+        for (int k = w; k < n_warp; k += TAIL_WARPS) {  // the whole warp
+            const uint32_t c = static_cast<uint32_t>(wr_cnt[k]);
+            const int64_t base = wr_base[k];
+            if (c <= 32) {
+                dups += arc_sort_warp<1>(p, c, base, na, lane);
+            } else if (c <= 64) {
+                dups += arc_sort_warp<2>(p, c, base, na, lane);
+            } else if (c <= 128) {
+                dups += arc_sort_warp<4>(p, c, base, na, lane);
+            } else {
+                dups += arc_sort_warp<REG_EVENTS / 32>(p, c, base, na,
+                                                       lane);
+            }
         }
-        d = __reduce_add_sync(FULL, d);
-        if ((threadIdx.x & 31) == 0 && d) atomicAdd(&res[2], d);
-        __syncthreads();  // before the next read reuses skeys
+        for (int k = 0; k < n_big; ++k) {
+            const int64_t rb = big_read[k];
+            const uint32_t c = static_cast<uint32_t>(__ldcg(p.cnt + rb));
+            const int64_t base = __ldcg(p.cur + rb) - static_cast<int64_t>(c);
+            u64* a = p.keys + base;
+            if (c <= p.smem_keys) {
+                for (uint32_t i = threadIdx.x; i < c; i += TAIL_THREADS)
+                    skeys[i] = __ldcg(a + i);
+                a = skeys;
+            }
+            if (threadIdx.x == 0) {
+                atomicAdd(p.aux, 1);
+                if (c > p.smem_keys) atomicAdd(p.aux + 1, 1);
+            }
+            __syncthreads();
+            bitonic_sort(a, c);
+            __syncthreads();
+            for (uint32_t q = threadIdx.x; q < c; q += TAIL_THREADS) {
+                write_arc(p.out, n, na, p.arcs, base + q, a[q]);
+                if (q > 0 && (a[q - 1] >> 32) == (a[q] >> 32)) ++dups;
+            }
+            __syncthreads();  // before the next read reuses skeys
+        }
+        __syncthreads();  // before the lists are reset
     }
+    // dup_hit: one atomic a block
+    dups = tail_block_sum(dups, sh);
+    if (threadIdx.x == 0 && dups) atomicAdd(p.head + 2, dups);
 }
 
 // (e)'s dynamic shared memory may reach SMEM_MAX: raised once per device
-// and kernel (K2's and K13's)
 template <typename F>
 cudaError_t allow_big_smem(F kernel, std::atomic<uint64_t>& done, int dev) {
     const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
@@ -877,7 +1056,7 @@ cudaError_t allow_big_smem(F kernel, std::atomic<uint64_t>& done, int dev) {
     return e;
 }
 
-std::atomic<uint64_t> sweep_smem_done{0}, arc_smem_done{0};
+std::atomic<uint64_t> sweep_smem_done{0};
 
 // K19 shard_arcs replaces the sharded step's arc tail
 // (miniasm_tpu/parallel/full.py:358-378, inside the shard_map program of
@@ -1057,7 +1236,7 @@ shard_arcs_kernel(ShardArcs a) {
 
     // ---- 3. a round's q-sides at their q offset and its m-sides after
     // all q-sides, both read before either is written ----
-    const uint32_t lt = (1u << lane) - 1;
+    const uint32_t lt = lanes_below(lane);
     for (int s = 0; s < a.W; ++s) {
         const int64_t slice = chunk0 + (s * COOP_WARPS + w) * slice_n;
         const uint32_t mq = qbits[s * COOP_THREADS + threadIdx.x];
@@ -1178,68 +1357,85 @@ extern "C" int ma_read_marks(const int32_t* qid, const int32_t* tid,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K13.  qid, qs0, tid, ts0: n int32 (the colmat's rows 0, 1, 3, 4: the
-// ORIGINAL starts); out: K1's final-pass output (15, n); tab: K12's T
-// words; mdel: T bytes, the merged sub-deletion; keys: 2n uint64 of
-// scratch; aux: 4T + 2 + ceil(T / 1024) int32 of scratch, laid out
-// cnt[T] | nbig | ndev | off[T] | cur[T] | big[T] | bsum; res: 3 + 10n
-// int32 (see K13 above).  smem_cap as K2's.  After the call aux's nbig and
-// ndev hold the reads sorted by a block and those of them sorted in
-// device memory.
+// K13, with K12's marks.  qid, qs0, tid, ts0, flags: n int32 (the
+// colmat's rows 0, 1, 3, 4, 6: the ORIGINAL starts), n below 2**30; out:
+// K1's final-pass output (15, n); mdel: T bytes, the merged sub-deletion;
+// n_meta: the reads of the flags row (at most T); max_grid: the most
+// blocks; scratch: 3T + 4 max_grid + 2 + 2n + ceil(n / 4) int32, laid
+// out tab[T] | cnt[T] | cur[T] | bsum[2 max_grid] | aux[2] (the reads
+// sorted by a block, those of them sorted in device memory) |
+// list_read[2n + 2 max_grid] | rowflag[n bytes]; keys: 4n + 2 max_grid
+// uint64: the buckets [2n] | list_key[2n + 2 max_grid]; head: 3 int32 [m_contained, n_arc, dup_hit]; flags_row:
+// n_meta int32; arcs: 5 rows of n_arc int32 (at most 10n words): u, v, l,
+// ol, row.  smem_cap: the on-chip bytes a read's sort may take: a read of
+// more than min(smem_cap / 8, REG_EVENTS) arcs is sorted by a block, in
+// shared memory where it needs at most min(smem_cap, 8 TAIL_SMEM_KEYS)
+// bytes, else in device memory.  grid: 4 host ints, [the blocks launched,
+// the reads a block, the most blocks the card holds with this launch's
+// shared memory, the grid syncs].  Fails where the card cannot launch a
+// cooperative kernel.
 extern "C" int ma_arc_order(const int32_t* qid, const int32_t* qs0,
                             const int32_t* tid, const int32_t* ts0,
-                            const int32_t* out, int64_t n,
-                            const int32_t* tab, const uint8_t* mdel,
-                            int64_t T, uint64_t* keys, int32_t* aux,
-                            int smem_cap, int32_t* res,
-                            cudaStream_t stream) {
-    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30))
+                            const int32_t* flags, const int32_t* out,
+                            int64_t n, const uint8_t* mdel, int64_t T,
+                            int64_t n_meta, int32_t* scratch,
+                            int64_t max_grid, uint64_t* keys, int smem_cap,
+                            int32_t* head, int32_t* flags_row, int32_t* arcs,
+                            int* grid, cudaStream_t stream) {
+    grid[0] = grid[1] = grid[2] = grid[3] = 0;
+    if (T <= 0 || T > 0x7fffffff || n < 0 || n >= (int64_t{1} << 30) ||
+        n_meta < 0 || n_meta > T || max_grid < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t cap = 2 * n;
-    const int64_t nb = (T + SCAN_THREADS - 1) / SCAN_THREADS;
-    int32_t* cnt = aux;
-    int32_t* nbig = cnt + T;
-    int32_t* ndev = nbig + 1;
-    int32_t* off = ndev + 1;
-    int32_t* cur = off + T;
-    int32_t* big = cur + T;
-    int32_t* bsum = big + T;
-    u64* k64 = reinterpret_cast<u64*>(keys);
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = allow_big_smem(arc_sort_big_kernel, arc_smem_done, dev);
-    if (e == cudaSuccess)
-        e = cudaMemsetAsync(aux, 0, (T + 2) * sizeof(int32_t), stream);
-    if (e == cudaSuccess)
-        e = cudaMemsetAsync(res, 0, 3 * sizeof(int32_t), stream);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const unsigned row_blocks = n_blocks(n, ARC_THREADS);
-    if (n > 0)
-        arc_count_kernel<<<row_blocks, ARC_THREADS, 0, stream>>>(
-            qid, tid, out, tab, mdel, n, T, cnt, res);
-    scan_sums_kernel<<<static_cast<unsigned>(nb), SCAN_THREADS, 0, stream>>>(
-        cnt, T, bsum);
-    scan_blocks_kernel<<<1, SCAN_THREADS, 0, stream>>>(bsum, nb, res);
-    scan_offsets_kernel<<<static_cast<unsigned>(nb), SCAN_THREADS, 0,
-                          stream>>>(cnt, T, bsum, off, cur);
-    if (n > 0)
-        arc_scatter_kernel<<<row_blocks, ARC_THREADS, 0, stream>>>(
-            qid, qs0, tid, ts0, out, tab, mdel, n, T, cur, k64);
     const uint32_t cap_keys =
         static_cast<uint32_t>(smem_cap > 0 ? smem_cap : 0) / 8;
-    arc_sort_warp_kernel<<<n_blocks(T, SW_WARPS), SW_WARPS * 32, 0,
-                           stream>>>(
-        k64, off, cnt, T, cap_keys < REG_EVENTS ? cap_keys : REG_EVENTS, out,
-        n, cap, res, big, nbig);
-    const uint32_t smem_keys =
-        cap_keys < SMEM_MAX / 8 ? cap_keys : SMEM_MAX / 8;
-    arc_sort_big_kernel<<<static_cast<unsigned int>(T < sms ? T : sms),
-                          BIG_THREADS, static_cast<size_t>(smem_keys) * 8,
-                          stream>>>(
-        k64, off, cnt, smem_keys, out, n, cap, res, big, nbig, ndev);
+    const uint32_t smem_keys = std::min<uint32_t>(cap_keys, TAIL_SMEM_KEYS);
+    const void* kernel = reinterpret_cast<const void*>(arc_order_kernel);
+    const size_t smem = static_cast<size_t>(smem_keys) * 8;
+    // every block the card holds at once, at most those the rows (a round
+    // a block) and the reads need
+    const int64_t rnd = static_cast<int64_t>(TAIL_BATCH) * TAIL_THREADS;
+    const int64_t need = std::max((n + rnd - 1) / rnd,
+                                  (T + TAIL_THREADS - 1) / TAIL_THREADS);
+    int most = 0;
+    cudaError_t e = coop_blocks(kernel, TAIL_THREADS, smem, max_grid, &most);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = static_cast<int>(std::min<int64_t>(most, need));
+    SelectTail p;
+    p.qid = qid;
+    p.qs0 = qs0;
+    p.tid = tid;
+    p.ts0 = ts0;
+    p.flags = flags;
+    p.out = out;
+    p.mdel = mdel;
+    p.n = n;
+    p.T = T;
+    p.n_meta = n_meta;
+    p.rows = std::max<int64_t>(1, (n + blocks - 1) / blocks);
+    p.chunk = (T + blocks - 1) / blocks;
+    p.warp_cap = std::min<uint32_t>(cap_keys, REG_EVENTS);
+    p.smem_keys = smem_keys;
+    p.tab = scratch;
+    p.cnt = scratch + T;
+    p.cur = scratch + 2 * T;
+    p.bsum = scratch + 3 * T;
+    p.aux = p.bsum + 2 * max_grid;
+    p.list_read = p.aux + 2;
+    p.rowflag = reinterpret_cast<uint8_t*>(p.list_read + 2 * n + 2 * max_grid);
+    p.keys = reinterpret_cast<u64*>(keys);
+    p.list_key = p.keys + 2 * n;
+    p.head = head;
+    p.flags_row = flags_row;
+    p.arcs = arcs;
+    // the block lists hold 2 rows a block: 2 blocks rows <= 2n + 2 blocks
+    grid[0] = blocks;
+    grid[1] = static_cast<int>(p.chunk);
+    grid[2] = most;
+    grid[3] = TAIL_SYNCS;
+    void* args[] = {&p};
+    e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(TAIL_THREADS),
+                                    args, smem, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

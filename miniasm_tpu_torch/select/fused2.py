@@ -11,17 +11,20 @@ lane ("q-side" = the record, "m-side" = its mirror):
     which buckets them by read, sorts each read's and sweeps it;
   - cutting (ma_hit_cut, hit.c:162-193), both hit2arc lanes and the filter
     (hit.c:195-216) run fused per row in the `cut_hit2arc` kernel (K1);
-  - the containment/used/palindrome marks run in the `read_marks` kernel
-    (K12), the arc compaction and the stable arc ordering by the
-    mirrored-hit key (qid<<32|qs) in the `arc_order` kernel (K13);
-  - the counts, the per-read tables and the ordered arcs come to the host
-    in one copy.
+  - the containment/used/palindrome marks, the per-read flags row, the
+    arc compaction and the stable arc ordering by the mirrored-hit key
+    (qid<<32|qs) run in one launch, the `arc_order` kernel (K13, with the
+    marks of K12 `read_marks`, which the sharded step launches alone);
+  - the counts and the per-read tables come to the host in one copy, then
+    the ordered arcs in a second one, sized by their count.
 
 Every kernel has a plain PyTorch twin in this module; the wrapper runs the
 twin for CPU tensors and the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -48,16 +51,16 @@ K_SWEEP = Kernel(
     replaces="miniasm_tpu/select/fused2.py:131")
 
 # the containment/used/palindrome marks of the final pass, inside
-# _select2_kernel (fused2.py:401-426)
+# _select2_kernel (fused2.py:401-426): the sharded step's launch
 K_MARKS = Kernel(
     "read_marks", "select.cu", "ma_read_marks",
     [P, P, P, P, I64, I64, P],
     replaces="miniasm_tpu/select/fused2.py:401")
-# the arc compaction and the stable hit-key order, inside _select2_kernel
-# (fused2.py:428-520)
+# the marks, the flags row, the arc compaction and the stable hit-key
+# order, inside _select2_kernel (fused2.py:401-520)
 K_ARCS = Kernel(
     "arc_order", "select.cu", "ma_arc_order",
-    [P, P, P, P, P, I64, P, P, I64, P, P, I32, P],
+    [P, P, P, P, P, P, I64, P, I64, I64, P, I64, P, I32, P, P, P, P],
     replaces="miniasm_tpu/select/fused2.py:428")
 
 # rows of the cut_hit2arc output
@@ -269,10 +272,10 @@ def _sub_pass(colmat, coords, vq, vm, iden, not_self, T, min_dp, end_clip):
     return out[:3], out[3] != 0
 
 
-def read_marks_plain(colmat, out, T: int):
-    """Plain PyTorch version of the read_marks kernel: per row the mark
-    words of its query (used, contained, palindrome) and of its target
-    (used, contained), reduced per read by two amax scatters."""
+def mark_words(colmat, out, T: int):
+    """Per row the mark words of its query (used, contained, palindrome)
+    and of its target (used, contained): (query index, query word, target
+    index, target word), the indices clamped into [0, T)."""
     i32 = torch.int32
     qid, tid, fl = colmat[0], colmat[3], colmat[6]
     bits = out[4]
@@ -290,9 +293,17 @@ def read_marks_plain(colmat, out, T: int):
              | (pal_rows.to(i32) << 2))
     tbits = (vqm.to(i32)
              | (((rq == MA_HT_TCONT) | (rm == MA_HT_QCONT)).to(i32) << 1))
-    tab = torch.zeros(T, dtype=i32, device=colmat.device)
-    tab.scatter_reduce_(0, qid.clamp(0, T - 1).long(), qbits, "amax")
-    tab.scatter_reduce_(0, tid.clamp(0, T - 1).long(), tbits, "amax")
+    return (qid.clamp(0, T - 1).long(), qbits, tid.clamp(0, T - 1).long(),
+            tbits)
+
+
+def read_marks_plain(colmat, out, T: int):
+    """Plain PyTorch version of the read_marks kernel: the rows' mark words
+    (mark_words) reduced per read by two amax scatters."""
+    qi, qbits, ti, tbits = mark_words(colmat, out, T)
+    tab = torch.zeros(T, dtype=torch.int32, device=colmat.device)
+    tab.scatter_reduce_(0, qi, qbits, "amax")
+    tab.scatter_reduce_(0, ti, tbits, "amax")
     return tab
 
 
@@ -319,27 +330,52 @@ def read_marks(colmat, out, T: int):
     return tab
 
 
-# arc_order's result: [m_contained, n_arc, dup_hit], then the columns u, v,
-# l, ol, row, each 2n long, of which the first n_arc rows are written
+# arc_order's result: the head [m_contained, n_arc, dup_hit]; `meta` rows
+# of n_seq words, of which it writes row 2, the flags row; then the arcs,
+# the columns u, v, l, ol, row, each n_arc long.  The caller sizes it by
+# the 2n bound on the arcs (tail_words) and writes the other meta rows.
 ARC_HEAD = 3
 ARC_COLS = 5
+META_ROWS = 3        # ms, me, flags
+FLAGS_ROW = 2
 # the int64 counts at the head of select_build2's fetch buffer: n_rem1,
 # n_cut1, n_flt, n_rem2, n_cut2, tot_dp, tot_len
 _N_COUNTS = 7
+# the most blocks of arc_order's launch (its scratch has room for two
+# counts and two list entries a block)
+TAIL_GRID = 4096
 
 
-def arc_order_plain(colmat, out, tab, mdel, *, res=None):
-    """Plain PyTorch version of the arc_order kernel: the arc rows by
+def tail_words(n: int, n_seq: int, meta: int = META_ROWS) -> int:
+    """The int32 words of arc_order's result for n rows: the head, the meta
+    rows and the arcs at their 2n bound."""
+    return ARC_HEAD + meta * n_seq + ARC_COLS * 2 * n
+
+
+def arc_live(res, n_seq: int, meta: int = META_ROWS):
+    """What arc_order writes into its result: the head (3,), the flags row
+    (n_seq,) and the arcs (5, n_arc), u, v, l, ol, row."""
+    a0 = ARC_HEAD + meta * n_seq
+    f0 = ARC_HEAD + FLAGS_ROW * n_seq
+    n_arc = int(res[1])
+    return (res[:ARC_HEAD], res[f0:f0 + n_seq],
+            res[a0:a0 + ARC_COLS * n_arc].view(ARC_COLS, n_arc))
+
+
+def arc_order_plain(colmat, out, mdel, n_seq: int, *, meta: int = META_ROWS,
+                    res=None):
+    """Plain PyTorch version of the arc_order kernel: the marks by
+    read_marks_plain, the flags row from them and mdel, the arc rows by
     torch.nonzero in row order (q-side rows, then m-side rows), ordered by
     one stable torch.sort of the int64 hit key read<<32 | start (the
     side's read and ORIGINAL start; the start's sign bit flipped, so the
     order is the signed one of the JAX program's int32 sort keys).  It
-    writes what the kernel writes, into `res` when given: the head and
-    the first n_arc rows of each column."""
+    writes what the kernel writes (arc_live), into `res` when given."""
     dev = colmat.device
-    i64 = torch.int64
+    i32, i64 = torch.int32, torch.int64
     n = colmat.shape[1]
-    T = tab.shape[0]
+    T = mdel.shape[0]
+    tab = read_marks_plain(colmat, out, T)
     qid, oqs, tid, ots = colmat[0], colmat[1], colmat[3], colmat[4]
     bits = out[4]
     vq = (bits & 1) != 0
@@ -361,43 +397,43 @@ def arc_order_plain(colmat, out, tab, mdel, *, res=None):
     dup_hit = (skey[1:] == skey[:-1]).sum()
     idx = idx[perm]
     if res is None:
-        res = torch.empty(ARC_HEAD + ARC_COLS * 2 * n, dtype=torch.int32,
-                          device=dev)
+        res = torch.empty(tail_words(n, n_seq, meta), dtype=i32, device=dev)
     res[:ARC_HEAD] = torch.stack([m_contained,
                                   torch.tensor(n_arc, device=dev), dup_hit])
-    cols = res[ARC_HEAD:].view(ARC_COLS, 2 * n)
+    f0 = ARC_HEAD + FLAGS_ROW * n_seq
+    res[f0:f0 + n_seq] = (mdel.to(i32) | (tab & 2) | ((tab & 1) << 2)
+                          | ((tab & 4) << 1))[:n_seq]
+    a0 = ARC_HEAD + meta * n_seq
+    cols = res[a0:a0 + ARC_COLS * n_arc].view(ARC_COLS, n_arc)
     for j in range(4):
-        cols[j, :n_arc] = torch.cat([out[6 + j], out[11 + j]])[idx]
-    cols[4, :n_arc] = idx.to(torch.int32)
+        cols[j] = torch.cat([out[6 + j], out[11 + j]])[idx]
+    cols[4] = idx.to(i32)
     return res
 
 
-def arc_live(res, n: int):
-    """The part of arc_order's result (n rows in) that it writes: the
-    head (3,) and the (5, n_arc) columns u, v, l, ol, row."""
-    cols = res[ARC_HEAD:].view(ARC_COLS, 2 * n)
-    return res[:ARC_HEAD], cols[:, :int(res[1])]
-
-
-def arc_order(colmat, out, tab, mdel, *, res=None, smem_cap: int = SMEM_MAX):
-    """K13.  colmat (7, n) int32 [qid qs qe tid ts te flags], its starts
-    the ORIGINAL ones; out: the final-pass output of cut_hit2arc (15, n);
-    tab: read_marks' (T,) words; mdel: (T,) bool, the merged
-    sub-deletion.  Returns (3 + 10n,) int32 (ARC_HEAD, ARC_COLS):
-    [m_contained, n_arc, dup_hit], then the columns u, v, l, ol and row
-    (q-side j, m-side n + j) of the arcs in the stable hit-key order,
-    each 2n long and written in its first n_arc rows only (arc_live), into
-    `res` when given.  A read's arcs are sorted in registers, or by a
-    block in at most `smem_cap` bytes of shared memory, else in device
-    memory; the card tests lower the cap to reach the latter."""
+def arc_order(colmat, out, mdel, n_seq: int, *, meta: int = META_ROWS,
+              res=None, smem_cap: int = SMEM_MAX, grid=None):
+    """K13, with K12's marks.  colmat (7, n) int32 [qid qs qe tid ts te
+    flags], its starts the ORIGINAL ones; out: the final-pass output of
+    cut_hit2arc (15, n); mdel: (T,) bool, the merged sub-deletion; n_seq
+    (at most T): the reads of the flags row.  Returns the (tail_words(n,
+    n_seq, meta),) int32 result, into `res` when given: the head
+    [m_contained, n_arc, dup_hit], `meta` rows of n_seq words, of which it
+    writes the flags row (mdel | cont << 1 | used << 2 | pal << 3), then
+    the columns u, v, l, ol and row (q-side j, m-side n + j) of the arcs in
+    the stable hit-key order, each n_arc long (arc_live).  A read's arcs
+    are sorted in registers, or by a block in at most `smem_cap` bytes of
+    shared memory, else in device memory; the card tests lower the cap to
+    reach the latter.  grid: a list of 4 that receives the launch's
+    [blocks, reads a block, the most blocks the card holds, grid syncs]."""
     if colmat.device.type == "cpu":
-        return arc_order_plain(colmat, out, tab, mdel, res=res)
-    return arc_order_tiers(colmat, out, tab, mdel, res=res,
-                           smem_cap=smem_cap)[0]
+        return arc_order_plain(colmat, out, mdel, n_seq, meta=meta, res=res)
+    return arc_order_tiers(colmat, out, mdel, n_seq, meta=meta, res=res,
+                           smem_cap=smem_cap, grid=grid)[0]
 
 
-def arc_order_tiers(colmat, out, tab, mdel, *, res=None,
-                    smem_cap: int = SMEM_MAX):
+def arc_order_tiers(colmat, out, mdel, n_seq: int, *, meta: int = META_ROWS,
+                    res=None, smem_cap: int = SMEM_MAX, grid=None):
     """The arc_order kernel on CUDA tensors, as arc_order, and the
     branches its reads took: returns (res, tiers), tiers a (2,) int32
     tensor on the card [the reads sorted by a block, those of them sorted
@@ -406,31 +442,43 @@ def arc_order_tiers(colmat, out, tab, mdel, *, res=None,
     if colmat.device.type != "cuda":
         raise ValueError("arc_order_tiers: CUDA tensors expected")
     n = colmat.shape[1]
-    T = tab.shape[0]
+    T = mdel.shape[0]
     dev = colmat.device
     if colmat.dtype != torch.int32 or out.dtype != torch.int32 \
-            or tab.dtype != torch.int32 or mdel.dtype != torch.bool:
-        raise TypeError("arc_order: int32 columns and words, a bool mask "
-                        "expected")
-    if out.shape != (CUT_ROWS_FINAL, n) or mdel.shape != (T,):
+            or mdel.dtype != torch.bool:
+        raise TypeError("arc_order: int32 columns, a bool mask expected")
+    if colmat.shape[0] != 7 or out.shape != (CUT_ROWS_FINAL, n) \
+            or mdel.dim() != 1 or not 0 <= n_seq <= T \
+            or meta < META_ROWS:
         raise ValueError("arc_order: shape mismatch")
     if n >= 1 << 30 or not 0 < T < 1 << 31:
         raise ValueError("arc_order: at most 2**30 - 1 rows and 2**31 - 1 "
                          "reads")
-    size = ARC_HEAD + ARC_COLS * 2 * n
+    size = tail_words(n, n_seq, meta)
     if res is None:
         res = torch.empty(size, dtype=torch.int32, device=dev)
     elif res.shape != (size,) or res.dtype != torch.int32:
         raise ValueError("arc_order: res must be (%d,) int32" % size)
-    keys = torch.empty(max(2 * n, 1), dtype=torch.int64, device=dev)
-    # csrc/select.cu ma_arc_order: cnt[T] nbig ndev off[T] cur[T] big[T]
-    # bsum[ceil(T / 1024)]
-    aux = torch.empty(4 * T + 2 + (T + 1023) // 1024, dtype=torch.int32,
-                      device=dev)
+    # one allocation of scratch (csrc/select.cu ma_arc_order): the int64
+    # keys, the buckets [2n] and the blocks' lists [2n + 2 TAIL_GRID]; then
+    # the int32 words tab[T] cnt[T] cur[T] bsum[2 TAIL_GRID] aux[2], the
+    # lists' reads [2n + 2 TAIL_GRID] and a byte a row
+    lst = 2 * n + 2 * TAIL_GRID
+    k = 2 * n + lst
+    words = 3 * T + 2 * TAIL_GRID + 2 + lst + (n + 3) // 4
+    scratch = torch.empty(k + (words + 1) // 2, dtype=torch.int64,
+                          device=dev)
+    g = (ctypes.c_int * 4)()
+    base = ptr(res)
     K_ARCS(ptr(colmat[0]), ptr(colmat[1]), ptr(colmat[3]), ptr(colmat[4]),
-           ptr(out), n, ptr(tab), ptr(mdel.view(torch.uint8)), T, ptr(keys),
-           ptr(aux), int(smem_cap), ptr(res))
-    return res, aux[T:T + 2]
+           ptr(colmat[6]), ptr(out), n, ptr(mdel.view(torch.uint8)), T,
+           n_seq, scratch.data_ptr() + 8 * k, TAIL_GRID, scratch.data_ptr(),
+           int(smem_cap), base, base + 4 * (ARC_HEAD + FLAGS_ROW * n_seq),
+           base + 4 * (ARC_HEAD + meta * n_seq), ctypes.addressof(g))
+    if grid is not None:
+        grid[:] = list(g)
+    a = 2 * k + 3 * T + 2 * TAIL_GRID
+    return res, scratch.view(torch.int32)[a:a + 2]
 
 
 def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
@@ -501,57 +549,53 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     n_cut2 = vq.sum() + vm.sum()
 
     # --- merge (ma_sub_merge, hit.c:218-223) ---
-    ms = s1 + s2
-    me = s1 + e2
     mdel = d1 | d2
 
-    # --- containment / used / palindrome marks (hit.c:225-236,
-    #     asm.c:9-39): K12 ---
-    tab = read_marks(colmat, out, T)
-    used = (tab & 1) != 0
-    cont = (tab & 2) != 0
-    pal = (tab & 4) != 0
-
-    # --- the arcs between surviving reads (hit.c:237-251), compacted and
-    #     ordered by their mirrored-hit key (qid<<32|qs of the side,
-    #     ORIGINAL coordinates: the reference sorts hits before cutting,
-    #     hit.c:100), ties in row order: K13, into one buffer with the
-    #     counts and the per-read tables, which comes to the host in one
-    #     copy: [7 int64 counts | K13's result | the meta rows] ---
-    flags = (mdel.to(i32) | (cont.to(i32) << 1) | (used.to(i32) << 2)
-             | (pal.to(i32) << 3))
-    meta_rows = [ms, me, flags]
-    if paf_tables:
-        # the JAX program's s|del<<31 rows (fused2.py:506-514), unpacked
-        meta_rows += [tab1[0] & 0x7FFFFFFF, e1, d1.to(i32),
-                      tab2[0] & 0x7FFFFFFF, e2, d2.to(i32)]
-    n_res = ARC_HEAD + ARC_COLS * 2 * n
-    m0 = _N_COUNTS * 2 + n_res
-    buf = torch.empty(m0 + len(meta_rows) * n_seq, dtype=i32, device=dev)
-    arc_order(colmat, out, tab, mdel, res=buf[2 * _N_COUNTS:m0])
-    buf[:2 * _N_COUNTS].view(i64).copy_(torch.stack([
+    # --- the containment / used / palindrome marks (hit.c:225-236,
+    #     asm.c:9-39), the flags row, and the arcs between surviving reads
+    #     (hit.c:237-251), compacted and ordered by their mirrored-hit key
+    #     (qid<<32|qs of the side, ORIGINAL coordinates: the reference sorts
+    #     hits before cutting, hit.c:100), ties in row order: K13, one
+    #     launch, into one buffer [7 int64 counts | head | meta rows | arcs
+    #     at a stride of n_arc]; the merged trims ms = s1 + s2, me = s1 +
+    #     e2 and the -p paf tables fill the other meta rows ---
+    meta = META_ROWS + (6 if paf_tables else 0)
+    m0 = 2 * _N_COUNTS
+    a0 = m0 + ARC_HEAD + meta * n_seq  # the arcs
+    buf = torch.empty(m0 + tail_words(n, n_seq, meta), dtype=i32, device=dev)
+    arc_order(colmat, out, mdel, n_seq, meta=meta, res=buf[m0:])
+    buf[:m0].view(i64).copy_(torch.stack([
         _n_region(tab1), n_cut1, n_flt, _n_region(tab2), n_cut2, tot_dp,
         tot_len]))
-    buf[m0:].view(len(meta_rows), n_seq).copy_(
-        torch.stack(meta_rows)[:, :n_seq])
+    rows = buf[m0 + ARC_HEAD:a0].view(meta, n_seq)
+    torch.add(s1[:n_seq], s2[:n_seq], out=rows[0])
+    torch.add(s1[:n_seq], e2[:n_seq], out=rows[1])
+    if paf_tables:
+        # the JAX program's s|del<<31 rows (fused2.py:506-514), unpacked
+        rows[META_ROWS:].copy_(torch.stack([
+            tab1[0] & 0x7FFFFFFF, e1, d1.to(i32), tab2[0] & 0x7FFFFFFF, e2,
+            d2.to(i32)])[:, :n_seq])
     add_extra("select.kernel_s", _time.time() - t0)
+    # two copies: the counts, the head and the meta rows, then the arcs at
+    # their own size (the second copy reuses the staging block: the first
+    # is read out before it)
     t0 = _time.time()
-    host = to_host(buf).numpy()
-    add_extra("select.fetch_s", _time.time() - t0)
+    host = to_host(buf[:a0]).numpy()
     (n_rem1, n_cut1, n_flt, n_rem2, n_cut2, tot_dp,
-     tot_len) = (int(x) for x in host[:2 * _N_COUNTS].view(np.int64))
-    m_contained, n_arc, dup_hit = (int(x) for x in host[
-        2 * _N_COUNTS:2 * _N_COUNTS + ARC_HEAD])
+     tot_len) = (int(x) for x in host[:m0].view(np.int64))
+    m_contained, n_arc, dup_hit = (int(x) for x in host[m0:m0 + ARC_HEAD])
     c = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc, dup_hit]
-    cols = host[2 * _N_COUNTS + ARC_HEAD:m0].reshape(ARC_COLS, 2 * n)
-    arcs = {k: cols[j, :n_arc].copy()
-            for j, k in enumerate(("u", "v", "l", "ol"))}
-    arcs["idx"] = cols[4, :n_arc].astype(np.int64)
-    meta = host[m0:].reshape(len(meta_rows), n_seq).copy()
-    flags = meta[2]
+    meta_h = host[m0 + ARC_HEAD:a0].reshape(meta, n_seq).copy()
+    cols = (to_host(buf[a0:a0 + ARC_COLS * n_arc]).numpy()
+            .reshape(ARC_COLS, n_arc) if n_arc
+            else np.zeros((ARC_COLS, 0), np.int32))
+    add_extra("select.fetch_s", _time.time() - t0)
+    arcs = {k: cols[j].copy() for j, k in enumerate(("u", "v", "l", "ol"))}
+    arcs["idx"] = cols[4].astype(np.int64)
+    flags = meta_h[FLAGS_ROW]
     md = {
-        "sub_s": meta[0].astype(np.uint32),
-        "sub_e": meta[1].astype(np.uint32),
+        "sub_s": meta_h[0].astype(np.uint32),
+        "sub_e": meta_h[1].astype(np.uint32),
         "sub_del": (flags & 1).astype(bool),
         "cont": ((flags >> 1) & 1).astype(bool),
         "used": ((flags >> 2) & 1).astype(bool),
@@ -561,7 +605,7 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     }
     if paf_tables:
         for k, r in (("sub1", 3), ("sub2", 6)):
-            md[k] = (meta[r], meta[r + 1], meta[r + 2].astype(np.uint8))
+            md[k] = (meta_h[r], meta_h[r + 1], meta_h[r + 2].astype(np.uint8))
     return arcs, md, c
 
 

@@ -1274,6 +1274,43 @@ def tail_inputs(rng, n=60_000, T=3000, start_hi=5000, read_p=None):
     return t[0], t[1], t[2], torch.from_numpy(mdel)
 
 
+def arc_inputs(rng, n=60_000, T=3000, start_hi=5000, read_p=None):
+    """Random (colmat, final-pass output, mdel) for K13, whose marks come
+    from the rows: lanes, hit2arc codes (half arcs, the rest internal or
+    short, and one in fifty of those a containment), self rows,
+    palindromic self rows (rev, equal cut coordinates); qids drawn with
+    probabilities read_p.  The first tenth of the reads (the heavy ones
+    under read_p) is never contained nor sub-deleted, so that their arcs
+    survive."""
+    from miniasm_tpu_torch.core.hit2arc import MA_HT_QCONT, MA_HT_TCONT
+
+    qid = rng.choice(T - 2, n, p=read_p)
+    tid = np.where(rng.random(n) < 0.05, qid, rng.integers(0, T - 2, n))
+    qs = rng.integers(0, start_hi, n)
+    ts = rng.integers(0, start_hi, n)
+    colmat = np.stack([qid, qs, qs + 3000, tid, ts, ts + 3000,
+                       rng.integers(0, 8, n)]).astype(np.int32)
+    out = rng.integers(0, 20000, (15, n))
+    out[4] = rng.integers(0, 4, n)
+    keep = T // 10
+    for r, (marks_q, marks_t) in ((5, (qid, tid)), (10, (tid, qid))):
+        neg = np.where(rng.random(n) < 0.02,
+                       rng.choice([MA_HT_QCONT, MA_HT_TCONT], n),
+                       rng.choice([-1, -4], n))
+        # QCONT marks the side's query, TCONT its target
+        hit = np.where(neg == MA_HT_QCONT, marks_q, marks_t)
+        neg = np.where(((neg == MA_HT_QCONT) | (neg == MA_HT_TCONT))
+                       & (hit < keep), -1, neg)
+        out[r] = np.where(rng.random(n) < 0.5, rng.integers(0, 9000, n), neg)
+    pal = rng.random(n) < 0.3
+    out[2] = np.where(pal, out[0], out[2])
+    out[3] = np.where(pal, out[1], out[3])
+    mdel = (rng.random(T) < 0.05) & (np.arange(T) >= keep)
+    t = [torch.from_numpy(np.ascontiguousarray(x.astype(np.int32)))
+         for x in (colmat, out)]
+    return t[0], t[1], torch.from_numpy(mdel)
+
+
 def test_read_marks_kernel_matches_plain(dev):
     from miniasm_tpu_torch.select import fused2
 
@@ -1306,33 +1343,79 @@ def test_read_marks_kernel_max_not_or(dev):
     assert torch.equal(got, fused2.read_marks_plain(colmat, out, 4))
 
 
-def check_arc_order(dev, colmat, out, tab, mdel, **kw):
+def _one_read_warp(dev, side):
+    """32 rows, one warp, every row's query (side "q") or target ("t")
+    read 1: row 0 a palindromic self hit (5), rows 1-3 containments of
+    read 1 (3), the rest used only (1); the other reads 2..33."""
+    from miniasm_tpu_torch.core.hit2arc import MA_HT_QCONT, MA_HT_TCONT
+
+    n = 32
+    other = torch.arange(2, 2 + n, dtype=torch.int32)
+    one = torch.ones(n, dtype=torch.int32)
+    q, t = (one, other) if side == "q" else (other, one)
+    q[0] = t[0] = 1
+    s = torch.arange(n, dtype=torch.int32) * 10
+    colmat = torch.stack([q, s, s + 5000, t, s, s + 5000,
+                          torch.full((n,), 3, dtype=torch.int32)])
+    out = torch.zeros((15, n), dtype=torch.int32)
+    out[:4] = colmat[[1, 2, 4, 5]]
+    out[4] = 3
+    out[5] = 100
+    out[10] = 100
+    # read 1 contained: its own q-side QCONT, or as target TCONT
+    out[5, 1:4] = MA_HT_QCONT if side == "q" else MA_HT_TCONT
+    return colmat.to(dev), out.to(dev)
+
+
+@pytest.mark.parametrize("side", ["q", "t"])
+def test_marks_one_read_a_warp(dev, side):
+    """A warp whose 32 rows mark one read with mixed words (5 and 3 among
+    them): K12 alone and K13's marks keep their max, 5, as the twin."""
     from miniasm_tpu_torch.select import fused2
 
-    colmat, out, tab, mdel = (x.to(dev) for x in (colmat, out, tab, mdel))
-    got, tiers = fused2.arc_order_tiers(colmat, out, tab, mdel, **kw)
+    colmat, out = _one_read_warp(dev, side)
+    T = 40
+    got = fused2.read_marks(colmat, out, T)
+    want = fused2.read_marks_plain(colmat, out, T)
+    assert torch.equal(got, want) and int(want[1]) == 5
+    mdel = torch.zeros(T, dtype=torch.bool, device=dev)
+    res = fused2.arc_order(colmat, out, mdel, T - 2)
     torch.cuda.synchronize()
-    want = fused2.arc_order_plain(colmat, out, tab, mdel)
-    n = colmat.shape[1]
-    for x, y in zip(fused2.arc_live(got, n), fused2.arc_live(want, n)):
+    plain = fused2.arc_order_plain(colmat, out, mdel, T - 2)
+    for x, y in zip(fused2.arc_live(res, T - 2), fused2.arc_live(plain, T - 2)):
+        assert torch.equal(x, y)
+    flags = fused2.arc_live(res, T - 2)[1]
+    assert int(flags[1]) == 4 | 8  # used and palindrome, not contained
+
+
+def check_arc_order(dev, colmat, out, mdel, n_seq=None, **kw):
+    """K13 against its twin on the card: the head, the flags row and the
+    arcs (arc_live); returns the twin's result and the kernel's tiers."""
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, out, mdel = (x.to(dev) for x in (colmat, out, mdel))
+    n_seq = mdel.shape[0] - 2 if n_seq is None else n_seq
+    got, tiers = fused2.arc_order_tiers(colmat, out, mdel, n_seq, **kw)
+    torch.cuda.synchronize()
+    want = fused2.arc_order_plain(colmat, out, mdel, n_seq)
+    for x, y in zip(fused2.arc_live(got, n_seq), fused2.arc_live(want, n_seq)):
         assert torch.equal(x, y)
     return want, tiers.tolist()
 
 
-@pytest.mark.parametrize("smem_cap", [0, 2048, None])
+@pytest.mark.parametrize("smem_cap", [0, 1, 2048, None])
 def test_arc_order_kernel_matches_plain(dev, smem_cap):
     """Reads of 1 to about 900 arcs (read i drawn with weight 1/(i+1)),
     starts in [0, 50): many equal hit keys.  The default cap sorts the
     reads past 256 arcs by a block in shared memory, 2048 bytes sends
-    those past 256 arcs to device memory, 0 every read."""
+    those past 256 arcs to device memory, 0 and 1 byte every read."""
     rng = np.random.default_rng(12)
     T = 3000
     p = 1.0 / np.arange(1, T - 1)
-    colmat, out, tab, mdel = tail_inputs(rng, T=T, start_hi=50,
-                                         read_p=p / p.sum())
+    colmat, out, mdel = arc_inputs(rng, T=T, start_hi=50,
+                                   read_p=p / p.sum())
     kw = {} if smem_cap is None else {"smem_cap": smem_cap}
-    want, (block, devmem) = check_arc_order(dev, colmat, out, tab, mdel,
-                                            **kw)
+    want, (block, devmem) = check_arc_order(dev, colmat, out, mdel, **kw)
     m_cont, n_arc, dup = want[:3].tolist()
     assert n_arc > 10_000 and dup > 0 and m_cont > n_arc
     if smem_cap is None:
@@ -1344,36 +1427,70 @@ def test_arc_order_kernel_matches_plain(dev, smem_cap):
 
 
 def test_arc_order_kernel_read_past_shared_memory(dev):
-    """One read holds 40,000 arcs, more than a block's shared memory holds
-    (29,056 keys of 8 bytes): its sort runs in device memory."""
+    """One read holds 40,000 arcs, more than a block's shared memory holds:
+    its sort runs in device memory."""
     rng = np.random.default_rng(13)
     T, n = 40, 60_000
     p = np.full(T - 2, 0.1 / (T - 3))
     p[7] = 0.9
-    colmat, out, tab, mdel = tail_inputs(rng, n=n, T=T, start_hi=30000,
-                                         read_p=p)
+    colmat, out, mdel = arc_inputs(rng, n=n, T=T, start_hi=30000,
+                                   read_p=p)
     colmat[3] = torch.where(colmat[3] == colmat[0], (colmat[0] + 1) % 30,
                             colmat[3])
     out[4] = 1
     out[5] = torch.from_numpy(rng.integers(0, 9000, n).astype(np.int32))
-    tab[:] = 1
     mdel[:] = False
-    want, (block, devmem) = check_arc_order(dev, colmat, out, tab, mdel)
+    want, (block, devmem) = check_arc_order(dev, colmat, out, mdel)
     assert want[1] == n and block >= 1 and devmem == 1
 
 
 def test_arc_order_kernel_no_arcs_and_empty(dev):
     from miniasm_tpu_torch.select import fused2
 
-    colmat, out, tab, mdel = tail_inputs(np.random.default_rng(14), n=500)
+    colmat, out, mdel = arc_inputs(np.random.default_rng(14), n=500)
     out[4] = 0  # no valid lane
-    want, _ = check_arc_order(dev, colmat, out, tab, mdel)
+    want, _ = check_arc_order(dev, colmat, out, mdel)
     assert want[:3].tolist() == [0, 0, 0]
     e = torch.zeros((7, 0), dtype=torch.int32, device=dev)
+    m = mdel.to(dev)
     got = fused2.arc_order(e, torch.zeros((15, 0), dtype=torch.int32,
-                                          device=dev),
-                           tab.to(dev), mdel.to(dev))
-    assert got.tolist() == [0, 0, 0]
+                                          device=dev), m, 5)
+    head, flags, arcs = fused2.arc_live(got, 5)
+    assert head.tolist() == [0, 0, 0] and arcs.shape == (5, 0)
+    assert torch.equal(flags, m[:5].to(torch.int32))
+
+
+def _most_tail_blocks():
+    """The most blocks of K13's launch on this card (its grid's third
+    word), read from a call on a few rows."""
+    from miniasm_tpu_torch.select import fused2
+
+    colmat, out, mdel = (x.cuda() for x in arc_inputs(
+        np.random.default_rng(0), n=100, T=50))
+    g = [0, 0, 0, 0]
+    fused2.arc_order(colmat, out, mdel, 48, grid=g)
+    assert g[0] == 1 and g[1] == 50 and g[2] > 0 and g[3] == 6
+    return g[2]
+
+
+@pytest.mark.parametrize("d", [-1, 0, 1, 257, 100_000])
+def test_arc_order_kernel_read_chunk_edges(dev, d):
+    """T at the edges of a block's chunk of reads: the card's whole grid
+    at 256 reads a block (most x 256 + d: one read more or less than a
+    round of the block's scan, a second round), and far past it."""
+    from miniasm_tpu_torch.select import fused2
+
+    most = _most_tail_blocks()
+    T = most * 256 + d
+    colmat, out, mdel = arc_inputs(np.random.default_rng(abs(d)),
+                                   n=200_000, T=T)
+    g = [0, 0, 0, 0]
+    want, _ = check_arc_order(dev, colmat, out, mdel, grid=g)
+    assert g[0] == most and g[1] == -(-T // most)
+    assert (g[1] > 256) == (d > 0)
+    assert int(want[1]) > 0
+    # the same on the flags row's edge: n_seq = T
+    want, _ = check_arc_order(dev, colmat, out, mdel, n_seq=T)
 
 
 def test_to_host_reuses_one_pinned_block(dev):
@@ -1558,8 +1675,9 @@ FORBIDDEN = {"sort", "nonzero", "searchsorted", "scatter_reduce",
 
 def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
     """On CUDA tensors select_build2 and detect run no sort, nonzero,
-    searchsorted or scatter_reduce, and each makes one device-to-host
-    copy; their results equal the CPU's, and K12-K14 launch once a call."""
+    searchsorted or scatter_reduce; select_build2 makes two device-to-host
+    copies (the second sized by n_arc), detect one; their results equal
+    the CPU's; K13 (with K12's marks) and K14 launch once a call."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.config import Opt
     from miniasm_tpu_torch.eval.simulate import simulate, write_paf
@@ -1583,9 +1701,10 @@ def test_select_and_clean_tails_on_card_one_copy(dev, tmp_path):
         h.free()
         if d == "cuda":
             n = cuda.launch_counts()
-            assert n["read_marks"] == 1 and n["arc_order"] == 1
+            assert n["read_marks"] == 0 and n["arc_order"] == 1
             assert not ops.names & FORBIDDEN, ops.names & FORBIDDEN
-            assert ops.d2h == 1
+            # the counts, head and tables; then the arcs at their size
+            assert ops.d2h == 2
     (ca, cmd, cc), (ga, gmd, gc) = res["cpu"], res["cuda"]
     assert cc == gc and cc[6] > 0
     for k in ca:
@@ -2011,10 +2130,11 @@ def _device_events(fn):
 
 
 def _one_call_events(name):
-    """Prints, as a JSON list, the device events of one call of K16 or
-    K19 on seeded inputs (run in a process of its own by
-    test_compaction_one_launch_a_call)."""
+    """Prints, as a JSON list, the device events of one call of K16, K19
+    or K13 on seeded inputs (run in a process of its own by
+    _child_events)."""
     from miniasm_tpu_torch.parallel import full
+    from miniasm_tpu_torch.select import fused2
     from miniasm_tpu_torch.utils import compact as cp
 
     rng = np.random.default_rng(29)
@@ -2022,19 +2142,19 @@ def _one_call_events(name):
         rows, keep, mp = (x.cuda() for x in _compact_case(
             rng, 300_000, "keep_remap"))
         fn = lambda: cp.compact(rows, keep, mp)  # noqa: E731
+    elif name == "arc_order":
+        colmat, out, mdel = (x.cuda() for x in arc_inputs(rng, 300_000))
+        fn = lambda: fused2.arc_order(colmat, out, mdel, 2998)  # noqa: E731
     else:
         args = [x.cuda() for x in _shard_case(rng, 300_000)]
         fn = lambda: full.shard_arcs(*args)  # noqa: E731
     print(json.dumps(_device_events(fn)))
 
 
-@pytest.mark.parametrize("name", ["compact", "shard_arcs"])
-def test_compaction_one_launch_a_call(dev, name):
-    """One call of K16 or K19 launches one kernel, and no memset (at most
-    one is allowed), besides the copy that reads its count back.  The
-    profiler runs in a process of its own: in the test process, after the
-    profiled CLI runs of other tests, a session held the copy but not the
-    kernel."""
+def _child_events(name):
+    """_one_call_events(name) in a process of its own: in the test process,
+    after the profiled CLI runs of other tests, a session held the copy
+    but not the kernel.  Returns (kernels, memsets)."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path[:0] = %r; import test_torch_cuda as t; "
             "t._one_call_events(%r)" % ([os.path.dirname(here), here], name))
@@ -2042,19 +2162,35 @@ def test_compaction_one_launch_a_call(dev, name):
                        text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     ev = json.loads(r.stdout.strip().splitlines()[-1])
-    kernels = [e for e in ev if not e.startswith(("Memset", "Memcpy"))]
-    memsets = [e for e in ev if e.startswith("Memset")]
-    assert len(kernels) == 1 and name in kernels[0], ev
-    assert len(memsets) <= 1, ev
+    return ([e for e in ev if not e.startswith(("Memset", "Memcpy"))],
+            [e for e in ev if e.startswith("Memset")])
+
+
+@pytest.mark.parametrize("name", ["compact", "shard_arcs"])
+def test_compaction_one_launch_a_call(dev, name):
+    """One call of K16 or K19 launches one kernel, and no memset (at most
+    one is allowed), besides the copy that reads its count back."""
+    kernels, memsets = _child_events(name)
+    assert len(kernels) == 1 and name in kernels[0], kernels
+    assert len(memsets) <= 1, memsets
+
+
+def test_select_tail_one_launch_no_memset(dev):
+    """One call of the main path's select tail (K13 with K12's marks: the
+    marks, the flags row and the ordered arcs) launches one kernel and no
+    memset."""
+    kernels, memsets = _child_events("arc_order")
+    assert len(kernels) == 1 and "arc_order_kernel" in kernels[0], kernels
+    assert not memsets, memsets
 
 
 @pytest.mark.parametrize("T", [5, 1023, 1024, 1025, 2049])
 def test_arc_order_kernel_scan_edges(dev, T):
-    """K13 with its block scan in common.cuh: reads on both sides of a
-    scan block (1024 reads)."""
-    colmat, out, tab, mdel = tail_inputs(np.random.default_rng(T), n=20_000,
-                                         T=T)
-    want, _ = check_arc_order(dev, colmat, out, tab, mdel)
+    """K13 with its block scan in common.cuh: reads on both sides of the
+    1024 rows a block takes a round, of one and two scan rounds."""
+    colmat, out, mdel = arc_inputs(np.random.default_rng(T), n=20_000,
+                                   T=T)
+    want, _ = check_arc_order(dev, colmat, out, mdel)
     assert int(want[1]) > 0
 
 

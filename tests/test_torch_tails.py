@@ -432,11 +432,10 @@ def test_select_tail_base_set(base_paf, paf_tables):
     assert c[6] > 0 and md["cont"].any()
 
 
-def test_arc_order_plain_layout():
-    """The twin's result: [m_contained, n_arc, dup_hit], then the five
-    columns 2n long, of which it writes the first n_arc rows only."""
-    rng = np.random.default_rng(2)
-    n, T = 300, 40
+def _tail_case(seed=2, n=300, T=40):
+    """Random (colmat, final-pass output, mdel) for the tail's twin: lanes,
+    codes mostly arcs, starts in [0, 5): many equal hit keys."""
+    rng = np.random.default_rng(seed)
     colmat = torch.from_numpy(np.stack([
         rng.integers(0, T - 2, n), rng.integers(0, 5, n),
         rng.integers(0, 9000, n), rng.integers(0, T - 2, n),
@@ -444,22 +443,88 @@ def test_arc_order_plain_layout():
         rng.integers(0, 8, n)]).astype(np.int32))
     out = torch.from_numpy(rng.integers(-4, 9000, (15, n)).astype(np.int32))
     out[4] = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32))
-    # mostly surviving reads (used, not contained)
-    tab = torch.from_numpy(rng.choice([1, 5, 3], T, p=[0.45, 0.45, 0.1])
-                           .astype(np.int32))
     mdel = torch.from_numpy(rng.random(T) < 0.1)
-    res = torch.full((3 + 10 * n,), -7, dtype=torch.int32)
-    assert tf.arc_order(colmat, out, tab, mdel, res=res) is res
+    return colmat, out, mdel
+
+
+def test_arc_order_plain_layout():
+    """The twin's result: the head [m_contained, n_arc, dup_hit], the meta
+    rows, of which it writes the flags row only, then the five arc columns
+    at a stride of n_arc, in (read, start, row) order; nothing after."""
+    n, T, meta = 300, 40, 9
+    n_seq = T - 2
+    colmat, out, mdel = _tail_case()
+    res = torch.full((tf.tail_words(n, n_seq, meta),), -7, dtype=torch.int32)
+    assert res.shape == (3 + meta * n_seq + 10 * n,)
+    assert tf.arc_order(colmat, out, mdel, n_seq, meta=meta, res=res) is res
     m_cont, n_arc, dup = res[:3].tolist()
-    cols = res[3:].view(5, 2 * n)
-    assert 0 < n_arc < 2 * n and dup > 0
-    assert (cols[:, n_arc:] == -7).all()
-    head, live = tf.arc_live(res, n)
+    assert 0 < n_arc < 2 * n and dup > 0 and m_cont >= n_arc
+    a0 = 3 + meta * n_seq
+    cols = res[a0:a0 + 5 * n_arc].view(5, n_arc)
+    assert (res[a0 + 5 * n_arc:] == -7).all()
+    rows = res[3:a0].view(meta, n_seq)
+    assert (rows[[0, 1, 3, 4, 5, 6, 7, 8]] == -7).all()
+    head, flags, live = tf.arc_live(res, n_seq, meta)
     assert head.tolist() == [m_cont, n_arc, dup]
-    assert torch.equal(live, cols[:, :n_arc])
-    row = cols[4, :n_arc].long()
+    assert torch.equal(live, cols) and torch.equal(flags, rows[2])
+    tab = tf.read_marks_plain(colmat, out, T)[:n_seq]
+    used, cont, pal = tab & 1, (tab >> 1) & 1, (tab >> 2) & 1
+    assert torch.equal(flags, mdel[:n_seq].to(torch.int32) | (cont << 1)
+                       | (used << 2) | (pal << 3))
+    row = cols[4].long()
     read = torch.cat([colmat[0], colmat[3]])[row].long()
     start = torch.cat([colmat[1], colmat[4]])[row].long()
     key = (read << 40) | (start << 32) | row
     assert bool((key[1:] > key[:-1]).all())  # (read, start, row) order
-    assert torch.equal(cols[0, :n_arc], torch.cat([out[6], out[11]])[row])
+    assert torch.equal(cols[0], torch.cat([out[6], out[11]])[row])
+
+
+def _one_arc(orig):
+    """arc_order with every lane of the final pass but one arc row's q-side
+    cleared: the same twin on an input of exactly one arc."""
+    def call(colmat, out, mdel, n_seq, **kw):
+        live = tf.arc_live(orig(colmat, out, mdel, n_seq,
+                                meta=kw.get("meta", 3)), n_seq,
+                           kw.get("meta", 3))[2]
+        n = colmat.shape[1]
+        row = int(live[4][live[4] < n][0])
+        one = out.clone()
+        one[4] = 0
+        one[4][row] = 1
+        return orig(colmat, one, mdel, n_seq, **kw)
+    return call
+
+
+@pytest.mark.parametrize("paf_tables", [False, True])
+@pytest.mark.parametrize("case", ["no_arcs", "one_arc", "base"])
+def test_select_fetch_sized_by_n_arc(base_paf, tmp_path, monkeypatch, case,
+                                     paf_tables):
+    """select_build2 reads back counts, head and meta rows in one copy and
+    the arcs, 5 * n_arc words, in a second (none without an arc): no copy
+    is sized by the 2n rows' bound."""
+    paf = base_paf
+    if case == "no_arcs":
+        paf = str(tmp_path / "few.paf")
+        _write_paf(paf, _read_paf(base_paf)[:3])
+    if case == "one_arc":
+        monkeypatch.setattr(tf, "arc_order", _one_arc(tf.arc_order))
+    sizes = []
+
+    def to_host(t):
+        sizes.append(t.numel())
+        return t
+    monkeypatch.setattr(tf, "to_host", to_host)
+    opt = port_opt()
+    col, d, h = t_load(paf, opt.min_span, opt.min_match, bi_dir=True,
+                       min_iden=float(opt.min_iden), device=CPU)
+    arcs, md, c = tf.select_build2(col, d, opt, bi_dir=True,
+                                   paf_tables=paf_tables)
+    h.free()
+    n_arc, meta = c[6], 9 if paf_tables else 3
+    assert n_arc == {"no_arcs": 0, "one_arc": 1}.get(case, n_arc) \
+        and (n_arc > 100 or case != "base")
+    assert sizes[0] == 14 + 3 + meta * d.n_seq
+    assert sizes[1:] == ([5 * n_arc] if n_arc else [])
+    assert sum(sizes) == 14 + 3 + meta * d.n_seq + 5 * n_arc
+    assert arcs["u"].shape == arcs["idx"].shape == (n_arc,)
+    assert md["used"].shape == (d.n_seq,)

@@ -135,15 +135,15 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # must launch.  The main path never launches the staged kernels K5, K6,
 # K16-K18 or the sharded step's K19, and only the oracle clean modes
 # launch K7 and K8.
-# The loader launches K9 once per FMT3 piece and K10 once per FMT3 or
-# 4-row piece ("=decode3": as many as K9); the staged path's loader is
-# another (pafread.cpp) and launches neither.  The main path's select
+# The loader launches K9 once per FMT3 piece and K10 once per load on the
+# card (its 4-row pieces unpacked, its 7-row pieces copied); the
+# staged path's loader is another (pafread.cpp) and launches neither.  The main path's select
 # launches K13 once, the marks of K12 inside it, and K12 alone never (the
 # sharded step launches it once a rank); every detection of the hybrid
 # clean launches K14 once (each run is also held to its clean.detect_n,
 # _check_detects).
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
-         "decode3": ">0", "unpack4": "=decode3", "route": 0,
+         "decode3": ">0", "unpack4": 1, "route": 0,
          "route_layout": 0, "read_marks": 0, "arc_order": 1,
          "clean_stage_b": "any", "compact": 0,
          "hit_flt": 0, "hit_marks": 0, "shard_arcs": 0}
@@ -157,14 +157,14 @@ _PAF = dict(_MAIN, cut_hit2arc=2, sweep=2, trans_multi=0, bubble_bfs=0)
 def _staged(cut_passes, flt, contained, graph):
     # pipeline._select_staged and graph_from_hits: per cut pass K2
     # (hit_sub), K5 and K16 (apply_cut); the filter K17 and K16 (the take);
-    # the containment K18 twice (its marks, mark_unused's) and K16 twice
-    # (the trim table, the remapped hits); the graph build K18 (the sg
-    # marks and arc rows) and K16 (the arcs), then clean with K3 (and K4
-    # where it finds a bubble source).  K6 no longer launches here.
+    # the containment K18 once (its contained and used marks) and K16
+    # twice (the trim table, the remapped hits); the graph build K18 (the
+    # sg marks and arc rows) and K16 (the arcs), then clean with K3 (and
+    # K4 where it finds a bubble source).  K6 no longer launches here.
     return {"cut_hit2arc": 0, "sweep": cut_passes, "hit_cut": cut_passes,
             "hit2arc": 0,
             "compact": cut_passes + flt + 2 * contained + graph,
-            "hit_flt": flt, "hit_marks": 2 * contained + graph,
+            "hit_flt": flt, "hit_marks": contained + graph,
             "trans_multi": ">0" if graph else 0,
             "bubble_bfs": "any" if graph else 0, "key_member": 0,
             "dup_mark": 0, "decode3": 0, "unpack4": 0, "route": 0,
@@ -204,12 +204,15 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
           "ecoli_snap_ug_restore": dict(_CLEAN, cut_hit2arc=0, sweep=0,
                                         decode3=0, unpack4=0, read_marks=0,
                                         arc_order=0),
-          # the sideband overflows in the first piece: no FMT3 piece
-          "shuffled_ug": dict(_CLEAN, decode3=0, unpack4=">0"),
-          # below E. coli size the switch can come in the first piece
+          # the sideband overflows in the first piece: no FMT3 piece,
+          # 4-row pieces
+          "shuffled_ug": dict(_CLEAN, decode3=0),
+          # below E. coli size the switch can come in the first piece,
+          # leaving no FMT3 piece
           "long_ug": dict(_CLEAN, decode3="any"),
           # the sharded runs: rank 0 loads on the host (7-row pieces,
-          # nothing to decode: no K9/K10); K11's layout pass once for the
+          # nothing to decode, and K10's plain version on the host: no
+          # K9/K10 launch); K11's layout pass once for the
           # select step's one Layout and its scatter once per sweep pass,
           # then K1, K2, K12 alone (its marks are OR-ed across the ranks)
           # and, for the arc tail, K19 (once; full.py select_step) where
@@ -239,14 +242,13 @@ EXPECT = {"ecoli_ug_cold": _CLEAN, "ecoli_ug": _CLEAN, "ecoli_ug_2": _CLEAN,
 EXPECT = {tag: dict(want) for tag, want in EXPECT.items()}  # one per run
 # the exact counts of the E. coli sets where the count depends on the
 # data: the hybrid cleaner's K3 detects, the py oracle's symm calls, the
-# loader's pieces of 131,072 records (the clean set's 691,396 filtered
-# records in 6 pieces, the noisy set's about 345,700 in 3; the long set's
-# last piece switches to 7 rows, leaving 5 FMT3 pieces; the shuffled
-# set's first 16,384 records fill the sideband and the rest ride 6 4-row
-# pieces); a smaller --genome holds them to ">0" only
+# loader's FMT3 pieces of 131,072 records (the clean set's 691,396
+# filtered records in 6 pieces, the noisy set's about 345,700 in 3; the
+# long set's last piece switches to 7 rows, leaving 5 FMT3 pieces); a
+# smaller --genome holds them to ">0" only
 AT_ECOLI = {("noisy_py_sg", "key_member"): 5,
             ("noisy_py_sg", "dup_mark"): 5,
-            ("shuffled_ug", "unpack4"): 7, ("long_ug", "decode3"): 5}
+            ("long_ug", "decode3"): 5}
 # every run that cleans the noisy set's graph with the hybrid cleaner: 19
 # K3 detections and 11 K4 launches (6 dispatches, 5 of which overflow K =
 # 64 and run again at 128)
@@ -341,12 +343,14 @@ class Recorder:
     keeps the arguments themselves, no copies (the
     port writes no kernel input in place), so the hook adds no device work
     and no sync to the timed runs.  `kernel` names the kernel when the
-    wrapper's name is not its name.  The wrapped call itself is
+    wrapper's name is not its name.  A call for which `when` is false
+    (by default none) is not recorded.  The wrapped call itself is
     unchanged."""
 
     def __init__(self, mod, name: str, key_fn, stat_fn=None, kernel=None,
-                 size_fn=None, log_tag=None):
+                 size_fn=None, log_tag=None, when=None):
         self.mod, self.name, self.key_fn = mod, name, key_fn
+        self.when = when
         self.kernel = kernel or name
         self.stat_fn, self.stat = stat_fn, 0
         self.size_fn = size_fn or (lambda a, k: sum(
@@ -358,6 +362,8 @@ class Recorder:
 
     def __enter__(self):
         def wrapped(*a, **k):
+            if self.when is not None and not self.when(a, k):
+                return self.orig(*a, **k)
             size = self.size_fn(a, k)
             if self.stat_fn is not None:
                 self.stat = max(self.stat, self.stat_fn(a, k))
@@ -419,8 +425,6 @@ def _check_launches(tag: str, launches: dict, expect=None) -> None:
         got = launches[name]
         if want == "any":
             continue
-        if isinstance(want, str) and want.startswith("="):
-            want = launches[want[1:]]
         if (got <= 0) if want == ">0" else (got != want):
             _fail("%s: kernel %s launched %d times, this run needs %s"
                   % (tag, name, got, want))
@@ -539,8 +543,8 @@ def _device_split(fn, reps: int, flush: bool = True) -> dict:
     session of one call first counts each name's events per call; the
     session of reps calls must show every name of it reps times as often,
     and no other.  A session that records no event, or misses or adds
-    some, is made again, three times at most; then the smoke fails: it
-    never reports a partial sum."""
+    some, is made again, three times at most; then the smoke fails, naming
+    the counts of the last pair: it never reports a partial sum."""
     names = _flush_names() if flush else set()
     fn()
     torch.cuda.synchronize()
@@ -548,12 +552,13 @@ def _device_split(fn, reps: int, flush: bool = True) -> dict:
         one = _device_profile(fn, 1, names)
         many = _device_profile(fn, reps, names)
         per = {k: len(v) for k, v in one.items()}
-        if per and {k: len(v) for k, v in many.items()} == {
-                k: c * reps for k, c in per.items()}:
+        got = {k: len(v) for k, v in many.items()}
+        if per and got == {k: c * reps for k, c in per.items()}:
             return {k: sum(d) / len(d) * per[k] / 1e3
                     for k, d in many.items()}
-    _fail("the profiler recorded an incomplete session of %r three times"
-          % getattr(fn, "__name__", fn))
+    _fail("the profiler recorded an incomplete session of %r three times "
+          "(last: one call %s, %d calls %s)"
+          % (getattr(fn, "__name__", fn), per, reps, got))
 
 
 def _device_ms(fn, reps: int, flush: bool = True) -> float:
@@ -638,13 +643,11 @@ def _cost(name, args, kw, out):
         n = cols.shape[1]
         return 7 * 4 * n + _nbytes(sub) + _nbytes(*out), 45 * n
     if name == "hit_marks":
-        # "used": the two id rows in, the marks out (two stores a hit);
-        # otherwise 7 hit rows and the lengths in, hit2arc (~35 ops) a hit,
-        # the marks out and, "sg", the keep byte and 4 arc rows
+        # 7 hit rows and the lengths in, hit2arc (~35 ops) a hit, the
+        # marks out ("contained": both tables, 2T bytes) and, "sg", the
+        # keep byte and 4 arc rows
         cols, mode, T = args[:3]
         n = cols.shape[1]
-        if mode == "used":
-            return 2 * 4 * n + T, 2 * n
         return 7 * 4 * n + 4 * T + _nbytes(*_as_tuple(out)), 40 * n
     if name == "shard_arcs":
         # every row's lane bits; a row with a valid lane also its reads and
@@ -680,9 +683,10 @@ def _cost(name, args, kw, out):
         # mask, the or
         return _nbytes(flat) + _nbytes(out), 6 * n
     if name == "unpack4":
-        n = out.shape[1]
-        # 4 words in, 7 out; shifts and masks
-        return 4 * 4 * n + _nbytes(out), 8 * n
+        # each piece's real records read once (4 or 7 words a record), the
+        # colmat's 7 written; shifts and masks
+        read = sum(4 * d.shape[0] * n for d, n in args[0])
+        return read + _nbytes(out), 8 * out.shape[1]
     if name == "route":
         dest, payload = args[0].dest, args[1]
         # per row: the destination's match and popcount rank (about 10
@@ -868,11 +872,13 @@ def _read_events(seg, key, T):
     return torch.bincount(seg[ok].long(), minlength=T)
 
 
-def _measure(name, fn, plain, args, kw, reps):
+def _measure(name, fn, plain, args, kw, reps, own=True):
     """Kernel vs plain version on one recorded call: bit-equal, both timed
     (the wrapper by CUDA events and by torch.profiler's device time), the
     call's bytes and operations; K7 also beside torch.isin, the one
-    PyTorch call that computes its function when every needle is live."""
+    PyTorch call that computes its function when every needle is live.
+    own: the call is on the path the kernel's row times (K10's and K18's
+    extra timings are taken on that path only)."""
     got = fn(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
@@ -936,6 +942,26 @@ def _measure(name, fn, plain, args, kw, reps):
         m["device_split"] = {_short(k): v for k, v in split.items()}
         m["device_ms_unflushed"] = _device_ms(
             lambda: fn(*args, **kw), reps, flush=False)
+    if name in ("hit_marks", "unpack4") and own:
+        # the device time by launch (memset, kernel), without the flush,
+        # and the wrapper's host time; K18's containment call also beside
+        # its used half's library call, one index_fill_ of ones over the
+        # concatenated qid and tid rows (made before the timing): no
+        # PyTorch call computes the contained half
+        m["device_split"] = {_short(k): v for k, v in split.items()}
+        m["device_ms_unflushed"] = _device_ms(
+            lambda: fn(*args, **kw), reps, flush=False)
+        m["host_us"] = _host_us(lambda: fn(*args, **kw), reps)
+        if name == "unpack4":
+            m["pieces"] = [[d.shape[0], d.shape[1], n] for d, n in args[0]]
+        elif args[1] == "contained":
+            cols, T = args[0], args[2]
+            idx = torch.cat([cols[0], cols[3]]).clamp(0, T - 1).long()
+            lib = torch.zeros(T, dtype=torch.uint8, device=cols.device)
+            if not torch.equal(lib.index_fill_(0, idx, 1), got[1]):
+                _fail("hit_marks: the used marks disagree with index_fill_")
+            m["used_library_ms"] = _time_ms(
+                lambda: lib.index_fill_(0, idx, 1), reps)
     if name == "compact":
         # one boolean-mask index of the same columns, as one matrix, by the
         # survivors' mask (with a remap: of the survivors of both ids)
@@ -1276,7 +1302,7 @@ def _kernel_phase(recs, runs, cases):
     from miniasm_tpu_torch.utils import arrays, compact as kc
 
     plain = {"decode3": pafload.decode3_plain,
-             "unpack4": lambda p, n: pafload.unpack4_plain(p[:, :n]),
+             "unpack4": pafload.unpack4_pieces_plain,
              "cut_hit2arc": fused2.cut_hit2arc_plain,
              "sweep": lambda *a, smem_cap=None: fused2.sweep_events_plain(*a),
              "trans_multi": devclean.trans_multi_plain,
@@ -1315,9 +1341,10 @@ def _kernel_phase(recs, runs, cases):
         for key, (_size, args, kw) in sorted(calls.items(),
                                              key=lambda x: str(x[0])):
             if name == "unpack4":
-                # (piece, n): the kernel into a new (7, n) colmat
-                args = args[:2]
-            m = _measure(name, fn, plain[name], args, kw, reps[name])
+                # the load's pieces: the kernel into a new colmat
+                args = args[:1]
+            m = _measure(name, fn, plain[name], args, kw, reps[name],
+                         own=key[0] == ROW_PATH[name])
             if name == "route":
                 # the call's Layout: K11's layout pass and the read-back,
                 # paid once per destination vector
@@ -1389,6 +1416,16 @@ def _kernel_phase(recs, runs, cases):
                                      "ms_unflushed", "device_ms_unflushed",
                                      "host_us")):
                         row[x] = own[0][x]
+        if name in ("hit_marks", "unpack4"):
+            # each call on a line of its own: its times by launch, flushed
+            # and not, its host time, K18's used-half library call
+            for k, m in sorted(measured.items()):
+                _say("[%s] %s: %s" % (name, "/".join(k), json.dumps({
+                    x: m[x] for x in (
+                        "shapes", "pieces", "ms", "device_ms",
+                        "device_split", "device_ms_unflushed", "host_us",
+                        "used_library_ms") if x in m}
+                    | {"bound_ms": _sum([m])["bound_ms"]})))
         if name in ("compact", "shard_arcs"):
             # each call on a line of its own: its columns, its times by
             # launch beside the library call, its grid and floor
@@ -2256,9 +2293,11 @@ def main(argv=None) -> int:
                      size_fn=lambda a_, k: a_[2][0].numel()),
             Recorder(clean, "dup_mark", on_path(lambda a_, k: "all")),
             Recorder(pafload, "decode3", on_path(lambda a_, k: "all")),
-            # the largest piece: the most columns unpacked
+            # the largest load on the card: the most records unpacked (the
+            # sharded paths' host load runs the plain version: not kept)
             Recorder(pafload, "unpack4", on_path(lambda a_, k: "all"),
-                     size_fn=lambda a_, k: a_[1]),
+                     size_fn=lambda a_, k: sum(n for _d, n in a_[0]),
+                     when=lambda a_, k: any(d.is_cuda for d, _n in a_[0])),
             # K11: the largest call of each run
             Recorder(pfull, "route", on_path(lambda a_, k: PATH["tag"])),
             # K12 (the main path's and the sharded step's), K13; K14:

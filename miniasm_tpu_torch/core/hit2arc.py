@@ -18,11 +18,14 @@ the same function per row; `hit2arc` is its plain version.
 path's (9, n) hit matrix with the read lengths gathered from a table;
 `hit2arc_rows_plain` is its plain version.  `hit_marks` is K18 (the same
 source): hit2arc with the per-read byte marks the staged path takes from
-it (containment, the string graph's deletions and arc rows, the reads in
-use), `hit_marks_plain` its plain version.
+it (the containment pass's contained reads and reads in use, in one
+launch; the string graph's deletions and arc rows), `hit_marks_plain`
+its plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -121,31 +124,30 @@ def hit2arc_rows(cols, lens, max_hang: int, int_frac: float,
 
 
 # hit2arc with the per-read marks of select/contained.py:19
-# contained_marks (mode "contained"), graph/asg.py:160-190 in
-# graph_from_hits ("sg") and core/hits.py:106 mark_unused ("used")
+# contained_marks and core/hits.py:106 mark_unused ("contained", one launch
+# for both) and of graph/asg.py:160-190 in graph_from_hits ("sg")
 K_HIT_MARKS = Kernel(
     "hit_marks", "staged.cu", "ma_hit_marks",
-    [P, I64, P, I64, I32, F32, I32, I32, P, P, P],
+    [P, I64, P, I64, I32, F32, I32, I32, P, P, P, P],
     replaces="miniasm_tpu/select/contained.py:19")
-MARK_MODES = ("contained", "sg", "used")
+MARK_MODES = ("contained", "sg")
 
 
-def hit_marks_plain(cols, mode: str, T: int, lens=None, max_hang: int = 0,
+def hit_marks_plain(cols, mode: str, T: int, lens, max_hang: int = 0,
                     int_frac: float = 0.0, min_ovlp: int = 0):
     """Plain PyTorch version of the hit_marks kernel (see `hit_marks`)."""
     qi = cols[0].clamp(0, T - 1).long()
     ti = cols[3].clamp(0, T - 1).long()
-    mark = torch.zeros(T, dtype=torch.uint8, device=cols.device)
-    if mode == "used":
-        mark[qi] = 1
-        mark[ti] = 1
-        return mark
     arc = hit2arc_rows_plain(cols, lens, max_hang, int_frac, min_ovlp)
     r = arc[0]
     if mode == "contained":
-        mark[qi[r == MA_HT_QCONT]] = 1
-        mark[ti[r == MA_HT_TCONT]] = 1
-        return mark
+        marks = torch.zeros((2, T), dtype=torch.uint8, device=cols.device)
+        marks[0, qi[r == MA_HT_QCONT]] = 1
+        marks[0, ti[r == MA_HT_TCONT]] = 1
+        marks[1, qi] = 1
+        marks[1, ti] = 1
+        return marks
+    mark = torch.zeros(T, dtype=torch.uint8, device=cols.device)
     self_ = cols[0] == cols[3]
     pal = ((r >= 0) & self_ & (cols[1] == cols[4]) & (cols[2] == cols[5])
            & (cols[8] != 0))
@@ -153,16 +155,19 @@ def hit_marks_plain(cols, mode: str, T: int, lens=None, max_hang: int = 0,
     return mark, ((r >= 0) & ~self_).to(torch.uint8), arc[1:].contiguous()
 
 
-def hit_marks(cols, mode: str, T: int, lens=None, max_hang: int = 0,
-              int_frac: float = 0.0, min_ovlp: int = 0):
+def hit_marks(cols, mode: str, T: int, lens, max_hang: int = 0,
+              int_frac: float = 0.0, min_ovlp: int = 0, *, grid=None):
     """K18.  cols (9, n) int32 hits; mode one of MARK_MODES; T the reads;
-    lens (T,) int32 per-read lengths (not read in the "used" mode).
-    Returns the (T,) uint8 per-read marks: "contained", the query of each
-    QCONT hit and the target of each TCONT hit (at max_hang, int_frac,
-    min_ovlp); "used", both reads of every hit; "sg", the query of each
-    QCONT hit and of each exact reverse self-palindrome, and then also the
-    (n,) uint8 arc-row keep (an arc, not a self match) and the (4, n) int32
-    arc columns [u v l ol]."""
+    lens (T,) int32 per-read lengths; hit2arc at max_hang, int_frac,
+    min_ovlp.  "contained" returns the containment pass's (2, T) uint8
+    marks in one launch: row 0 the query of each QCONT hit and the target
+    of each TCONT hit, row 1 both reads of every hit (the reads in use).
+    "sg" returns the (T,) uint8 marks of the query of each QCONT hit and
+    of each exact reverse self-palindrome, the (n,) uint8 arc-row keep (an
+    arc, not a self match) and the (4, n) int32 arc columns [u v l ol].
+    grid: a list that, when given, receives the contained launch's
+    [blocks, hits a block at most, shared memory bytes a block (0: the
+    marks go straight to device memory, past 196,608 reads)]."""
     if mode not in MARK_MODES:
         raise ValueError("hit_marks: mode must be one of %s" % (MARK_MODES,))
     if cols.device.type == "cpu":
@@ -172,20 +177,23 @@ def hit_marks(cols, mode: str, T: int, lens=None, max_hang: int = 0,
     dev = cols.device
     if cols.dtype != torch.int32 or cols.shape[0] != 9:
         raise TypeError("hit_marks: (9, n) int32 hits expected")
-    if mode != "used" and (lens is None or lens.dtype != torch.int32
-                           or lens.shape != (T,)):
+    if lens is None or lens.dtype != torch.int32 or lens.shape != (T,):
         raise ValueError("hit_marks: (T,) int32 lengths expected")
     if T <= 0 and n:
         raise ValueError("hit_marks: hits without reads")
     sg = mode == "sg"
     # the kernel's call zeroes the marks; without hits there is no call
-    mark = (torch.empty if n else torch.zeros)(T, dtype=torch.uint8,
-                                               device=dev)
+    mark = (torch.empty if n else torch.zeros)(
+        T if sg else (2, T), dtype=torch.uint8, device=dev)
     keep = torch.empty(n, dtype=torch.uint8, device=dev) if sg else None
     arcs = torch.empty((4, n), dtype=torch.int32, device=dev) if sg else None
+    info = (ctypes.c_int64 * 3)()
     if n:
-        K_HIT_MARKS(ptr(cols), n, None if lens is None else ptr(lens), T,
-                    int(max_hang), float(np.float32(int_frac)),
-                    int(min_ovlp), MARK_MODES.index(mode), ptr(mark),
-                    ptr(keep) if sg else None, ptr(arcs) if sg else None)
+        K_HIT_MARKS(ptr(cols), n, ptr(lens), T, int(max_hang),
+                    float(np.float32(int_frac)), int(min_ovlp),
+                    MARK_MODES.index(mode), ptr(mark),
+                    ptr(keep) if sg else None, ptr(arcs) if sg else None,
+                    ctypes.addressof(info))
+    if grid is not None:
+        grid[:] = list(info)
     return (mark, keep, arcs) if sg else mark

@@ -100,10 +100,9 @@ def sort_hits(mat: np.ndarray) -> np.ndarray:
     return mat[:, radix_argsort(key)]
 
 
-def mark_unused(d, hits: Hits) -> None:
+def mark_unused(d, used) -> None:
     """Mark reads that appear in no surviving hit as deleted (reference
-    ma_hit_mark_unused, hit.c:24-36): K18's "used" marks."""
-    from ..core.hit2arc import hit_marks
-
-    used = hit_marks(hits.cols, "used", d.n_seq)
-    d.mark_deleted(used.cpu().numpy() == 0)
+    ma_hit_mark_unused, hit.c:24-36).  used: the (n_seq,) host row of the
+    containment pass's marks that names the reads of some hit (row 1 of
+    select/contained.py contained_marks, K18)."""
+    d.mark_deleted(np.asarray(used) == 0)

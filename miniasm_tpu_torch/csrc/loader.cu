@@ -39,10 +39,25 @@
 // K10 unpack4 replaces pafload.py:344 _unpack4_jit (the same function
 // runs inline in _select2_kernel, select/fused2.py:316-326) and the
 // piece concatenation of _concat_jit (l.239) and _decode3_concat_jit:
-// it writes its piece's n columns straight into the colmat at the
-// piece's column offset, so no concatenation copy is needed.  One thread
-// per record, elementwise on unsigned words.  Bound by bytes: 16 B read
-// and 28 B written a record.
+// one launch per load writes every piece's n columns straight into the
+// colmat at the piece's column offset, so no concatenation copy is
+// needed.  A 4-row piece is unpacked (elementwise on unsigned words), a
+// 7-row piece (after a coordinate or id overflow) copied.  Bound by
+// bytes: 16 B read and 28 B written a 4-row record, 28 and 28 a 7-row
+// one, about 9 us for the 691,396 records of the E. coli set.
+//
+// The launch of one piece (2^17 records, 5.8 MB) took twice its bound:
+// its time went to the launch and to the ramp of the first loads, paid
+// six times a load.  Now the pieces ride one launch: their pointers,
+// widths, counts, offsets and first blocks go to the kernel as one
+// struct by value (U4_MAX pieces, under the 4 KB of kernel parameters;
+// a load with more launches once per full struct), a block takes a tile
+// of U4_TILE records of one piece, found by a binary search of the first
+// blocks, and a thread U4_PER records a U4_THREADS apart, all its loads
+// issued before its stores.  Every access is a 4-byte word, neighbouring
+// lanes on neighbouring words: the column offsets and the colmat's width
+// are any number, so 16-byte accesses would need a scalar path beside
+// them, and coalesced words keep the lines full at this size.
 #include "common.cuh"
 
 namespace {
@@ -229,24 +244,81 @@ __global__ void __launch_bounds__(D3_THREADS)
     store8(w0, out + g);
 }
 
-__global__ void unpack4_kernel(const int32_t* __restrict__ src,
-                               int64_t src_cols, int64_t n,
-                               int32_t* __restrict__ dst, int64_t dst_cols,
-                               int64_t col) {
-    int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    uint32_t w0 = static_cast<uint32_t>(src[j]);
-    int32_t tid = src[src_cols + j];
-    uint32_t qsqe = static_cast<uint32_t>(src[2 * src_cols + j]);
-    uint32_t tste = static_cast<uint32_t>(src[3 * src_cols + j]);
-    int32_t* d = dst + col + j;
-    d[0] = static_cast<int32_t>(w0 & 0x0FFFFFFFu);
-    d[dst_cols] = static_cast<int32_t>(qsqe >> 16);
-    d[2 * dst_cols] = static_cast<int32_t>(qsqe & 0xFFFFu);
-    d[3 * dst_cols] = tid;
-    d[4 * dst_cols] = static_cast<int32_t>(tste >> 16);
-    d[5 * dst_cols] = static_cast<int32_t>(tste & 0xFFFFu);
-    d[6 * dst_cols] = static_cast<int32_t>(w0 >> 28);
+constexpr int U4_THREADS = 256;
+constexpr int U4_PER = 4;  // records a thread
+constexpr int U4_TILE = U4_THREADS * U4_PER;
+constexpr int U4_MAX = 112;  // pieces a launch: 3,584 bytes of parameters
+
+struct U4Piece {
+    const int32_t* src;  // rows x src_cols int32, row-major
+    int64_t col;         // the piece's first column in the colmat
+    int32_t src_cols;
+    int32_t n;           // its real records
+    int32_t rows;        // 4 (packed) or 7 (the colmat's layout)
+    int32_t first;       // its first block
+};
+
+struct U4Pieces {
+    U4Piece p[U4_MAX];
+    int32_t count;
+};
+
+__global__ void __launch_bounds__(U4_THREADS)
+    unpack4_kernel(const __grid_constant__ U4Pieces ps,
+                   int32_t* __restrict__ dst, int64_t dst_cols) {
+    // the piece of this block: the last whose first block is at most it
+    int lo = 0, hi = ps.count - 1;
+    const int b = static_cast<int>(blockIdx.x);
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (ps.p[mid].first <= b) lo = mid; else hi = mid - 1;
+    }
+    const U4Piece& pc = ps.p[lo];
+    const int64_t m = pc.src_cols;
+    const int64_t j0 = static_cast<int64_t>(b - pc.first) * U4_TILE +
+                       threadIdx.x;
+    int32_t* d = dst + pc.col;
+    if (pc.rows == 7) {
+        int32_t v[U4_PER][7];
+#pragma unroll
+        for (int k = 0; k < U4_PER; ++k) {
+            const int64_t j = j0 + k * U4_THREADS;
+            if (j < pc.n)
+#pragma unroll
+                for (int r = 0; r < 7; ++r) v[k][r] = pc.src[r * m + j];
+        }
+#pragma unroll
+        for (int k = 0; k < U4_PER; ++k) {
+            const int64_t j = j0 + k * U4_THREADS;
+            if (j < pc.n)
+#pragma unroll
+                for (int r = 0; r < 7; ++r) d[r * dst_cols + j] = v[k][r];
+        }
+        return;
+    }
+    uint32_t w[U4_PER][4];
+#pragma unroll
+    for (int k = 0; k < U4_PER; ++k) {
+        const int64_t j = j0 + k * U4_THREADS;
+        if (j < pc.n)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                w[k][r] = static_cast<uint32_t>(pc.src[r * m + j]);
+    }
+#pragma unroll
+    for (int k = 0; k < U4_PER; ++k) {
+        const int64_t j = j0 + k * U4_THREADS;
+        if (j >= pc.n) continue;
+        const uint32_t w0 = w[k][0], qsqe = w[k][2], tste = w[k][3];
+        int32_t* o = d + j;
+        o[0] = static_cast<int32_t>(w0 & 0x0FFFFFFFu);
+        o[dst_cols] = static_cast<int32_t>(qsqe >> 16);
+        o[2 * dst_cols] = static_cast<int32_t>(qsqe & 0xFFFFu);
+        o[3 * dst_cols] = static_cast<int32_t>(w[k][1]);
+        o[4 * dst_cols] = static_cast<int32_t>(tste >> 16);
+        o[5 * dst_cols] = static_cast<int32_t>(tste & 0xFFFFu);
+        o[6 * dst_cols] = static_cast<int32_t>(w0 >> 28);
+    }
 }
 
 }  // namespace
@@ -258,11 +330,29 @@ extern "C" int ma_decode3(const int32_t* flat, int64_t n, int32_t* out,
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ma_unpack4(const int32_t* src, int64_t src_cols, int64_t n,
-                          int32_t* dst, int64_t dst_cols, int64_t col,
-                          cudaStream_t stream) {
-    const int threads = 256;
-    unpack4_kernel<<<n_blocks(n, threads), threads, 0, stream>>>(
-        src, src_cols, n, dst, dst_cols, col);
+// K10.  desc: count rows of 5 int64 [pointer, rows (4 or 7), src_cols,
+// n, col] on the host, count in [1, U4_MAX] (pafload.py's UNPACK4_MAX),
+// every n >= 1; dst (7, dst_cols) int32.  One launch.
+extern "C" int ma_unpack4(const int64_t* desc, int count, int32_t* dst,
+                          int64_t dst_cols, cudaStream_t stream) {
+    if (count < 1 || count > U4_MAX)
+        return static_cast<int>(cudaErrorInvalidValue);
+    U4Pieces ps;
+    ps.count = count;
+    int64_t blocks = 0;
+    for (int i = 0; i < count; ++i) {
+        const int64_t* r = desc + 5 * i;
+        if ((r[1] != 4 && r[1] != 7) || r[3] < 1 || r[3] > r[2] ||
+            r[2] > INT32_MAX || r[4] < 0 || r[4] + r[3] > dst_cols)
+            return static_cast<int>(cudaErrorInvalidValue);
+        ps.p[i] = {reinterpret_cast<const int32_t*>(r[0]), r[4],
+                   static_cast<int32_t>(r[2]), static_cast<int32_t>(r[3]),
+                   static_cast<int32_t>(r[1]),
+                   static_cast<int32_t>(blocks)};
+        blocks += (r[3] + U4_TILE - 1) / U4_TILE;
+    }
+    if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    unpack4_kernel<<<static_cast<unsigned>(blocks), U4_THREADS, 0,
+                     stream>>>(ps, dst, dst_cols);
     return static_cast<int>(cudaGetLastError());
 }

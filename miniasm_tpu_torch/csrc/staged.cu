@@ -31,16 +31,37 @@
 // of its query, the set flt_coverage sums the lengths of (byte stores of 1
 // need no atomics).  Bound by bytes, as K6.
 //
-// K18 hit_marks is hit2arc with per-read byte marks, in three modes:
-//   contained (select/contained.py:19): QCONT marks the query, TCONT the
-//     target;
+// K18 hit_marks is hit2arc with per-read byte marks, in two launches:
+//   contained (select/contained.py:19 contained_marks with core/hits.py:106
+//     mark_unused, ma_hit_contained and ma_hit_mark_unused): one launch
+//     for the containment pass's two (T,) byte tables, [contained | used]:
+//     QCONT marks the query and TCONT the target in the first, every hit
+//     both its reads in the second;
 //   sg (graph/asg.py:160-190, ma_sg_gen): a reverse self-palindrome or
 //     QCONT marks the query; the hit's arc-row keep byte (r >= 0, not a
-//     self match) and its arc columns [u v l ol], which K16 compacts;
-//   used (core/hits.py:106, ma_hit_mark_unused): qid and tid of every hit,
-//     with no classification.
-// Bound by bytes: 7 words a hit in (2 in the used mode), a byte mark a
-// read, 4 words and a byte a hit out in the sg mode.
+//     self match) and its arc columns [u v l ol], which K16 compacts.
+// Bound by bytes: 7 words a hit and the two lengths in, two byte tables
+// (contained) or a byte table and 4 words and a byte a hit (sg) out.
+//
+// The containment pass launched twice, each a thread a hit storing its
+// marks to device memory: the used call stored a byte for every hit's
+// target, about 1.4 M stores in no order onto a 23 KB table, each one
+// queueing on one of its 180 lines in L2 (on the E. coli set, 8.5 of the
+// used call's 15.3 us).  Now one launch reads each hit once, and while
+// the tables' bits fit in shared memory (CM_SMEM_READS reads: 48 KB, two
+// bits a read), each block sets its hits' marks there (a shared atomic
+// or, only where the bit is still clear), then stores the reads it set,
+// a warp's stores 128 consecutive bytes each: per block a store per line
+// of the table at most, where the hits made one each.  The query side is
+// sorted, so a warp marks a run of equal qids once.  The blocks stay for
+// the whole pass (CM_BLOCKS_SM an SM), each taking rounds of CM_ROUND
+// hits and loading the next round's words while it marks; past
+// CM_SMEM_READS each hit stores its marks to device memory as before, in
+// the same single launch.  What is left over the
+// parent's contained call alone is the memset of the two tables and the
+// blocks' stores of the used table (PERF.md, section 6): a cluster
+// sharing one copy of the bitmaps through distributed shared memory
+// stores less but paid more for its remote atomics.
 #include "common.cuh"
 
 namespace {
@@ -134,35 +155,144 @@ __global__ void hit_flt_kernel(const int32_t* __restrict__ hits, int64_t n,
     }
 }
 
-constexpr int MARK_CONTAINED = 0, MARK_SG = 1, MARK_USED = 2;
+constexpr int MARK_CONTAINED = 0, MARK_SG = 1;
+constexpr int CM_THREADS = 512;
+constexpr int CM_PER = 2;  // hits a thread a round
+constexpr int CM_ROUND = CM_THREADS * CM_PER;  // hits a block a round
+constexpr int CM_BLOCKS_SM = 2;  // blocks an SM
+// the reads whose two bitmaps a block holds in 48 KB
+constexpr int64_t CM_SMEM_READS = 48 * 1024 * 8 / 2;
 
-__global__ void hit_marks_kernel(const int32_t* __restrict__ hits, int64_t n,
-                                 const int32_t* __restrict__ len, int64_t T,
-                                 int32_t max_hang, float int_frac,
-                                 int32_t min_ovlp, int mode,
-                                 uint8_t* __restrict__ mark,
-                                 uint8_t* __restrict__ keep,
-                                 int32_t* __restrict__ arcs) {
+// set bit r of the shared bitmap b, reading it first: most marks are set
+__device__ __forceinline__ void smem_mark(uint32_t* b, int32_t r) {
+    const uint32_t m = 1u << (r & 31);
+    if (!(b[r >> 5] & m)) atomicOr(b + (r >> 5), m);
+}
+
+// out[r] = 1 for every bit r set in b (under T): a thread 4 reads a
+// round, so one store of the warp covers 128 consecutive bytes
+__device__ __forceinline__ void flush_marks(const uint32_t* b, int64_t T,
+                                            uint8_t* __restrict__ out) {
+    for (int64_t g = threadIdx.x; 4 * g < T; g += blockDim.x) {
+        const uint32_t nib = (b[g >> 3] >> (4 * (g & 7))) & 0xFu;
+        if (!nib) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if ((nib >> j) & 1u) out[4 * g + j] = 1;
+    }
+}
+
+// the 7 words [qid qs qe tid ts te rev] of the CM_PER hits a thread
+// takes in the block's round from hit base (-1 past n)
+__device__ __forceinline__ void load_round(const int32_t* __restrict__ hits,
+                                           int64_t n, int64_t base,
+                                           int32_t (&v)[CM_PER][7]) {
+#pragma unroll
+    for (int k = 0; k < CM_PER; ++k) {
+        const int64_t i = base + k * CM_THREADS + threadIdx.x;
+        if (i < n) {
+            v[k][0] = hits[i];
+            v[k][1] = hits[n + i];
+            v[k][2] = hits[2 * n + i];
+            v[k][3] = hits[3 * n + i];
+            v[k][4] = hits[4 * n + i];
+            v[k][5] = hits[5 * n + i];
+            v[k][6] = hits[8 * n + i];
+        } else {
+            v[k][0] = v[k][1] = v[k][2] = v[k][3] = -1;
+            v[k][4] = v[k][5] = v[k][6] = -1;
+        }
+    }
+}
+
+// The containment pass.  The hits go in rounds of CM_ROUND, block b
+// taking rounds b, b + grid, ...: each thread loads its CM_PER hits' words
+// before it classifies any, and the next round's while it marks.  SMEM:
+// the marks in two bitmaps of W words in dynamic shared memory
+// ([contained | used]), stored at the end; else straight to the tables.
+template <bool SMEM>
+__global__ void __launch_bounds__(CM_THREADS, CM_BLOCKS_SM)
+    contained_marks_kernel(const int32_t* __restrict__ hits, int64_t n,
+                           const int32_t* __restrict__ len, int64_t T,
+                           int32_t max_hang, float int_frac,
+                           int32_t min_ovlp, uint8_t* __restrict__ marks) {
+    extern __shared__ uint32_t bits[];
+    const int64_t W = (T + 31) >> 5;
+    uint8_t* cont = marks;
+    uint8_t* used = marks + T;
+    if (SMEM) {
+        for (int64_t w = threadIdx.x; w < 2 * W; w += CM_THREADS) bits[w] = 0;
+        __syncthreads();
+    }
+    const int lane = threadIdx.x & 31;
+    const int64_t step = static_cast<int64_t>(gridDim.x) * CM_ROUND;
+    int64_t base = static_cast<int64_t>(blockIdx.x) * CM_ROUND;
+    int32_t v[CM_PER][7];
+    load_round(hits, n, base, v);
+    for (; base < n; base += step) {
+        int32_t qi[CM_PER], ti[CM_PER], ql[CM_PER], tl[CM_PER];
+#pragma unroll
+        for (int k = 0; k < CM_PER; ++k) {
+            qi[k] = clamp_index(v[k][0], T);
+            ti[k] = clamp_index(v[k][3], T);
+            const bool ok = base + k * CM_THREADS + threadIdx.x < n;
+            ql[k] = ok ? len[qi[k]] : 0;
+            tl[k] = ok ? len[ti[k]] : 0;
+        }
+        // the next round's words load while this round is marked
+        int32_t nv[CM_PER][7];
+        load_round(hits, n, base + step, nv);
+#pragma unroll
+        for (int k = 0; k < CM_PER; ++k) {
+            const bool ok = base + k * CM_THREADS + threadIdx.x < n;
+            // the first lane of a run of equal queries marks it used
+            const int32_t prev = __shfl_up_sync(FULL, qi[k], 1);
+            if (!ok) continue;
+            const bool head = lane == 0 || prev != qi[k];
+            const int32_t r = hit2arc(v[k][0], v[k][1], v[k][2], v[k][3],
+                                      v[k][4], v[k][5], v[k][6] != 0 ? 1 : 0,
+                                      ql[k], tl[k], max_hang, int_frac,
+                                      min_ovlp).r;
+            if (SMEM) {
+                if (head) smem_mark(bits + W, qi[k]);
+                smem_mark(bits + W, ti[k]);
+                if (r == MA_HT_QCONT) smem_mark(bits, qi[k]);
+                if (r == MA_HT_TCONT) smem_mark(bits, ti[k]);
+            } else {
+                if (head) used[qi[k]] = 1;
+                used[ti[k]] = 1;
+                if (r == MA_HT_QCONT) cont[qi[k]] = 1;
+                if (r == MA_HT_TCONT) cont[ti[k]] = 1;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < CM_PER; ++k)
+#pragma unroll
+            for (int w = 0; w < 7; ++w) v[k][w] = nv[k][w];
+    }
+    if (SMEM) {
+        __syncthreads();
+        flush_marks(bits, T, cont);
+        flush_marks(bits + W, T, used);
+    }
+}
+
+__global__ void sg_marks_kernel(const int32_t* __restrict__ hits, int64_t n,
+                                const int32_t* __restrict__ len, int64_t T,
+                                int32_t max_hang, float int_frac,
+                                int32_t min_ovlp, uint8_t* __restrict__ mark,
+                                uint8_t* __restrict__ keep,
+                                int32_t* __restrict__ arcs) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
     if (i >= n) return;
     const int32_t q = hits[i], t = hits[3 * n + i];
     const int32_t qi = clamp_index(q, T), ti = clamp_index(t, T);
-    if (mode == MARK_USED) {
-        mark[qi] = 1;
-        mark[ti] = 1;
-        return;
-    }
     const int32_t qs = hits[n + i], qe = hits[2 * n + i];
     const int32_t ts = hits[4 * n + i], te = hits[5 * n + i];
     const int32_t rev = hits[8 * n + i] != 0 ? 1 : 0;
     const Arc a = hit2arc(q, qs, qe, t, ts, te, rev, len[qi], len[ti],
                           max_hang, int_frac, min_ovlp);
-    if (mode == MARK_CONTAINED) {
-        if (a.r == MA_HT_QCONT) mark[qi] = 1;
-        if (a.r == MA_HT_TCONT) mark[ti] = 1;
-        return;
-    }
     const bool self = q == t;
     const bool pal = a.r >= 0 && self && qs == ts && qe == te && rev;
     if (pal || a.r == MA_HT_QCONT) mark[qi] = 1;
@@ -211,23 +341,54 @@ extern "C" int ma_hit_flt(const int32_t* hits, int64_t n, const int32_t* sub,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K18.  hits (9, n); len: T int32 (null in the used mode); mode 0
-// contained, 1 sg, 2 used; mark: T bytes, zeroed here; keep (n bytes) and
-// arcs (4, n) int32 [u v l ol]: the sg mode's, else null.
+// K18.  hits (9, n); len: T int32; mode 0 contained: mark (2, T) bytes
+// [contained | used], keep and arcs null; mode 1 sg: mark T bytes, keep
+// (n bytes) and arcs (4, n) int32 [u v l ol].  The marks are zeroed here.
+// The contained mode's bitmaps take shared memory up to CM_SMEM_READS
+// reads, past it the marks go to device memory.  info (host, 3 int64,
+// may be null) receives [blocks, hits a block at most, shared memory
+// bytes a block].
 extern "C" int ma_hit_marks(const int32_t* hits, int64_t n, const int32_t* len,
                             int64_t T, int max_hang, float int_frac,
                             int min_ovlp, int mode, uint8_t* mark,
-                            uint8_t* keep, int32_t* arcs,
+                            uint8_t* keep, int32_t* arcs, int64_t* info,
                             cudaStream_t stream) {
-    if (T <= 0 || mode < MARK_CONTAINED || mode > MARK_USED ||
-        (mode != MARK_USED && !len) || (mode == MARK_SG && (!keep || !arcs)))
+    if (info) info[0] = info[1] = info[2] = 0;
+    if (T <= 0 || T > INT32_MAX || !len ||
+        (mode != MARK_CONTAINED && mode != MARK_SG) ||
+        (mode == MARK_SG && (!keep || !arcs)))
         return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = cudaMemsetAsync(mark, 0, T, stream);
+    cudaError_t e = cudaMemsetAsync(mark, 0, mode == MARK_SG ? T : 2 * T,
+                                    stream);
+    if (e != cudaSuccess || n == 0) return static_cast<int>(e);
+    if (mode == MARK_SG) {
+        const int threads = 256;
+        sg_marks_kernel<<<n_blocks(n, threads), threads, 0, stream>>>(
+            hits, n, len, T, max_hang, int_frac, min_ovlp, mark, keep, arcs);
+        return static_cast<int>(cudaGetLastError());
+    }
+    // two bitmaps, in the 48 KB a block takes without opting in
+    const int64_t smem = 8 * ((T + 31) / 32);
+    const bool in_smem = T <= CM_SMEM_READS;
+    int dev = 0, sms = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int threads = 256;
-    if (n > 0)
-        hit_marks_kernel<<<n_blocks(n, threads), threads, 0, stream>>>(
-            hits, n, len, T, max_hang, int_frac, min_ovlp, mode, mark, keep,
-            arcs);
+    // CM_BLOCKS_SM blocks an SM, at most a block a round of hits
+    const int64_t rounds = (n + CM_ROUND - 1) / CM_ROUND;
+    const unsigned grid = static_cast<unsigned>(
+        std::min<int64_t>(rounds, static_cast<int64_t>(sms) * CM_BLOCKS_SM));
+    if (in_smem)
+        contained_marks_kernel<true><<<grid, CM_THREADS, smem, stream>>>(
+            hits, n, len, T, max_hang, int_frac, min_ovlp, mark);
+    else
+        contained_marks_kernel<false><<<grid, CM_THREADS, 0, stream>>>(
+            hits, n, len, T, max_hang, int_frac, min_ovlp, mark);
+    if (info) {
+        info[0] = grid;
+        info[1] = (rounds + grid - 1) / grid * CM_ROUND;
+        info[2] = in_smem ? smem : 0;
+    }
     return static_cast<int>(cudaGetLastError());
 }

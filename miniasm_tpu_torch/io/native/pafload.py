@@ -6,9 +6,10 @@ pafmt.cpp (main path): reader and parser threads tokenize, filter and
 intern in C++ while the caller pulls pieces of globalized records into a
 small ring of pinned staging buffers, filled in place.  Each filled
 piece is copied to the card on a side stream and decoded there at once
-while the parser fills the next; at stream end every piece is placed
-into the exact-size (7, n) int32 colmat [qid qs qe tid ts te flags]
-(flags bit0=valid bit1=rev bit2=iden_ok) that the select step takes.
+while the parser fills the next; at stream end one K10 launch places
+every piece into the exact-size (7, n) int32 colmat [qid qs qe tid ts
+te flags] (flags bit0=valid bit1=rev bit2=iden_ok) that the select step
+takes.
 The piece format follows the JAX loader's ladder (pafload.py:597-699):
 
   FMT3  13.5 B a record: 3 coordinate rows [tid, qs<<16|qe, ts<<16|te],
@@ -18,8 +19,8 @@ The piece format follows the JAX loader's ladder (pafload.py:597-699):
   4-row [qid|flags<<28, tid, qs<<16|qe, ts<<16|te]; K10 unpacks it into
         the colmat.  After a sideband overflow (an ungrouped stream), or
         from the start under MINIASM_TPU_FMT3=0 (a test hook).
-  7-row the colmat's own layout, copied into its slice.  After a
-        coordinate or id overflow.
+  7-row the colmat's own layout, copied into its slice by K10's launch.
+        After a coordinate or id overflow.
 
 At a switch the parser's filled prefix is cut to its real records and
 converted on the host (_fmt3_to_cols), so colmat columns stay aligned
@@ -40,7 +41,7 @@ import os
 import numpy as np
 import torch
 
-from ...cuda import I64, P, Kernel, ptr
+from ...cuda import I32, I64, P, Kernel, ptr
 from ...utils.u32 import as_i32
 from ..seqdict import SeqDict
 
@@ -52,10 +53,10 @@ _RING = 3  # pinned staging buffers the parser fills in turn
 K_DECODE3 = Kernel("decode3", "loader.cu", "ma_decode3", [P, I64, P],
                    replaces="miniasm_tpu/io/native/pafload.py:267")
 # _unpack4_jit (pafload.py:344) with the piece concatenation of
-# _concat_jit (l.239)
-K_UNPACK4 = Kernel("unpack4", "loader.cu", "ma_unpack4",
-                   [P, I64, I64, P, I64, I64],
+# _concat_jit (l.239): every piece of a load in one launch
+K_UNPACK4 = Kernel("unpack4", "loader.cu", "ma_unpack4", [P, I32, P, I64],
                    replaces="miniasm_tpu/io/native/pafload.py:344")
+UNPACK4_MAX = 112  # pieces one launch takes (loader.cu U4_MAX)
 
 
 def fmt3_records(words: int) -> int:
@@ -116,24 +117,50 @@ def unpack4_plain(packed):
                         (w0 >> 28).to(i32)])
 
 
-def unpack4(packed, n=None, out=None, col=0):
-    """K10.  Unpacks the first n (default all) columns of the (4, m)
-    packed piece into out[:, col:col + n] of the (7, N) int32 colmat `out`
-    (default a new (7, n) tensor) and returns `out`.  A CPU tensor runs
-    unpack4_plain."""
-    m = packed.shape[1]
-    n = m if n is None else n
+def unpack4_pieces_plain(pieces, out=None):
+    """Plain PyTorch version of K10 over a load's pieces (see unpack4)."""
+    total = sum(n for _d, n in pieces)
     if out is None:
-        out = torch.empty((7, n), dtype=torch.int32, device=packed.device)
-    if packed.device.type == "cpu":
-        out[:, col:col + n] = unpack4_plain(packed[:, :n])
-        return out
-    if packed.dtype != torch.int32 or out.dtype != torch.int32 \
-            or packed.shape[0] != 4 or out.shape[0] != 7 \
-            or not 0 <= n <= m or not 0 <= col <= out.shape[1] - n:
-        raise ValueError("unpack4: (4, m) and (7, N) int32 tensors expected")
-    if n:
-        K_UNPACK4(ptr(packed), m, n, ptr(out), out.shape[1], col)
+        out = torch.empty((7, total), dtype=torch.int32,
+                          device=pieces[0][0].device if pieces else "cpu")
+    col = 0
+    for d, n in pieces:
+        out[:, col:col + n] = (unpack4_plain(d[:, :n]) if d.shape[0] == 4
+                               else d[:, :n])
+        col += n
+    return out
+
+
+def unpack4(pieces, out=None):
+    """K10.  pieces: (int32 tensor (4 or 7, m), n) pairs, n <= m the real
+    records of each.  Writes them one after another into the (7, N) int32
+    colmat `out` from column 0 (default a new (7, sum n) tensor): a 4-row
+    piece unpacked, a 7-row piece copied.  Returns `out`.  One launch per
+    UNPACK4_MAX pieces; CPU tensors run unpack4_pieces_plain."""
+    pieces = [(d, int(n)) for d, n in pieces if n]
+    total = sum(n for _d, n in pieces)
+    if not pieces or pieces[0][0].device.type == "cpu":
+        return unpack4_pieces_plain(pieces, out)
+    if out is None:
+        out = torch.empty((7, total), dtype=torch.int32,
+                          device=pieces[0][0].device)
+    if out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != 7 \
+            or out.shape[1] < total:
+        raise ValueError("unpack4: a (7, N) int32 colmat of at least %d "
+                         "columns expected" % total)
+    desc = np.empty((len(pieces), 5), dtype=np.int64)
+    col = 0
+    for i, (d, n) in enumerate(pieces):
+        if d.dtype != torch.int32 or d.dim() != 2 \
+                or d.shape[0] not in (4, 7) or not 0 < n <= d.shape[1]:
+            raise ValueError("unpack4: (4 or 7, m) int32 pieces of at most "
+                             "m records expected")
+        desc[i] = (ptr(d), d.shape[0], d.shape[1], n, col)
+        col += n
+    dst = ptr(out)
+    for i in range(0, len(pieces), UNPACK4_MAX):
+        chunk = desc[i:i + UNPACK4_MAX]
+        K_UNPACK4(chunk.ctypes.data, len(chunk), dst, out.shape[1])
     return out
 
 
@@ -355,13 +382,7 @@ class _Uploader:
                 d.record_stream(main)
         total = sum(n for _d, n in self.pieces)
         out = torch.empty((7, total), dtype=torch.int32, device=self.dev)
-        col = 0
-        for d, n in self.pieces:
-            if d.shape[0] == 4:
-                unpack4(d, n, out, col)
-            else:
-                out[:, col:col + n].copy_(d[:, :n])
-            col += n
+        unpack4(self.pieces, out)
         self.pieces = []
         return out
 

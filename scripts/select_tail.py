@@ -30,72 +30,38 @@ recorded call:
 --floors-only stops after the fused launch's grid and floors.
 --simulate writes the PAFs chip_smoke.py simulates (the E. coli-scale
 clean set and its noisy twin) and exits.  The timing helpers are
-chip_smoke.py's, from this checkout.  Each line is printed as JSON, the
-card's name and power limit first and last, as nvidia-smi gives them.
+chip_smoke.py's, from this checkout, run by scripts/checkout_harness.py,
+whose lines are JSON between two of the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from checkout_harness import HERE, run
 
-# one checkout's measurements, in a process whose sys.path starts with the
-# checkout (its miniasm_tpu_torch) and then this one (chip_smoke.py)
+# one checkout's measurements, after checkout_harness.PRELUDE
 _CHILD = r"""
-import inspect, io, json, os, sys, tempfile
-tree, here, paf, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
-floors_only = sys.argv[5] == "1"
-sys.path[:0] = [tree, here]
-import torch
-import chip_smoke as cs
-from miniasm_tpu_torch import cuda
+import inspect, io, tempfile
 from miniasm_tpu_torch.config import Opt
 from miniasm_tpu_torch.io.native.pafload import load_hits_mt
 from miniasm_tpu_torch.parallel import full, group
 from miniasm_tpu_torch.select import fused2
 
-cuda.build()
+floors_only = args[0] == "1"
 fused = "n_seq" in inspect.signature(fused2.arc_order).parameters
 rec = {}
-
-
-def hook(name):
-    orig = getattr(fused2, name)
-
-    def wrapped(*a, **k):
-        rec.setdefault(name, (a, dict(k)))
-        return orig(*a, **k)
-    setattr(fused2, name, wrapped)
-    return orig
-
-
-def say(**kw):
-    print(json.dumps(dict(kw, checkout=tree)), flush=True)
-
-
-def pieces(tag, fn):
-    for flush in (True, False):
-        split = cs._device_split(fn, reps, flush)
-        say(piece=tag, flushed=flush, device_ms=sum(split.values()),
-            split={cs._short(k): v for k, v in split.items()},
-            ms=cs._time_ms(fn, reps, flush))
-    say(piece=tag, host_us=cs._host_us(fn, reps))
-
-
 opt = Opt()
-orig = {k: hook(k) for k in ("read_marks", "arc_order")}
+orig = {k: hook(fused2, k, rec) for k in ("read_marks", "arc_order")}
 colmat, d, h = load_hits_mt(paf, opt.min_span, opt.min_match, bi_dir=True,
                             min_iden=float(opt.min_iden),
                             device=torch.device("cuda"))
 for _ in range(2):
     fused2.select_build2(colmat, d, opt, bi_dir=True)
 torch.cuda.synchronize()
-a, k = rec["arc_order"]
+a, k = rec["arc_order"][0]
 if fused:
     grid = [0] * 4
     orig["arc_order"](*a, **dict(k, grid=grid))
@@ -114,7 +80,7 @@ if fused:
     row = arcs[4].long()
     T = a[2].shape[0]
 else:
-    ta, tk = rec["read_marks"]
+    ta, tk = rec["read_marks"][0]
     pieces("read_marks", lambda: orig["read_marks"](*ta, **tk))
     pieces("arc_order", lambda: orig["arc_order"](*a, **k))
     tab, mdel = a[2], a[3]
@@ -141,7 +107,7 @@ say(piece="tiers", rows=a[0].shape[1], arcs=int(head[1]),
     device_memory_reads=int(tiers[1]))
 # K12's library call: one scatter_reduce_ amax of the mark words over the
 # concatenated query and target indices of the main path's call
-colmat_t, out_t = (rec["read_marks"][0][:2] if "read_marks" in rec
+colmat_t, out_t = (rec["read_marks"][0][0][:2] if "read_marks" in rec
                    else a[:2])
 bits = out_t[4]
 vq, vm = (bits & 1) != 0, (bits & 2) != 0
@@ -164,16 +130,9 @@ with tempfile.TemporaryDirectory() as rdv:
         full.run_sharded(paf, opt, out=io.StringIO())
     finally:
         group.destroy()
-ta, tk = rec["read_marks"]
+ta, tk = rec["read_marks"][0]
 pieces("read_marks_sharded", lambda: orig["read_marks"](*ta, **tk))
 """
-
-
-def _smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
 
 
 def simulate(ddir: str) -> None:
@@ -212,28 +171,8 @@ def main(argv=None) -> int:
         return 0
     if not a.paf or not a.checkouts:
         ap.error("--paf and at least one checkout are needed")
-    card = _smi()
-    print(card, flush=True)
-    rows = []
-    for tree in a.checkouts:
-        tree = os.path.abspath(tree)
-        r = subprocess.run([sys.executable, "-c", _CHILD, tree, HERE,
-                            os.path.abspath(a.paf), str(a.reps),
-                            "1" if a.floors_only else "0"], cwd=tree,
-                           capture_output=True, text=True, timeout=1500)
-        for line in r.stdout.splitlines():
-            print(line, flush=True)
-            if line.startswith("{"):
-                rows.append(json.loads(line))
-        if r.returncode != 0:
-            sys.stderr.write(r.stderr[-3000:])
-            return r.returncode
-    if a.json:
-        os.makedirs(os.path.dirname(os.path.abspath(a.json)), exist_ok=True)
-        with open(a.json, "w") as f:
-            json.dump({"card": card, "rows": rows}, f, indent=1)
-    print(card, flush=True)
-    return 0
+    return run(_CHILD, a.checkouts, a.paf, a.reps, a.json,
+               ["1" if a.floors_only else "0"])
 
 
 if __name__ == "__main__":

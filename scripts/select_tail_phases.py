@@ -21,11 +21,10 @@ from __future__ import annotations
 
 import argparse
 import os
-import shutil
 import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from checkout_harness import HERE, scratch_copy, smi
 
 # (marker in select.cu, stamp index): a stamp goes before each marker
 MARKERS = [("    // ---- 1. zero", 0), ("    // ---- 2. marks", 1),
@@ -123,21 +122,13 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--work", default=os.path.join(HERE, "build", "phases"))
     a = ap.parse_args(argv)
-    tree, work = os.path.abspath(a.checkout), os.path.abspath(a.work)
-    shutil.rmtree(work, ignore_errors=True)
-    shutil.copytree(os.path.join(tree, "miniasm_tpu_torch"),
-                    os.path.join(work, "miniasm_tpu_torch"),
-                    ignore=shutil.ignore_patterns("build", "__pycache__",
-                                                  "*.so"))
+    work = scratch_copy(os.path.abspath(a.checkout), os.path.abspath(a.work))
     cu = os.path.join(work, "miniasm_tpu_torch", "csrc", "select.cu")
     with open(cu) as f:
         src = stamped(f.read())
     with open(cu, "w") as f:
         f.write(src)
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    card = r.stdout.strip().splitlines()[0] if r.returncode == 0 else "?"
+    card = smi()
     print(card, flush=True)
     rc = subprocess.run([sys.executable, "-c", _RUN, work, HERE,
                          os.path.abspath(a.paf), str(a.reps),

@@ -3,8 +3,8 @@ the JAX package, on seeded numpy inputs: K16 `compact` (utils/compact.py)
 against the compactions the JAX package runs in numpy (pipeline._apply_cut,
 Hits.take, apply_contained), K17 `hit_flt` (select/filter.py) against JAX
 hit_flt with its int64 dp sum and flt_coverage, K18 `hit_marks`
-(core/hit2arc.py) in its three modes against JAX contained_marks,
-graph_from_hits and mark_unused, and K19 `shard_arcs` (parallel/full.py)
+(core/hit2arc.py) in its two launches against JAX contained_marks with
+the used reads of apply_contained and mark_unused, and graph_from_hits, and K19 `shard_arcs` (parallel/full.py)
 inside the port's sharded step against the JAX step's arcmat, in order.
 The port's functions run their plain versions here (CPU tensors); every
 value compared is an integer or a bool: exact equality."""
@@ -294,8 +294,13 @@ def test_apply_contained_matches_jax(seed):
     jd, td = JSeqDict.from_arrays(names, lens), SeqDict.from_arrays(names,
                                                                   lens)
     jnew, js, je, jdl = jcont.apply_contained(jd, s, e, dl, cont, jh)
-    tnew, tsub = tcont.apply_contained(td, to_port_sub(s, e, dl),
-                                       torch.from_numpy(cont), to_port(jh))
+    # the containment pass's marks with the random containment in row 0
+    # and K18's used marks in row 1
+    marks = tcont.contained_marks(to_port(jh), to_port_sub(s, e, dl), T,
+                                  1000, 0.8, 2000)
+    marks[0] = torch.from_numpy(cont.astype(np.uint8))
+    tnew, tsub = tcont.apply_contained(td, to_port_sub(s, e, dl), marks,
+                                       to_port(jh))
     assert_hits_equal(tnew, jnew)
     assert np.array_equal(tsub[0].numpy().view(np.uint32), js)
     assert np.array_equal(tsub[1].numpy().view(np.uint32), je)
@@ -355,20 +360,44 @@ def test_hit_flt_no_hits():
 # ---------------------------------------------------------------------------
 # K18 hit_marks
 
-@pytest.mark.parametrize("seed,int_frac", [(61, 0.8), (62, 0.5), (63, 0.95)])
-def test_hit_marks_contained_matches_jax(seed, int_frac):
+def jax_used(jh, T):
+    """The reads some hit names, as JAX apply_contained computes them
+    (miniasm_tpu/select/contained.py:60-62)."""
+    used = np.zeros(T, dtype=bool)
+    used[np.asarray(jh.qid)] = True
+    used[np.asarray(jh.tid)] = True
+    return used
+
+
+@pytest.mark.parametrize("seed,int_frac,layout", [
+    (61, 0.8, "random"), (62, 0.5, "random"), (63, 0.95, "random"),
+    (64, 0.8, "sorted"), (65, 0.5, "targets_only")])
+def test_hit_marks_contained_matches_jax(seed, int_frac, layout):
+    """The containment pass's one K18 call: row 0 against JAX
+    contained_marks, row 1 against the used reads of JAX apply_contained;
+    hits in no order, sorted by query (the staged path's order), and with
+    half the reads only ever targets; the last 40 reads in no hit."""
     rng = np.random.default_rng(seed)
     n, T = 20000, 400
-    jh = random_hits(rng, n, T)
+    jh = random_hits(rng, n, T - 40)
+    if layout == "sorted":
+        jh = jh.take(np.argsort(jh.qid, kind="stable"))
+    if layout == "targets_only":
+        jh.qid[:] = jh.qid % ((T - 40) // 2)
     s, e, dl = trim_tables(rng, T)
     want = np.asarray(jcont.contained_marks(
         jh.qid, jh.tid, jh.qs, jh.qe, jh.ts, jh.te, jh.rev, s, e, T, 1000,
         int_frac, 2000))
     got = tcont.contained_marks(to_port(jh), to_port_sub(s, e, dl), T, 1000,
                                 int_frac, 2000)
-    assert got.dtype == torch.bool
-    assert np.array_equal(got.numpy(), want)
-    assert want.any() and not want.all()
+    assert got.dtype == torch.uint8 and got.shape == (2, T)
+    assert np.array_equal(got[0].numpy() != 0, want)
+    assert np.array_equal(got[1].numpy() != 0, jax_used(jh, T))
+    assert want.any() and not want.all() and not got[1].all()
+    if layout == "targets_only":
+        q = np.zeros(T, bool)
+        q[jh.qid] = True
+        assert (got[1].numpy().astype(bool) & ~q).any()
 
 
 @pytest.mark.parametrize("seed,with_sub", [(71, True), (72, False),
@@ -431,12 +460,15 @@ def test_hit_marks_used_matches_jax_mark_unused(unused):
     lens = rng.integers(1000, 9000, T)
     jd, td = JSeqDict.from_arrays(names, lens), SeqDict.from_arrays(names,
                                                                   lens)
+    s, e, dl = trim_tables(rng, T)
     jhits.mark_unused(jd, jh)
-    thits.mark_unused(td, to_port(jh))
+    # the used row of the containment pass's one K18 call
+    used = tcont.contained_marks(to_port(jh), to_port_sub(s, e, dl), T,
+                                 1000, 0.8, 2000)[1].numpy()
+    thits.mark_unused(td, used)
     assert np.array_equal(td.del_array(), jd.del_array())
     assert int(jd.del_array().sum()) >= unused
-    used = th2a.hit_marks(to_port(jh).cols, "used", T)
-    assert np.array_equal(used.numpy() == 0, jd.del_array())
+    assert np.array_equal(used == 0, jd.del_array())
 
 
 # ---------------------------------------------------------------------------

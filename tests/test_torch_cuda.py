@@ -1025,23 +1025,81 @@ def test_decode3_kernel_unaligned_piece(dev):
     assert torch.equal(got.cpu(), pafload.decode3_plain(flat))
 
 
+def _u4_pieces(rng, spec):
+    """Seeded (piece, n) pairs of K10 on the CPU: spec lists (rows, width,
+    n) with rows 4 (random packed words) or 7 (random colmat columns)."""
+    return [(torch.from_numpy(rng.integers(0, 2**32, (rows, m))
+                              .astype(np.uint32).view(np.int32)), n)
+            for rows, m, n in spec]
+
+
 def test_unpack4_kernel_matches_plain(dev):
+    """K10, one launch a call: one whole piece; then 4-row and 7-row
+    pieces of odd counts (so every piece after the first starts at a
+    column offset that no 16-byte access would take) into a colmat wider
+    than the pieces, whose other columns stay untouched."""
     from miniasm_tpu_torch.io.native import pafload
 
     rng = np.random.default_rng(10)
-    packed = torch.from_numpy(rng.integers(0, 2**32, (4, 300_000))
-                              .astype(np.uint32).view(np.int32))
+    (packed, _), = _u4_pieces(rng, [(4, 300_000, 300_000)])
     want = pafload.unpack4_plain(packed)
-    got = pafload.unpack4(packed.to(dev))
+    before = _count("unpack4")
+    got = pafload.unpack4([(packed.to(dev), 300_000)])
     torch.cuda.synchronize()
+    assert _count("unpack4") - before == 1
     assert torch.equal(got.cpu(), want)
-    # 200,000 columns into the middle of a colmat, the rest untouched
-    out = torch.full((7, 500_000), -7, dtype=torch.int32, device=dev)
-    pafload.unpack4(packed.to(dev), 200_000, out, 123_457)
+    pieces = _u4_pieces(rng, [(4, 131_072, 131_071), (7, 5_003, 5_003),
+                              (4, 1_000, 17), (7, 64, 1), (4, 4_096, 4_093),
+                              (7, 70_001, 69_999)])
+    total = sum(n for _p, n in pieces)
+    want = pafload.unpack4_pieces_plain(pieces)
+    out = torch.full((7, total + 333), -7, dtype=torch.int32, device=dev)
+    before = _count("unpack4")
+    pafload.unpack4([(p.to(dev), n) for p, n in pieces], out)
     torch.cuda.synchronize()
+    assert _count("unpack4") - before == 1
     o = out.cpu()
-    assert torch.equal(o[:, 123_457:323_457], want[:, :200_000])
-    assert (o[:, :123_457] == -7).all() and (o[:, 323_457:] == -7).all()
+    assert torch.equal(o[:, :total], want)
+    assert (o[:, total:] == -7).all()
+
+
+@pytest.mark.parametrize("k", [1, 112, 113, 250])
+def test_unpack4_kernel_piece_counts(dev, k):
+    """K10 over k pieces of 1 to 3,000 records, 4 and 7 rows mixed: one
+    launch per UNPACK4_MAX pieces (the pieces one struct of kernel
+    parameters holds), bit-equal to the plain version."""
+    from miniasm_tpu_torch.io.native import pafload
+
+    rng = np.random.default_rng(100 + k)
+    spec = []
+    for _ in range(k):
+        n = int(rng.integers(1, 3_000))
+        spec.append((int(rng.choice([4, 7])), n + int(rng.integers(0, 40)),
+                     n))
+    pieces = _u4_pieces(rng, spec)
+    before = _count("unpack4")
+    got = pafload.unpack4([(p.to(dev), n) for p, n in pieces])
+    torch.cuda.synchronize()
+    assert _count("unpack4") - before == -(-k // pafload.UNPACK4_MAX)
+    assert torch.equal(got.cpu(), pafload.unpack4_pieces_plain(pieces))
+
+
+def test_unpack4_kernel_near_2_27_records(dev):
+    """K10 over pieces of (1 << 27) - 3 records in all, made on the card:
+    bit-equal to the plain version on the card."""
+    from miniasm_tpu_torch.io.native import pafload
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    big = (1 << 27) - 3 - 131_075
+    pieces = [(torch.randint(-2**31, 2**31 - 1, (rows, m), generator=g,
+                             dtype=torch.int32, device=dev), n)
+              for rows, m, n in ((4, big + 5, big), (7, 131_072, 131_072),
+                                 (4, 3, 3))]
+    got = pafload.unpack4(pieces)
+    torch.cuda.synchronize()
+    assert got.shape == (7, (1 << 27) - 3)
+    assert torch.equal(got, pafload.unpack4_pieces_plain(pieces))
 
 
 def _ladder_paf(tmp_path, case):
@@ -1065,13 +1123,19 @@ def _ladder_paf(tmp_path, case):
     return paf
 
 
-@pytest.mark.parametrize("case,fmt3", [("grouped", "1"), ("grouped", "0"),
-                                       ("shuffled", "1"), ("long", "1")])
-def test_loader_on_card_matches_cpu(dev, tmp_path, monkeypatch, case, fmt3):
+@pytest.mark.parametrize("case,fmt3,chunk", [
+    ("grouped", "1", 4096), ("grouped", "0", 4096), ("shuffled", "1", 4096),
+    ("long", "1", 4096), ("grouped", "0", 256)])
+def test_loader_on_card_matches_cpu(dev, tmp_path, monkeypatch, case, fmt3,
+                                    chunk):
+    """The colmat of the loader's ladder on the card equal to the CPU's:
+    K9 once a FMT3 piece, K10 once a load (at chunk 256, pieces of 64
+    records: more than one launch's struct holds, so once per
+    UNPACK4_MAX pieces)."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.io.native import pafload
 
-    monkeypatch.setattr(pafload, "_CHUNK", 4096)  # several pieces
+    monkeypatch.setattr(pafload, "_CHUNK", chunk)  # several pieces
     monkeypatch.setenv("MINIASM_TPU_FMT3", fmt3)
     paf = _ladder_paf(tmp_path, case)
     cols = {}
@@ -1084,13 +1148,16 @@ def test_loader_on_card_matches_cpu(dev, tmp_path, monkeypatch, case, fmt3):
         h.free()
     assert torch.equal(cols["cuda"], cols["cpu"])
     n = cuda.launch_counts()
-    pieces = -(-cols["cpu"].shape[1] // 1024)
+    pieces = -(-cols["cpu"].shape[1] // (chunk >> 2))
+    launches = -(-pieces // pafload.UNPACK4_MAX)
     if case == "grouped" and fmt3 == "1":
-        assert n["decode3"] == pieces and n["unpack4"] == pieces
+        assert n["decode3"] == pieces and n["unpack4"] == 1
     elif case == "long":
-        assert n["decode3"] == n["unpack4"] == pieces - 1
+        assert n["decode3"] == pieces - 1 and n["unpack4"] == 1
     else:
-        assert n["decode3"] == 0 and n["unpack4"] > 0
+        assert n["decode3"] == 0 and n["unpack4"] == launches
+    if chunk == 256:
+        assert launches > 1
 
 
 @pytest.mark.parametrize("args", [["-p", "paf"], ["-R", "-p", "paf"],
@@ -1914,33 +1981,149 @@ def test_hit_flt_kernel_matches_plain(dev, n):
         assert want[0].any() and not want[0].all() and want[3].any()
 
 
-@pytest.mark.parametrize("n", [0, 1, 257, (1 << 20) + 3])
-@pytest.mark.parametrize("mode", ["contained", "sg", "used"])
-def test_hit_marks_kernel_matches_plain(dev, n, mode):
-    from miniasm_tpu_torch.core import hit2arc as h2a
-
-    rng = np.random.default_rng(17 + n % 89)
-    # twice as many reads as hits: some reads in no hit
-    cols, sub = staged_inputs(rng, n=n, T=max(500, 2 * n))
+def _marks_case(rng, n, T, order="random"):
+    """K18's (9, n) hits and (T,) lengths on the CPU: staged_inputs with
+    twice as many reads as hits where T is None (some reads in no hit),
+    5% exact reverse self palindromes, and with order "sorted" the hits
+    sorted by query, as the staged path holds them."""
+    cols, sub = staged_inputs(rng, n=n, T=T or max(500, 2 * n))
     pal = rng.random(n) < 0.05
     cols[3, pal], cols[4, pal], cols[5, pal] = cols[0, pal], cols[1, pal], \
         cols[2, pal]
     cols[8, pal] = 1
-    lens = torch.from_numpy(sub[1] - sub[0]).to(dev)
-    c = torch.from_numpy(cols).to(dev)
+    if order == "sorted":
+        cols = np.ascontiguousarray(cols[:, np.argsort(cols[0],
+                                                       kind="stable")])
+    return torch.from_numpy(cols), torch.from_numpy(sub[1] - sub[0])
+
+
+MARKS_KW = dict(max_hang=1000, int_frac=0.8, min_ovlp=2000)
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, (1 << 20) + 3])
+@pytest.mark.parametrize("mode", ["contained", "sg", "contained_sorted"])
+def test_hit_marks_kernel_matches_plain(dev, n, mode):
+    """K18 against its plain version, one launch a call with hits: the
+    containment's (2, T) marks on hits in no order and sorted by query
+    (the staged path's order, whose warps store a run's used mark once),
+    and the sg marks."""
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    c, lens = (x.to(dev) for x in _marks_case(
+        np.random.default_rng(17 + n % 89), n, None,
+        "sorted" if mode == "contained_sorted" else "random"))
+    mode = mode.split("_")[0]
     T = lens.shape[0]
-    kw = dict(lens=None if mode == "used" else lens, max_hang=1000,
-              int_frac=0.8, min_ovlp=2000)
     before = _count("hit_marks")
-    got = h2a.hit_marks(c, mode, T, **kw)
+    got = h2a.hit_marks(c, mode, T, lens, **MARKS_KW)
     torch.cuda.synchronize()
     assert _count("hit_marks") - before == (1 if n else 0)
-    want = h2a.hit_marks_plain(c, mode, T, **kw)
+    want = h2a.hit_marks_plain(c, mode, T, lens, **MARKS_KW)
     got, want = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
     if n > 1000:
         assert want[0].any() and not want[0].all()
+
+
+# (n, T, shared memory): one read; the E. coli shape; the most reads two
+# shared bitmaps of 48 KB hold, and one more, also at the E. coli set's
+# 60 hits a read; many reads
+MARKS_PATHS = {"one_read": (3_000, 1, True),
+               "ecoli_shape": ((1 << 20) + 3, 23_000, True),
+               "smem_edge": (100_000, 196_608, True),
+               "past_smem": (100_000, 196_609, False),
+               "past_smem_ecoli_density": (60 * 196_609, 196_609, False),
+               "wide": ((1 << 20) + 3, 2_097_158, False)}
+
+
+@pytest.mark.parametrize("case", sorted(MARKS_PATHS))
+def test_hit_marks_contained_paths(dev, case):
+    """The containment's one launch in shared memory and past it, on
+    sorted hits: bit-equal to the plain version, the path the launch
+    reports ([blocks, hits a block at most, shared bytes a block]) as
+    expected."""
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    n, T, smem = MARKS_PATHS[case]
+    c, lens = (x.to(dev) for x in _marks_case(
+        np.random.default_rng(len(case)), n, T, "sorted"))
+    grid = [0, 0, 0]
+    got = h2a.hit_marks(c, "contained", T, lens, **MARKS_KW, grid=grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, h2a.hit_marks_plain(c, "contained", T, lens,
+                                                **MARKS_KW))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (grid[2] > 0) == smem and 1 <= grid[0] <= 8 * sms
+    assert grid[0] * grid[1] >= n
+    assert got[1].any()
+
+
+def test_hit_marks_contained_near_2_27_hits(dev):
+    """The containment's one launch over (1 << 27) - 5 hits sorted by
+    query among 23,000 reads (the E. coli shape, shared memory), made on
+    the card: bit-equal to the plain version on the card."""
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(227)
+    n, T = (1 << 27) - 5, 23_000
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, dtype=torch.int32,
+                             device=dev)
+
+    qs, ts = draw(0, 9000), draw(0, 9000)
+    cols = torch.stack([draw(0, T).sort().values, qs, qs + draw(0, 9000),
+                        draw(0, T), ts, ts + draw(0, 9000),
+                        torch.zeros_like(qs), torch.zeros_like(qs),
+                        draw(0, 2)])
+    lens = torch.randint(3000, 18000, (T,), generator=g, dtype=torch.int32,
+                         device=dev)
+    grid = [0, 0, 0]
+    got = h2a.hit_marks(cols, "contained", T, lens, **MARKS_KW, grid=grid)
+    torch.cuda.synchronize()
+    assert grid[2] > 0
+    assert torch.equal(got, h2a.hit_marks_plain(cols, "contained", T, lens,
+                                                **MARKS_KW))
+    assert got[0].any() and got[1].all()
+
+
+def test_contained_pass_one_copy_of_marks(dev, tmp_path):
+    """hit_contained on the card: one K18 launch, one device-to-host copy
+    of both marks (and one count read by each of K16's two compactions,
+    the trim table and the hits), the CPU run's hits, trim table and
+    names."""
+    from miniasm_tpu_torch import cuda
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.core.hits import build_hits
+    from miniasm_tpu_torch.eval.simulate import simulate, write_paf
+    from miniasm_tpu_torch.io.paf import load_paf
+    from miniasm_tpu_torch.select.contained import hit_contained
+
+    paf = str(tmp_path / "r.paf")
+    write_paf(simulate(genome_len=200_000, coverage=20.0, seed=7), paf)
+    opt = Opt()
+    res = {}
+    for d in ("cpu", "cuda"):
+        load = load_paf(paf, opt.min_span, opt.min_match)
+        hits = build_hits(load, device=torch.device(d))
+        T = load.d.n_seq
+        sub = torch.zeros((3, T), dtype=torch.int32, device=d)
+        sub[1] = torch.from_numpy(load.d.lens_array().astype(np.int32))
+        ops = _TailOps()
+        cuda.reset_launches()
+        with ops.mode:
+            h, s = hit_contained(opt, load.d, sub, hits)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            n = cuda.launch_counts()
+            assert n["hit_marks"] == 1 and n["compact"] == 2
+            assert ops.d2h == 1 + 2, ops.d2h
+        res[d] = (h.cols.cpu(), s.cpu(), list(load.d.names))
+    assert torch.equal(res["cpu"][0], res["cuda"][0])
+    assert torch.equal(res["cpu"][1], res["cuda"][1])
+    assert res["cpu"][2] == res["cuda"][2] and res["cpu"][0].shape[1] > 0
 
 
 SHARD_KINDS = ["mixed", "q_only", "m_only", "no_arcs", "self"]
@@ -2257,8 +2440,8 @@ def test_staged_and_sharded_device_paths_have_no_mask_ops(dev, tmp_path):
             assert not ops.names & MASK_OPS, ops.names & MASK_OPS
             # cut, filter, cut, the trim table, the hits, the arcs
             assert n["compact"] == 6 and n["hit_flt"] == 1
-            # contained, used, sg
-            assert n["hit_marks"] == 3 and n["hit2arc"] == 0
+            # the containment's one launch, sg
+            assert n["hit_marks"] == 2 and n["hit2arc"] == 0
     (ch, cs, cg), (gh, gs, gg) = res["cpu"], res["cuda"]
     assert torch.equal(ch, gh) and torch.equal(cs, gs) and gh.shape[1] > 0
     for f in ("u", "v", "l", "ol", "sdel", "slen"):

@@ -1,7 +1,8 @@
 """The main path's streamed loader of the port (miniasm_tpu_torch/io/
 native/pafload.py) against the JAX package's: the plain versions of the
 K9 decode3 and K10 unpack4 kernels against _decode3_body and
-_unpack4_jit on seeded pieces, and the port's load_hits_mt colmat on the
+_unpack4_jit on seeded pieces (K10's one call over a load's pieces piece
+by piece), and the port's load_hits_mt colmat on the
 CPU against the JAX load_hits_mt colmat in every case of the format
 ladder (FMT3, 4-row, 7-row and the switches between them), with the
 rank permutation that arc_ranks reads.  Integers only: exact equality."""
@@ -82,19 +83,48 @@ def test_decode3_plain_matches_jax(case):
         assert not got.any()
 
 
-def test_unpack4_plain_matches_jax():
-    rng = np.random.default_rng(4)
-    packed = rng.integers(0, 2**32, (4, 5000), dtype=np.uint64) \
+def _packed(rng, rows, m):
+    return rng.integers(0, 2**32, (rows, m), dtype=np.uint64) \
         .astype(np.uint32).view(np.int32)
-    want = np.asarray(J._unpack4_jit(jnp.asarray(packed)))
-    got = T.unpack4(torch.from_numpy(packed)).numpy()
-    assert np.array_equal(got, want)
-    # into a slice of a larger colmat, the rest untouched
-    out = torch.full((7, 9000), -7, dtype=torch.int32)
-    T.unpack4(torch.from_numpy(packed), 4000, out, 3000)
+
+
+# (rows, width, real records) of each piece of a load: 4-row pieces
+# unpacked, 7-row pieces copied; odd counts, so that every piece after
+# the first starts at a column offset that is not a multiple of 4
+U4_LOADS = {
+    "one_piece": [(4, 5000, 5000)],
+    "packed_pieces": [(4, 4096, 4096), (4, 4096, 4093), (4, 4096, 17)],
+    "mixed_rows": [(4, 4096, 4096), (4, 4096, 1201), (7, 1999, 1999),
+                   (7, 4096, 3)],
+    "seven_first": [(7, 33, 33), (4, 512, 1), (7, 512, 511)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(U4_LOADS))
+def test_unpack4_plain_matches_jax(case):
+    """K10's one call over a load's pieces: each 4-row piece's columns
+    against JAX _unpack4_jit of the piece, each 7-row piece's its own,
+    at their column offsets, in a colmat wider than the pieces whose
+    other columns stay untouched."""
+    rng = np.random.default_rng(4)
+    spec = U4_LOADS[case]
+    pieces = [_packed(rng, rows, m) for rows, m, _n in spec]
+    total = sum(n for _r, _m, n in spec)
+    got = T.unpack4([(torch.from_numpy(p), n)
+                     for p, (_r, _m, n) in zip(pieces, spec)]).numpy()
+    assert got.dtype == np.int32 and got.shape == (7, total)
+    out = torch.full((7, total + 300), -7, dtype=torch.int32)
+    T.unpack4([(torch.from_numpy(p), n)
+               for p, (_r, _m, n) in zip(pieces, spec)], out)
     o = out.numpy()
-    assert np.array_equal(o[:, 3000:7000], want[:, :4000])
-    assert (o[:, :3000] == -7).all() and (o[:, 7000:] == -7).all()
+    col = 0
+    for p, (rows, _m, n) in zip(pieces, spec):
+        want = (np.asarray(J._unpack4_jit(jnp.asarray(p)))
+                if rows == 4 else p)
+        assert np.array_equal(got[:, col:col + n], want[:, :n])
+        assert np.array_equal(o[:, col:col + n], want[:, :n])
+        col += n
+    assert (o[:, total:] == -7).all()
 
 
 def _unpack_jax(a):
@@ -148,9 +178,10 @@ def ladder_input(case, tmp_path, sim_small):
     raise KeyError(case)
 
 
-# (case, decode3 calls, unpack4 calls) of the port's ladder
-LADDER = [("fmt3", 1, 1), ("fmt4", 0, 1), ("multi_piece", 4, 4),
-          ("rle_overflow", 0, 2), ("wrapped", 0, 0), ("late_pack", 2, 2)]
+# (case, decode3 calls, unpack4 calls) of the port's ladder: K9 once a
+# FMT3 piece, K10 once a load (4-row pieces unpacked, 7-row ones copied)
+LADDER = [("fmt3", 1, 1), ("fmt4", 0, 1), ("multi_piece", 4, 1),
+          ("rle_overflow", 0, 1), ("wrapped", 0, 1), ("late_pack", 2, 1)]
 
 
 @pytest.mark.parametrize("case,n_dec,n_unp", LADDER,
@@ -202,4 +233,5 @@ def test_non_cpu_tensor_never_reaches_a_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         T.decode3(meta)
     with pytest.raises(ValueError, match="CUDA"):
-        T.unpack4(torch.zeros((4, 16), dtype=torch.int32, device="meta"))
+        T.unpack4([(torch.zeros((4, 16), dtype=torch.int32, device="meta"),
+                    16)])

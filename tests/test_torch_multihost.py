@@ -114,7 +114,8 @@ def test_loader_carry_seed_matches_jax(tmp_path):
 @pytest.mark.parametrize("data", ["sim_small", "sim_noisy"])
 def test_host_load_parses_seven_rows(request, data, monkeypatch):
     """load_hits_mt(upload=False), the sharded paths' host load: the JAX
-    host loader's colmat, from 7-row pieces with nothing to decode."""
+    host loader's colmat, from 7-row pieces with nothing to decode or
+    unpack (K10's one call per load only copies them, on the host)."""
     import torch
 
     from miniasm_tpu.io.native.pafload import load_hits_mt as j_load
@@ -123,8 +124,16 @@ def test_host_load_parses_seven_rows(request, data, monkeypatch):
     def no_decode(*a):
         raise AssertionError("the host load decoded an FMT3 piece")
 
+    unpack4 = pafload.unpack4
+
+    def copy_only(pieces, *a, **k):
+        if any(d.shape[0] != 7 or d.device.type != "cpu"
+               for d, _n in pieces):
+            raise AssertionError("the host load unpacked a 4-row piece")
+        return unpack4(pieces, *a, **k)
+
     monkeypatch.setattr(pafload, "decode3", no_decode)
-    monkeypatch.setattr(pafload, "unpack4", no_decode)
+    monkeypatch.setattr(pafload, "unpack4", copy_only)
     paf = request.getfixturevalue(data)["paf"]
     tc, td, th = pafload.load_hits_mt(paf, 2000, 100, min_iden=0.05,
                                       device=torch.device("cuda"),

@@ -272,12 +272,17 @@ def test_contained_matches_jax(chain):
     o = JOpt()
     n_seq = len(chain["names"])
     th, sub = to_port_hits(chain["h3"]), to_port_sub(*chain["merged"])
-    mask = tcont.contained_marks(th, sub, n_seq, o.max_hang, o.int_frac,
-                                 o.min_ovlp)
-    assert np.array_equal(mask.numpy(), chain["cont"])
+    marks = tcont.contained_marks(th, sub, n_seq, o.max_hang, o.int_frac,
+                                  o.min_ovlp)
+    assert np.array_equal(marks[0].numpy() != 0, chain["cont"])
     assert chain["cont"].any()
+    # the reads some hit names (JAX apply_contained's used)
+    used = np.zeros(n_seq, bool)
+    used[chain["h3"].qid] = True
+    used[chain["h3"].tid] = True
+    assert np.array_equal(marks[1].numpy() != 0, used)
     d = SeqDict.from_arrays(chain["names"], chain["lens"])
-    h4, sub4 = tcont.apply_contained(d, sub, mask, th)
+    h4, sub4 = tcont.apply_contained(d, sub, marks, th)
     assert_hits_equal(h4, chain["h4"])
     assert_sub_equal(sub4, *chain["sub4"])
     assert d.names == chain["names4"]

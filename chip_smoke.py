@@ -566,6 +566,42 @@ def _device_ms(fn, reps: int, flush: bool = True) -> float:
     return sum(_device_split(fn, reps, flush).values())
 
 
+def _device_sequence(fn, reps: int, flush: bool = True) -> list:
+    """The device events of one call of fn in the order they start, each
+    (name, mean ms), from torch.profiler over reps calls, each after an L2
+    flush (with flush=False, none).  Every call of the session must show
+    the names of a one-call session in the same order; a session that
+    does not is made again, three times at most, then the smoke fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = _flush_names() if flush else set()
+
+    def session(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush:
+                    _flush()
+                fn()
+            torch.cuda.synchronize()
+        return [(e.name, e.time_range.elapsed_us()) for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and e.name not in names), key=lambda e: e.time_range.start)]
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        one = [name for name, _us in session(1)]
+        many = session(reps)
+        k = len(one)
+        if k and len(many) == k * reps and all(
+                name == one[i % k] for i, (name, _us) in enumerate(many)):
+            return [(one[j], sum(us for _n, us in many[j::k]) / reps / 1e3)
+                    for j in range(k)]
+    _fail("the profiler recorded an uneven session of %r three times"
+          % getattr(fn, "__name__", fn))
+
+
 def _short(name: str) -> str:
     """A device event's name without its namespaces and arguments."""
     m = re.search(r"(\w+(?:<[^>]*>)?)\(", name)
@@ -621,9 +657,12 @@ def _cost(name, args, kw, out):
         # 7 hit rows in, 3 table words gathered per read, 4 rows + keep out
         return 7 * 4 * n + _nbytes(sub) + _nbytes(*out), 40 * n
     if name == "hit2arc":
-        cols, lens = args[0], args[1]
-        n = cols.shape[1]
-        return 7 * 4 * n + _nbytes(lens) + _nbytes(out), 35 * n
+        # qid, tid, rev and valid, the 4 coordinates and keep in a column,
+        # the trim table read once; the 5 rows and good a column, sub_del a
+        # read out; per column two lengths, hit2arc (~35 ops) and good
+        colmat, sub = args[0], args[3]
+        n = colmat.shape[1]
+        return 33 * n + _nbytes(sub) + _nbytes(*out), 40 * n
     if name == "compact":
         # what the call needs on these inputs, not every row of every
         # column: each column's keep byte, with a remap also its two ids
@@ -942,6 +981,8 @@ def _measure(name, fn, plain, args, kw, reps, own=True):
         m["device_split"] = {_short(k): v for k, v in split.items()}
         m["device_ms_unflushed"] = _device_ms(
             lambda: fn(*args, **kw), reps, flush=False)
+    if name == "hit2arc" and own:
+        m.update(_hit2arc_extras(fn, args, kw, reps))
     if name in ("hit_marks", "unpack4") and own:
         # the device time by launch (memset, kernel), without the flush,
         # and the wrapper's host time; K18's containment call also beside
@@ -1008,6 +1049,18 @@ def _measure(name, fn, plain, args, kw, reps, own=True):
             lambda: torch.searchsorted(torch.sort(key).values, q), reps)
         m.update(_stage_b_floor(fn, args, kw, reps))
     return m
+
+
+def _hit2arc_extras(fn, args, kw, reps) -> dict:
+    """K6's call without the L2 flush and its wrapper's host time, beside
+    its latency floor, an empty plain launch of its grid, after the flush
+    and without it."""
+    call = lambda: fn(*args, **kw)  # noqa: E731
+    f = _hit2arc_floor(args[0].shape[1], args[3].shape[1])
+    return {"device_ms_unflushed": _device_ms(call, reps, flush=False),
+            "host_us": _host_us(call, reps),
+            "floor_device_ms": _device_ms(f, reps),
+            "floor_device_ms_unflushed": _device_ms(f, reps, flush=False)}
 
 
 def _compaction_extras(fn, args, kw, split, reps) -> dict:
@@ -1120,6 +1173,23 @@ def _coop_floor(blocks: int, syncs: int):
         err = f(blocks, syncs, torch.cuda.current_stream().cuda_stream)
         if err:
             _fail("coop_floor: launch failed (cudaError %d)" % err)
+    return launch
+
+
+def _hit2arc_floor(n: int, T: int):
+    """A launcher of staged.cu's ma_hit2arc_floor: an empty plain launch of
+    the grid K6 takes for n columns and T reads (a measurement's entry,
+    called through the library, counted nowhere)."""
+    from miniasm_tpu_torch import cuda
+
+    f = cuda._lib("staged.cu").ma_hit2arc_floor
+    f.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def launch():
+        err = f(n, T, torch.cuda.current_stream().cuda_stream)
+        if err:
+            _fail("hit2arc_floor: launch failed (cudaError %d)" % err)
     return launch
 
 
@@ -1308,7 +1378,7 @@ def _kernel_phase(recs, runs, cases):
              "trans_multi": devclean.trans_multi_plain,
              "bubble_bfs": devbub.bubble_bfs_plain,
              "hit_cut": cut.hit_cut_plain,
-             "hit2arc": h2a.hit2arc_rows_plain,
+             "hit2arc": h2a.hit2arc_tail_plain,
              "key_member": arrays.key_member_plain,
              "dup_mark": clean.dup_mark_plain,
              "route": rt.route_plain,
@@ -1426,6 +1496,15 @@ def _kernel_phase(recs, runs, cases):
                         "device_split", "device_ms_unflushed", "host_us",
                         "used_library_ms") if x in m}
                     | {"bound_ms": _sum([m])["bound_ms"]})))
+        if name == "hit2arc":
+            # the entry's call, without the flush too, beside its floor
+            for k in ("device_ms_unflushed", "host_us", "floor_device_ms",
+                      "floor_device_ms_unflushed"):
+                row[k] = own[0][k]
+            _say("[hit2arc] %s" % json.dumps({k: row[k] for k in (
+                "device_ms", "device_ms_unflushed", "host_us",
+                "floor_device_ms", "floor_device_ms_unflushed",
+                "bound_ms")}))
         if name in ("compact", "shard_arcs"):
             # each call on a line of its own: its columns, its times by
             # launch beside the library call, its grid and floor
@@ -1449,6 +1528,22 @@ def _kernel_phase(recs, runs, cases):
                 rec.log_tag, name, "V, A, D, do_trans"
                 if name == "trans_multi" else "S, K, nb max",
                 json.dumps(row["calls"])))
+        if name == "trans_multi":
+            # K3's launches on noisy_ug by variant, and their cost a run:
+            # each variant's launches times its largest call's device ms
+            # less its bound
+            by = {"trans": sum(c[3] for c in row["calls"]),
+                  "multi": sum(1 - c[3] for c in row["calls"])}
+            if sum(by.values()) != row["launches"]:
+                _fail("trans_multi: %d calls logged on noisy_ug, %d "
+                      "launches" % (sum(by.values()), row["launches"]))
+            row["launches_by_variant"] = by
+            row["cost_ms_a_run"] = sum(
+                n * (row["cases"]["main/" + v]["device_ms"]
+                     - row["cases"]["main/" + v]["bound_ms"])
+                for v, n in by.items() if n)
+            _say("[calls] noisy_ug trans_multi launches by variant %s, cost "
+                 "a run %.5f ms" % (json.dumps(by), row["cost_ms_a_run"]))
         _say("kernel " + json.dumps(row))
         rows.append(row)
     return rows
@@ -1658,6 +1753,41 @@ def _entry_card():
     _check_launches("dryrun_entry", launches, expect)
     return got, {"wall_s": dt, "launches": launches,
                  "columns": cm.shape[1]}
+
+
+def _entry_device() -> dict:
+    """The forward step's device events by torch.profiler, after the L2
+    flush and without it: the kernels of the whole step, the tail after
+    K5 (which must be K6 alone) and its device ms, beside K6's latency
+    floor in its grid; printed as the [entry] line with the card's name
+    and power limit.  Run after the kernel phase: its sessions, made
+    among the runs, left the kernel phase's later sessions of K6 alone
+    without most of K6's events."""
+    from miniasm_tpu_torch.eval import dryrun
+
+    with contextlib.redirect_stderr(io.StringIO()):
+        fwd, (cm,) = dryrun.entry(device="cuda")
+    step = lambda: fwd(cm)  # noqa: E731
+    T = step()[5].shape[0]
+    out = {"card": _smi()}
+    for flush in (True, False):
+        seq = _device_sequence(step, 20, flush)
+        k5 = [i for i, (name, _ms) in enumerate(seq)
+              if "hit_cut_kernel" in name]
+        tail = seq[k5[0] + 1:] if len(k5) == 1 else []
+        if len(tail) != 1 or "hit2arc_kernel" not in tail[0][0]:
+            _fail("dryrun_entry: the step after K5 ran %s, not K6 alone"
+                  % [_short(name) for name, _ms in tail])
+        out["flushed" if flush else "unflushed"] = {
+            "kernels": sum(1 for name, _ms in seq
+                           if not name.startswith(("Memset", "Memcpy"))),
+            "events": len(seq), "device_ms": sum(ms for _n, ms in seq),
+            "tail_events": len(tail), "tail_device_ms": tail[0][1]}
+    f = _hit2arc_floor(cm.shape[1], T)
+    out["k6_floor_device_ms"] = _device_ms(f, 20)
+    out["k6_floor_device_ms_unflushed"] = _device_ms(f, 20, flush=False)
+    _say("[entry] %s" % json.dumps(out))
+    return out
 
 
 def _entry_check(got, info) -> dict:
@@ -2285,9 +2415,8 @@ def main(argv=None) -> int:
             Recorder(devbub, "bubble_bfs", on_path(
                 lambda a_, k: "K%d" % a_[6]), log_tag="noisy_ug"),
             Recorder(cut, "hit_cut", on_path(lambda a_, k: "all")),
-            Recorder(h2a, "hit2arc_rows", on_path(
-                lambda a_, k: "relaxed" if a_[3] == 0.5 else "final"),
-                kernel="hit2arc"),
+            Recorder(h2a, "hit2arc_tail", on_path(lambda a_, k: "all"),
+                     kernel="hit2arc"),
             # del_asymm_mask calls K7 by clean's name for it
             Recorder(clean, "key_member", on_path(lambda a_, k: "all"),
                      size_fn=lambda a_, k: a_[2][0].numel()),
@@ -2409,6 +2538,7 @@ def main(argv=None) -> int:
     cases = dict(_sweep_cases(), **_decode3_cases(), **_symm_cases(n_arcs))
     cases.update(_route_cases(paf, os.path.join(ddir, "multihost")))
     rows = _kernel_phase(recs, runs, cases)
+    report["dryrun_entry"]["device"] = _entry_device()
 
     # --- 5. the same commands on the CPU ---
     for tag, args, mode, path in plan:

@@ -14,13 +14,15 @@ the int_frac test is one float32 multiply and compare (miniasm.h:94), with
 no promotion to float64.  The select kernel K1 (csrc/select.cu) computes
 the same function per row; `hit2arc` is its plain version.
 
-`hit2arc_rows` is K6 (csrc/staged.cu), the same function over the staged
-path's (9, n) hit matrix with the read lengths gathered from a table;
-`hit2arc_rows_plain` is its plain version.  `hit_marks` is K18 (the same
-source): hit2arc with the per-read byte marks the staged path takes from
-it (the containment pass's contained reads and reads in use, in one
-launch; the string graph's deletions and arc rows), `hit_marks_plain`
-its plain version.
+`hit2arc_tail` is K6 (csrc/staged.cu): the graft entry's forward step
+after K5 in one launch (the read lengths from the trim table, hit2arc,
+`good` and `sub_del`); `hit2arc_tail_plain` is its plain version.
+`hit2arc_rows_plain` is the same function over the staged path's (9, n)
+hit matrix with the read lengths gathered from a table.  `hit_marks` is
+K18 (the same source): hit2arc with the per-read byte marks the staged
+path takes from it (the containment pass's contained reads and reads in
+use, in one launch; the string graph's deletions and arc rows),
+`hit_marks_plain` its plain version.
 """
 
 from __future__ import annotations
@@ -85,17 +87,11 @@ def hit2arc(qid, qs, qe, tid, ts, te, rev, ql, tl,
     return {"r": r, "u": u, "v": v, "l": l, "ol": ol}
 
 
-# the hit2arc program (miniasm_tpu/core/hit2arc.py:28) as the staged path
-# calls it: select/filter.py:29, select/contained.py:30, graph/asg.py:174
-K_HIT2ARC = Kernel(
-    "hit2arc", "staged.cu", "ma_hit2arc", [P, I64, P, I64, I32, F32, I32, P],
-    replaces="miniasm_tpu/core/hit2arc.py:28")
-
-
 def hit2arc_rows_plain(cols, lens, max_hang: int, int_frac: float,
                        min_ovlp: int) -> torch.Tensor:
-    """Plain PyTorch version of the hit2arc kernel: `hit2arc` over the hit
-    matrix with ql, tl gathered from `lens` (indices clamped like XLA's)."""
+    """`hit2arc` over the staged (9, n) hit matrix with ql, tl gathered
+    from `lens` (indices clamped), as (5, n) int32 [r u v l ol]: the
+    classification K17 and K18 (csrc/staged.cu) make per hit."""
     T = lens.shape[0]
     qid, tid = cols[0], cols[3]
     c = hit2arc(qid, cols[1], cols[2], tid, cols[4], cols[5], cols[8] != 0,
@@ -105,22 +101,67 @@ def hit2arc_rows_plain(cols, lens, max_hang: int, int_frac: float,
     return torch.stack([c[k] for k in ("r", "u", "v", "l", "ol")])
 
 
-def hit2arc_rows(cols, lens, max_hang: int, int_frac: float,
-                 min_ovlp: int) -> torch.Tensor:
-    """K6.  cols (9, n) int32 hits [qid qs qe tid ts te ml bl rev]; lens
-    (T,) int32 per-read lengths.  Returns (5, n) int32 [r u v l ol]."""
-    if cols.device.type == "cpu":
-        return hit2arc_rows_plain(cols, lens, max_hang, int_frac, min_ovlp)
-    n, T = cols.shape[1], lens.shape[0]
-    if cols.dtype != torch.int32 or lens.dtype != torch.int32:
-        raise TypeError("hit2arc_rows: int32 hits and lengths expected")
-    if cols.shape[0] != 9 or lens.dim() != 1 or (n and T == 0):
-        raise ValueError("hit2arc_rows: shape mismatch")
-    out = torch.empty((5, n), dtype=torch.int32, device=cols.device)
-    if n:
-        K_HIT2ARC(ptr(cols), n, ptr(lens), T, int(max_hang),
-                  float(np.float32(int_frac)), int(min_ovlp), ptr(out))
-    return out
+# the hit2arc program (miniasm_tpu/core/hit2arc.py:28) as the graft
+# entry's forward step calls it (__graft_entry__.py:60-65), with the
+# lengths before it and good and sub_del after it
+K_HIT2ARC = Kernel(
+    "hit2arc", "staged.cu", "ma_hit2arc",
+    [P, I64, I64, P, P, P, I64, I32, F32, I32, P, P, P],
+    replaces="miniasm_tpu/core/hit2arc.py:28")
+
+
+def jnp_index(ids, T: int) -> torch.Tensor:
+    """ids as indices of a length-T table, as jnp's gather x[ids] takes
+    them: a negative id counts from the end, then clamped to [0, T)."""
+    return torch.where(ids < 0, ids + T, ids).clamp(0, T - 1).long()
+
+
+def hit2arc_tail_plain(colmat, coords, keep, sub, max_hang: int,
+                       int_frac: float, min_ovlp: int):
+    """Plain PyTorch version of the hit2arc kernel (see `hit2arc_tail`)."""
+    T = sub.shape[1]
+    slen = sub[1] - sub[0]
+    qid, tid = colmat[0], colmat[3]
+    c = hit2arc(qid, coords[0], coords[1], tid, coords[2], coords[3],
+                colmat[8] != 0, slen[jnp_index(qid, T)],
+                slen[jnp_index(tid, T)], max_hang, int_frac, min_ovlp)
+    arcs = torch.stack([c[k] for k in ("r", "u", "v", "l", "ol")])
+    return arcs, keep & (colmat[9] != 0) & (arcs[0] >= 0), sub[2] != 0
+
+
+def hit2arc_tail(colmat, coords, keep, sub, max_hang: int, int_frac: float,
+                 min_ovlp: int):
+    """K6.  colmat the entry's (10, n) int32 columns [qid qs qe tid ts te
+    ml bl rev valid] (any row stride); coords (4, n) int32 [qs qe ts te]
+    and keep (n,) bool from K5; sub (3, T) int32 trim tables [s e del]
+    (s and e as uint32 bit patterns).  hit2arc of the cut columns against
+    the trimmed lengths e - s (a wrapping int32 difference; a read id
+    taken as `jnp_index` takes it).  Returns ((5, n) int32 [r u v l ol],
+    (n,) bool good = keep & valid & r >= 0, (T,) bool sub_del = del != 0)."""
+    if colmat.device.type == "cpu":
+        return hit2arc_tail_plain(colmat, coords, keep, sub, max_hang,
+                                  int_frac, min_ovlp)
+    n, T = colmat.shape[1], sub.shape[1]
+    if (colmat.dtype != torch.int32 or coords.dtype != torch.int32
+            or sub.dtype != torch.int32 or keep.dtype != torch.bool):
+        raise TypeError("hit2arc_tail: int32 columns, coordinates and trim "
+                        "tables and a bool keep expected")
+    if (colmat.shape[0] != 10 or (n > 1 and colmat.stride(1) != 1)
+            or coords.shape != (4, n) or keep.shape != (n,)
+            or sub.shape[0] != 3 or (n and T == 0)):
+        raise ValueError("hit2arc_tail: shape mismatch")
+    if not colmat.is_cuda:
+        raise ValueError("expected a CUDA tensor, got %s" % colmat.device)
+    dev = colmat.device
+    arcs = torch.empty((5, n), dtype=torch.int32, device=dev)
+    good = torch.empty(n, dtype=torch.bool, device=dev)
+    sub_del = torch.empty(T, dtype=torch.bool, device=dev)
+    if n or T:
+        K_HIT2ARC(colmat.data_ptr(), colmat.stride(0), n, ptr(coords),
+                  ptr(keep), ptr(sub), T, int(max_hang),
+                  float(np.float32(int_frac)), int(min_ovlp), ptr(arcs),
+                  ptr(good), ptr(sub_del))
+    return arcs, good, sub_del
 
 
 # hit2arc with the per-read marks of select/contained.py:19

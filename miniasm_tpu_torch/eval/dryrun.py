@@ -3,10 +3,10 @@ multi-rank dry run.
 
 The port's counterpart of __graft_entry__.py (which stays the JAX
 package's): `entry` is the same forward step over 4,096 padded hit
-columns, here the port's hit_sub (K2 `sweep`), hit_cut (K5) and hit2arc
-(K6); `dryrun_multichip` assembles the same 5 Mb read set over
-`group.launch(n)` and holds the sharded GFA byte-equal to the single-card
-run.
+columns, here the port's hit_sub (K2 `sweep`), hit_cut (K5) and the rest
+of the step in one launch (K6 `hit2arc_tail`); `dryrun_multichip`
+assembles the same 5 Mb read set over `group.launch(n)` and holds the
+sharded GFA byte-equal to the single-card run.
 """
 
 from __future__ import annotations
@@ -87,14 +87,13 @@ def entry(device=None):
                               ts, te, ml, bl, rev])),
             n_seq, opt.min_dp, opt.min_iden, 0)
         coords, keep = cut.hit_cut(colmat[:9], sub, opt.min_span)
-        slen = sub[1] - sub[0]
-        arcs = h2a.hit2arc_rows(
-            torch.stack([qid, coords[0], coords[1], tid, coords[2],
-                         coords[3], ml, bl, rev]),
-            slen, opt.max_hang, opt.int_frac, opt.min_ovlp)
-        good = keep & mvalid & (arcs[0] >= 0)
+        # the rest of the step in one launch: the trimmed lengths, hit2arc
+        # on the cut columns, good and sub_del
+        arcs, good, sub_del = h2a.hit2arc_tail(
+            colmat, coords, keep, sub, opt.max_hang, opt.int_frac,
+            opt.min_ovlp)
         return (good, arcs[1], arcs[2], arcs[3], arcs[4], sub[0], sub[1],
-                sub[2] != 0)
+                sub_del)
 
     return fwd, (colmat,)
 

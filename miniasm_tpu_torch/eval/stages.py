@@ -30,7 +30,9 @@ fetch`): torch ops and CUDA runtime calls, summed by name.
         CHECKOUT [CHECKOUT ...]
 
 The PAFs are those chip_smoke.py simulates (build/smoke/ecoli_4600000.paf
-and its _noisy twin).  `--device cpu` runs the port on the CPU.
+and its _noisy twin).  `--device cpu` runs the port on the CPU; without
+it every run, the sharded ones too, asks for the card, and a process that
+finds none raises.
 """
 
 from __future__ import annotations
@@ -60,7 +62,11 @@ _PROC = r"""
 import contextlib, io, json, os, sys, tempfile, time
 import torch
 from miniasm_tpu_torch import cli, pipeline
+from miniasm_tpu_torch.device import ENV, get_device
 from miniasm_tpu_torch.utils import timers
+# the device every run takes, as the CLI resolves it: the card unless
+# MINIASM_TPU_TORCH_DEVICE (--device) asks for the CPU; no card raises
+card = get_device(os.environ.get(ENV)).type == "cuda"
 paf, noisy, trace = sys.argv[1], sys.argv[2], sys.argv[3]
 traced = set(sys.argv[4].split(",")) if trace else set()
 paths = {"PAF": paf, "NOISY": noisy}
@@ -74,7 +80,7 @@ def sharded(path, out):
 
     with tempfile.TemporaryDirectory() as rdv:
         group.init(0, 1, "file://" + os.path.join(rdv, "rdv"),
-                   device="cuda" if torch.cuda.is_available() else "cpu")
+                   device="cuda" if card else "cpu")
         try:
             full.run_sharded(path, Opt(), out=out)
         finally:
@@ -83,7 +89,7 @@ def sharded(path, out):
 
 
 for tag in sys.argv[5].split(","):
-    if tag == "warmup" and torch.cuda.is_available():
+    if tag == "warmup" and card:
         from miniasm_tpu_torch import cuda
         cuda.build()
     buf, err = io.StringIO(), io.StringIO()
@@ -97,7 +103,7 @@ for tag in sys.argv[5].split(","):
         else:
             rc = cli.main(args[tag])
             ticks = dict(pipeline.LAST_TIMING)
-    if torch.cuda.is_available():
+    if card:
         torch.cuda.synchronize()
     dt = time.time() - t0
     os.environ.pop("MINIASM_TPU_PROFILE", None)

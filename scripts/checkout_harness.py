@@ -5,8 +5,9 @@ scripts/marks_unpack.py, scripts/select_tail_phases.py).
 `run` gives each checkout a process of its own, running a child program
 that starts with PRELUDE.  The prelude reads the child's arguments (the
 checkout, this checkout, the PAF, the repetitions, then the script's own
-in `args`), puts the checkout's package and this checkout's chip_smoke.py
-first on sys.path, builds the kernels and defines:
+in `args`), puts the checkout's package first on sys.path, loads this
+checkout's chip_smoke.py (not the checkout's), builds the kernels and
+defines:
 
   say(**kw)                 one JSON line, tagged with the checkout;
   hook(mod, name, calls)    wraps mod.name so that each call's (args,
@@ -36,9 +37,14 @@ PRELUDE = r"""
 import json, os, sys
 tree, here, paf, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 args = sys.argv[5:]
-sys.path[:0] = [tree, here]
+sys.path[:0] = [tree]
+import importlib.util
 import torch
-import chip_smoke as cs
+# this checkout's chip_smoke.py, whatever the checkout holds
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(here, "chip_smoke.py"))
+cs = sys.modules["chip_smoke"] = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 from miniasm_tpu_torch import cuda
 
 cuda.build()

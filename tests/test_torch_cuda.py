@@ -245,18 +245,73 @@ def test_hit_cut_kernel_matches_plain(dev):
     assert want[1].any() and not want[1].all()
 
 
-@pytest.mark.parametrize("int_frac", [0.5, 0.8])
-def test_hit2arc_kernel_matches_plain(dev, int_frac):
+def entry_tail_inputs(rng, n, T):
+    """Seeded inputs of the forward step's tail after K5, as numpy: the
+    (10, n) int32 columns (qid and tid partly outside [0, T), past the end
+    and negative; rev and valid 0, 1 or 2), K5's (4, n) uint32 coordinates
+    (a few above 2**31) and bool keep, the uint32 trim starts and ends (a
+    tenth with s > e, so that e - s wraps; a few ends near 2**32) and the
+    int32 deletion row (0, 1 or 2)."""
+    cm = rng.integers(-2**31, 2**31, (10, n))
+    for row in (0, 3):
+        ids = rng.integers(0, T, n)
+        wild = rng.random(n) < 0.1
+        ids[wild] = rng.integers(-2 * T - 3, 2 * T + 3, int(wild.sum()))
+        cm[row] = ids
+    cm[8] = rng.integers(0, 3, n)
+    cm[9] = rng.integers(0, 3, n)
+    qs = rng.integers(0, 9000, n)
+    qs[rng.random(n) < 0.02] = 2**32 - rng.integers(1, 3000)
+    ts = rng.integers(0, 9000, n)
+    coords = np.stack([qs, qs + rng.integers(0, 9000, n), ts,
+                       ts + rng.integers(0, 9000, n)]) % 2**32
+    s = rng.integers(0, 12000, T)
+    e = s + rng.integers(0, 12000, T)
+    back = rng.random(T) < 0.1
+    e[back] = s[back] - rng.integers(1, 5000, int(back.sum()))
+    e[rng.random(T) < 0.02] = 2**32 - rng.integers(1, 5000)
+    dl = rng.integers(0, 3, T) * (rng.random(T) < 0.2)
+    return (cm.astype(np.int32), coords.astype(np.uint32),
+            rng.random(n) < 0.7, s.astype(np.uint32),
+            (e % 2**32).astype(np.uint32), dl.astype(np.int32))
+
+
+def check_hit2arc_tail(dev, seed, n, T, int_frac):
+    """K6 against its plain version on entry_tail_inputs, bit for bit;
+    returns the plain version's outputs."""
     from miniasm_tpu_torch.core import hit2arc as h2a
 
-    cols, sub = staged_inputs(np.random.default_rng(6))
-    lens = torch.from_numpy(sub[1] - sub[0]).to(dev)
-    args = (torch.from_numpy(cols).to(dev), lens, 1000, int_frac, 2000)
-    got = h2a.hit2arc_rows(*args)
+    cm, coords, keep, s, e, dl = entry_tail_inputs(
+        np.random.default_rng(seed), n, T)
+    sub = np.stack([s.view(np.int32), e.view(np.int32), dl])
+    args = [torch.from_numpy(x).to(dev) for x in (
+        cm, coords.view(np.int32), keep, sub)] + [1000, int_frac, 2000]
+    want = h2a.hit2arc_tail_plain(*args)
+    got = h2a.hit2arc_tail(*args)
     torch.cuda.synchronize()
-    want = h2a.hit2arc_rows_plain(*args)
-    assert torch.equal(got, want)
-    assert len(set(want[0].clamp(min=-5, max=0).tolist())) == 5
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)
+    return want
+
+
+@pytest.mark.parametrize("int_frac", [0.5, 0.8])
+def test_hit2arc_kernel_matches_plain(dev, int_frac):
+    """K6 on the graft entry's kind of inputs at 50,000 columns and 500
+    reads, ids outside [0, T) among them."""
+    arcs, good, _ = check_hit2arc_tail(dev, 6, 50_000, 500, int_frac)
+    assert len(set(arcs[0].clamp(min=-5, max=0).tolist())) == 5
+    assert good.any() and not good.all()
+
+
+@pytest.mark.parametrize("n, T", [(300, 700), (100, 9000), (0, 50)],
+                         ids=["few_reads", "many_reads", "no_column"])
+def test_hit2arc_kernel_more_reads_than_columns(dev, n, T):
+    """K6 where the reads outnumber the columns: the grid covers the T
+    reads for sub_del, past the columns' blocks when T is many times n;
+    with no column it still writes sub_del."""
+    arcs, good, sub_del = check_hit2arc_tail(dev, 7, n, T, 0.8)
+    assert arcs.shape == (5, n) and sub_del.shape == (T,)
+    assert sub_del.any() and not sub_del.all()
 
 
 @pytest.mark.parametrize("do_trans", [False, True])
@@ -1201,7 +1256,10 @@ def test_snapshot_restore_on_card(dev, tmp_path):
 def test_entry_forward_step_matches_plain(dev):
     """The graft entry's forward step on the card (K2 `sweep`, K5
     `hit_cut`, K6 `hit2arc`, one launch each) against the same step on
-    the CPU (their plain versions), bit for bit on all 4,096 columns."""
+    the CPU (their plain versions), bit for bit on all 4,096 columns; by
+    torch.profiler's device events, in a process of its own (a session
+    here would leave the later tests' sessions without some kernels), K6
+    is the one device event after K5."""
     from miniasm_tpu_torch import cuda
     from miniasm_tpu_torch.eval import dryrun
 
@@ -1218,6 +1276,11 @@ def test_entry_forward_step_matches_plain(dev):
     assert int(want[0].sum()) > 0
     assert {k: v for k, v in n.items() if v} == {
         "sweep": 1, "hit_cut": 1, "hit2arc": 1}
+    names = _child_event_names("entry")
+    k5 = [i for i, name in enumerate(names) if "hit_cut_kernel" in name]
+    assert len(k5) == 1
+    tail = names[k5[0] + 1:]
+    assert len(tail) == 1 and "hit2arc_kernel" in tail[0]
 
 
 def test_dryrun_multichip_nccl_one_rank(dev, capfd):
@@ -2294,8 +2357,8 @@ def test_shard_arcs_kernel_past_shared_memory(dev):
 
 def _device_events(fn):
     """The device events of one call of fn (after a warm call), by
-    torch.profiler; a session that records none is made again, three
-    times at most."""
+    torch.profiler, in the order they start; a session that records none
+    is made again, three times at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2305,8 +2368,9 @@ def _device_events(fn):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ev = [e.name for e in prof.events()
-              if e.device_type == DeviceType.CUDA]
+        ev = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
         if ev:
             return ev
     raise AssertionError("the profiler recorded no device event")
@@ -2314,14 +2378,18 @@ def _device_events(fn):
 
 def _one_call_events(name):
     """Prints, as a JSON list, the device events of one call of K16, K19
-    or K13 on seeded inputs (run in a process of its own by
-    _child_events)."""
+    or K13 on seeded inputs, or of the graft entry's forward step (run in
+    a process of its own by _child_events)."""
+    from miniasm_tpu_torch.eval import dryrun
     from miniasm_tpu_torch.parallel import full
     from miniasm_tpu_torch.select import fused2
     from miniasm_tpu_torch.utils import compact as cp
 
     rng = np.random.default_rng(29)
-    if name == "compact":
+    if name == "entry":
+        fwd, (cm,) = dryrun.entry(device="cuda")
+        fn = lambda: fwd(cm)  # noqa: E731
+    elif name == "compact":
         rows, keep, mp = (x.cuda() for x in _compact_case(
             rng, 300_000, "keep_remap"))
         fn = lambda: cp.compact(rows, keep, mp)  # noqa: E731
@@ -2334,17 +2402,23 @@ def _one_call_events(name):
     print(json.dumps(_device_events(fn)))
 
 
-def _child_events(name):
+def _child_event_names(name):
     """_one_call_events(name) in a process of its own: in the test process,
     after the profiled CLI runs of other tests, a session held the copy
-    but not the kernel.  Returns (kernels, memsets)."""
+    but not the kernel.  Returns the events' names in the order they
+    start."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import sys; sys.path[:0] = %r; import test_torch_cuda as t; "
             "t._one_call_events(%r)" % ([os.path.dirname(here), here], name))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
-    ev = json.loads(r.stdout.strip().splitlines()[-1])
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _child_events(name):
+    """_child_event_names(name) as (kernels, memsets)."""
+    ev = _child_event_names(name)
     return ([e for e in ev if not e.startswith(("Memset", "Memcpy"))],
             [e for e in ev if e.startswith("Memset")])
 

@@ -9,6 +9,7 @@ from contextlib import redirect_stderr
 
 import numpy as np
 import pytest
+from test_torch_cuda import entry_tail_inputs
 
 OUTPUTS = ["good", "u", "v", "l", "ol", "sub_s", "sub_e", "sub_del"]
 
@@ -53,6 +54,90 @@ def test_entry_output_matches_jax(fwd_outputs, i):
     assert g.dtype == w.dtype and g.shape == w.shape
     assert np.array_equal(g, w)
     assert w.shape == ((4096,) if i < 5 else (74,))
+
+
+def jax_tail(cm, coords, keep, s, e, dl, max_hang, int_frac, min_ovlp):
+    """The JAX step's tail as __graft_entry__.py:60-65 writes it, jitted:
+    (good, r, u, v, l, ol, sub_del) as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from miniasm_tpu.core.hit2arc import hit2arc
+
+    def tail(colmat, cqs, cqe, cts, cte, keep, sub_s, sub_e, sub_del):
+        qid, tid, rev, valid = colmat[0], colmat[3], colmat[8], colmat[9]
+        mvalid = valid.astype(bool)
+        slen = sub_e.astype(jnp.int32) - sub_s.astype(jnp.int32)
+        arcs = hit2arc(qid, cqs, cqe, tid, cts, cte, rev, slen[qid],
+                       slen[tid], max_hang, int_frac, min_ovlp)
+        good = keep & mvalid & (arcs["r"] >= 0)
+        return (good, arcs["r"], arcs["u"], arcs["v"], arcs["l"],
+                arcs["ol"], sub_del)
+
+    return [np.asarray(x) for x in jax.jit(tail)(
+        cm, *coords, keep, s, e, dl != 0)]
+
+
+# (seed, n, T, int_frac): the entry's shape at both int_frac values, more
+# reads than columns, no column, a wide one
+TAIL_CASES = {"entry_shape": (11, 4096, 74, 0.8),
+              "relaxed": (12, 4096, 74, 0.5),
+              "reads_over_columns": (13, 300, 9000, 0.8),
+              "no_column": (14, 0, 40, 0.8),
+              "wide": (15, 30000, 20000, 0.8)}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_hit2arc_tail_plain_matches_jax(case):
+    """K6's plain version, hit2arc_tail on CPU tensors, against the JAX
+    step's tail on the same seeded inputs, bit for bit (tolerance 0)."""
+    import torch
+
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    seed, n, T, int_frac = TAIL_CASES[case]
+    cm, coords, keep, s, e, dl = entry_tail_inputs(
+        np.random.default_rng(seed), n, T)
+    opt = Opt()
+    par = (opt.max_hang, int_frac, opt.min_ovlp)
+    want = jax_tail(cm, coords, keep, s, e, dl, *par)
+    sub = torch.from_numpy(np.stack([s.view(np.int32), e.view(np.int32),
+                                     dl]))
+    arcs, good, sub_del = h2a.hit2arc_tail(
+        torch.from_numpy(cm), torch.from_numpy(coords.view(np.int32)),
+        torch.from_numpy(keep), sub, *par)
+    got = [good.numpy(), *arcs.numpy(), sub_del.numpy()]
+    assert [x.dtype for x in got] == [x.dtype for x in want]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
+    assert got[0].shape == (n,) and got[-1].shape == (T,)
+    if n:
+        # every class of hit2arc and both values of good occur
+        assert set(np.clip(want[1], -5, 0)) == {-4, -3, -2, -1, 0}
+        assert 0 < want[0].sum() < n
+
+
+def test_hit2arc_tail_reads_the_columns_by_row_stride():
+    """hit2arc_tail takes the entry's columns as a view with a row stride
+    wider than n, as it takes the whole matrix."""
+    import torch
+
+    from miniasm_tpu_torch.core import hit2arc as h2a
+
+    cm, coords, keep, s, e, dl = entry_tail_inputs(
+        np.random.default_rng(16), 500, 60)
+    sub = torch.from_numpy(np.stack([s.view(np.int32), e.view(np.int32),
+                                     dl]))
+    args = (torch.from_numpy(coords.view(np.int32)), torch.from_numpy(keep),
+            sub, 1000, 0.8, 2000)
+    wide = torch.zeros((10, 700), dtype=torch.int32)
+    wide[:, 100:600] = torch.from_numpy(cm)
+    view = wide[:, 100:600]
+    assert view.stride(0) == 700
+    for g, w in zip(h2a.hit2arc_tail(view, *args),
+                    h2a.hit2arc_tail(torch.from_numpy(cm), *args)):
+        assert torch.equal(g, w)
 
 
 def test_entry_asks_for_the_card(monkeypatch):

@@ -66,6 +66,24 @@ def test_stages_staged_and_sharded_runs_on_cpu(small_paf, tmp_path, warm):
         stages.main(argv[:-2] + ["--runs", "warmup", root])
 
 
+@pytest.mark.parametrize("run", ["sharded_ug", "ecoli_ug"])
+def test_stages_run_without_a_card_raises(small_paf, monkeypatch, capsys,
+                                          run):
+    """A run of the script's process asked of the card (the default
+    --device) where there is none raises, the sharded arm as the CLI arm:
+    neither measures the CPU unless the CPU is asked for."""
+    import argparse
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.delenv("MINIASM_TPU_TORCH_DEVICE", raising=False)
+    a = argparse.Namespace(device="cuda", trace_runs="noisy_ug")
+    with pytest.raises(RuntimeError, match="exited"):
+        stages._process(root, [run], a, small_paf, small_paf, "")
+    assert "no CUDA device is available" in capsys.readouterr().err
+
+
 def test_select_calls_sums_the_select_window(tmp_path):
     ev = [{"name": "stage:select+fetch", "ts": 100, "dur": 50},
           {"name": "aten::index", "cat": "cpu_op", "ts": 110, "dur": 20},

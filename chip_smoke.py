@@ -34,7 +34,7 @@ What it does, in order:
      step, phase 6, launches it), K3, K7 and K8 on the oracle runs, K11 (its layout
      pass once per Layout, its scatter once per payload), K1-K4, K12 and
      K19 on the sharded runs, and K14 (stage B) once per detection of
-     every run's hybrid clean (clean.detect_n);
+     every run's hybrid clean (the run's clean.detects counter);
   4. holds each kernel against its plain PyTorch version on the card, on
      the inputs the runs gave it (the largest call of each variant on
      each path), bit for bit, and times both with CUDA events, the
@@ -91,8 +91,8 @@ What it does, in order:
      ecoli_ug (each the second run of a process of its own), whose
      traces must hold the kernels by name, and from which it prints the
      device's busy and idle share of each run and its three longest idle
-     gaps with the stage that holds each; and 8 seeded cases of the
-     port's fuzz (eval/fuzz.py), the card against the CPU.
+     gaps with the span (else the stage) that holds each; and 8 seeded
+     cases of the port's fuzz (eval/fuzz.py), the card against the CPU.
 
 It prints one JSON line per kernel and one {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {"platform": "gpu", ...}}.  Any
@@ -140,7 +140,7 @@ COVERAGE, SEED, MEAN_READ, SD_READ = 40.0, 11, 8000, 2000
 # staged path's loader is another (pafread.cpp) and launches neither.  The main path's select
 # launches K13 once, the marks of K12 inside it, and K12 alone never (the
 # sharded step launches it once a rank); every detection of the hybrid
-# clean launches K14 once (each run is also held to its clean.detect_n,
+# clean launches K14 once (each run is also held to its clean.detects,
 # _check_detects).
 _MAIN = {"hit_cut": 0, "hit2arc": 0, "key_member": 0, "dup_mark": 0,
          "decode3": ">0", "unpack4": 1, "route": 0,
@@ -386,8 +386,9 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None, env=None
     """One CLI run with stdout and stderr captured, MINIASM_TPU_CLEAN=
     `clean`, MINIASM_TPU_SNAPSHOT=`snapshot` (when given) and the
     variables of `env`, its launch counts set to 0 just before it and read
-    just after it; returns (stdout, stderr, seconds, stage timing,
-    launches)."""
+    just after it, and its spans and counters recorded; returns (stdout,
+    stderr, seconds, stage timing with the record's counters and span
+    sums under `trace.`, launches)."""
     from miniasm_tpu_torch import cli, cuda, pipeline
     from miniasm_tpu_torch.device import ENV
     from miniasm_tpu_torch.utils import timers
@@ -399,6 +400,7 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None, env=None
     os.environ.update(env or {})
     buf, err = io.StringIO(), io.StringIO()
     cuda.reset_launches()
+    was = timers.tracing(True)
     t0 = time.time()
     try:
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
@@ -406,6 +408,7 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None, env=None
         if device == "cuda":
             torch.cuda.synchronize()
     finally:
+        timers.tracing(was)
         os.environ.pop("MINIASM_TPU_CLEAN")
         os.environ.pop("MINIASM_TPU_SNAPSHOT", None)
         for k in env or {}:
@@ -416,8 +419,16 @@ def _cli(args, device: str, clean: str = "hybrid", snapshot=None, env=None
         sys.stderr.write(err.getvalue()[-3000:])
         _fail("cli %s on %s exited %d" % (" ".join(args), device, rc))
     stages = dict(pipeline.LAST_TIMING)
-    stages.update({"extra." + k: v for k, v in timers.EXTRA.items()})
+    stages.update(_traced(pipeline.LAST_TRACE))
     return buf.getvalue(), err.getvalue(), dt, stages, launches
+
+
+def _traced(rec) -> dict:
+    """A run's counters and its span seconds summed by path, as
+    `trace.<name>` keys beside its stages."""
+    out = {"trace." + k: v for k, v in rec.counters.items()}
+    out.update({"trace." + k: v for k, v in rec.totals().items()})
+    return out
 
 
 def _check_launches(tag: str, launches: dict, expect=None) -> None:
@@ -431,9 +442,9 @@ def _check_launches(tag: str, launches: dict, expect=None) -> None:
 
 
 def _check_detects(tag: str, launches: dict, stages: dict) -> None:
-    """K14 (stage B) launches once per detection of the run (clean.detect_n,
+    """K14 (stage B) launches once per detection of the run (clean.detects,
     counted by devclean.detect)."""
-    n = int(stages.get("extra.clean.detect_n", 0))
+    n = int(stages.get("trace.clean.detects", 0))
     if launches["clean_stage_b"] != n:
         _fail("%s: clean_stage_b launched %d times, the run detected %d "
               "times" % (tag, launches["clean_stage_b"], n))
@@ -1577,17 +1588,21 @@ def _sharded(paf: str, device: str) -> tuple[str, str, float, dict, dict]:
     from miniasm_tpu_torch.utils import timers
 
     buf, err = io.StringIO(), io.StringIO()
-    timers.EXTRA.clear()
     cuda.reset_launches()
+    was = timers.tracing(True)
     t0 = time.time()
-    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        full.run_sharded(paf, Opt(), out=buf)
+    try:
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(err):
+            full.run_sharded(paf, Opt(), out=buf)
+    finally:
+        timers.tracing(was)
     if device == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0
     launches = cuda.launch_counts()
     stages = dict(full.LAST_TIMING)
-    stages.update({"extra." + k: v for k, v in timers.EXTRA.items()})
+    stages.update(_traced(full.LAST_TRACE))
     return buf.getvalue(), err.getvalue(), dt, stages, launches
 
 
@@ -2028,7 +2043,7 @@ FUZZ_CASES = 8
 
 def _stage_line(stages) -> str:
     return ", ".join("%s %.3f" % (k, v) for k, v in stages.items()
-                     if not k.startswith("extra."))
+                     if not k.startswith("trace."))
 
 
 def _v2_phase(inputs: dict, runs: dict) -> None:
@@ -2068,7 +2083,7 @@ def _timing_phase(paf: str, runs: dict) -> dict:
         _fail("ecoli_ug_timing printed other bytes than ecoli_ug")
     ticks = [re.match(TICK_LINE, ln) for ln in err.splitlines()
              if ln.startswith("[T::")]
-    names = [k for k in stages if not k.startswith("extra.")]
+    names = [k for k in stages if not k.startswith("trace.")]
     if not ticks or not all(ticks) \
             or [m.group(1) for m in ticks] != names \
             or [m.group(2) for m in ticks] != ["%.3f" % stages[k]
@@ -2085,11 +2100,15 @@ def _busy_share(events) -> dict:
     """The device's busy share of a profiled run: the union of its
     kernel, memcpy and memset intervals over the run's window (from the
     first stage range's start to the last one's end), the idle share,
-    and the three longest idle gaps with the stage range that holds each
-    (the one around the gap's middle)."""
+    and the three longest idle gaps, each named by the innermost span
+    range around its middle (`span:<path>`, the recorder's, which
+    MINIASM_TPU_PROFILE switches on), else by the stage range there."""
+    marks = [e for e in events if e.get("cat") == "user_annotation"]
     stages = sorted((e["ts"], e["ts"] + e["dur"], e["name"][6:])
-                    for e in events if e.get("cat") == "user_annotation"
-                    and str(e.get("name", "")).startswith("stage:"))
+                    for e in marks
+                    if str(e.get("name", "")).startswith("stage:"))
+    inner = [(e["ts"], e["ts"] + e["dur"], e["name"][5:]) for e in marks
+             if str(e.get("name", "")).startswith("span:")]
     if not stages:
         _fail("the trace holds no stage: range")
     w0, w1 = stages[0][0], max(s[1] for s in stages)
@@ -2108,6 +2127,9 @@ def _busy_share(events) -> dict:
         gaps.append((w1 - end, end))
 
     def holder(t):
+        held = [s for s in inner if s[0] <= t <= s[1]]
+        if held:
+            return min(held, key=lambda s: s[1] - s[0])[2]
         return next((n for a, b, n in stages if a <= t <= b),
                     "(between stages)")
 

@@ -8,7 +8,9 @@ take the staged selection path.  MINIASM_TPU_CLEAN=native|py swaps the
 hybrid cleaner for an oracle, MINIASM_TPU_SNAPSHOT=DIR saves and
 restores the Step 3/4 boundary state, and MINIASM_TPU_PROFILE=DIR writes
 a torch.profiler trace of the run to DIR/trace.json, as in the JAX
-package (its other switches are read where they act: pipeline.py).
+package, and the run's spans and counters (pipeline.LAST_TRACE) to
+DIR/spans.json (its other switches are read where they act:
+pipeline.py).
 
     python -m miniasm_tpu_torch.cli in.paf > out.gfa
 """
@@ -16,11 +18,13 @@ package (its other switches are read where they act: pipeline.py).
 from __future__ import annotations
 
 import getopt
+import json
 import os
 import sys
 
 from .config import Opt
 from .device import ENV, get_device
+from .utils import timers
 from .utils.timers import cputime, liftrlimit, realtime
 
 VERSION = "0.1.0 (miniasm 0.3-r179 capability parity, PyTorch/CUDA)"
@@ -63,6 +67,7 @@ Environment:
     MINIASM_TPU_LOADER=v2          load with the single-pass v2 loader
     MINIASM_TPU_TIMING=1           write [T::stage] +seconds to stderr
     MINIASM_TPU_PROFILE=DIR        write a profiler trace to DIR/trace.json
+                                   and the run's spans to DIR/spans.json
     MINIASM_TPU_NATIVE_SO=FILE     load this host library, do not build
 """ % ENV
 
@@ -145,25 +150,30 @@ def main(argv=None) -> int:
         sys.stderr.write("ERROR: %s\n" % e)
         return 1
     liftrlimit()
-    from .pipeline import run
+    from . import pipeline
 
     # environment variables, as in the JAX package: the getopt string is
     # the reference's
     snapshot_dir = os.environ.get("MINIASM_TPU_SNAPSHOT")
     prof_dir = os.environ.get("MINIASM_TPU_PROFILE")
     prof = _profiler(device) if prof_dir else None
+    was_tracing = timers.tracing(True) if prof_dir else None
     try:
-        run(args[0], opt, outfmt=outfmt, fn_reads=fn_reads, stage=stage,
-            no_first=no_first, no_second=no_second, bi_dir=bi_dir,
-            no_cont=no_cont, device=device, snapshot_dir=snapshot_dir)
+        pipeline.run(args[0], opt, outfmt=outfmt, fn_reads=fn_reads,
+                     stage=stage, no_first=no_first, no_second=no_second,
+                     bi_dir=bi_dir, no_cont=no_cont, device=device,
+                     snapshot_dir=snapshot_dir)
     except FileNotFoundError as e:
         sys.stderr.write("[E::main] could not open file %s\n" % e.filename)
         return 1
     finally:
         if prof is not None:
+            timers.tracing(was_tracing)
             prof.stop()
             os.makedirs(prof_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+            with open(os.path.join(prof_dir, "spans.json"), "w") as f:
+                json.dump(pipeline.LAST_TRACE.to_json(), f)
             sys.stderr.write("[M::main] profiler trace written to %s\n"
                              % prof_dir)
     sys.stderr.write("[M::main] Version: %s\n" % VERSION)

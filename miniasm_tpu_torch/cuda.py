@@ -8,7 +8,12 @@ hash of the sources and flags, so an edit rebuilds and a rerun reuses.  `build()
 A `Kernel` is one C entry point.  Calling it launches on PyTorch's current
 stream; the C function returns `cudaGetLastError()` and a non-zero code
 raises.  Each `Kernel` counts its launches, so a run can show that it went
-through the kernel (`reset_launches`, `launch_counts`).
+through the kernel (`reset_launches`, `launch_counts`).  While a run
+records (utils/timers.py), a kernel's first call in the process is the
+span `cold:<kernel>`: the library's load, the first launch and a
+synchronize, so that the lazy module load falls inside it; the counters
+`cuda.built` and `cuda.libs_loaded` count the sources compiled and the
+libraries loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import threading
 import time
 
 import torch
+
+from .utils import timers
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -87,6 +94,7 @@ def build(srcs=None) -> float:
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    timers.count("cuda.built", len(todo))
     return time.time() - t0
 
 
@@ -99,6 +107,7 @@ def _lib(source: str) -> ctypes.CDLL:
             if lib is None:
                 lib = ctypes.CDLL(_lib_path(source))
                 _libs[source] = lib
+                timers.count("cuda.libs_loaded")
     return lib
 
 
@@ -125,10 +134,18 @@ class Kernel:
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(_lib(self.source), self.symbol)
-            fn.argtypes = self.argtypes + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            with timers.span("cold:" + self.name):
+                fn = getattr(_lib(self.source), self.symbol)
+                fn.argtypes = self.argtypes + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                self._fn = fn
+                self._launch(args)
+                if timers.recording():
+                    torch.cuda.synchronize()
+            return
+        self._launch(args)
+
+    def _launch(self, args) -> None:
         err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError("%s: kernel launch failed (cudaError %d)"

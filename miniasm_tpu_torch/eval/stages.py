@@ -16,13 +16,17 @@ CLI run is (CUDA context, module loads, pinned host memory all paid in
 it); with --warm one process runs the CLI once to warm up, then the three.
 Each run prints one JSON line: its stage ticks (pipeline.LAST_TIMING,
 cumulative), the select stage's own seconds (`select_s`: its tick less
-the tick before it) and stage extras (utils.timers.EXTRA: select.kernel_s,
-select.fetch_s, clean.detect_s, clean.detect_n, ...).  The card's name and power limit
-come first, as nvidia-smi gives them.  With --trace DIR the runs named by
---trace-runs run under the CLI's MINIASM_TPU_PROFILE (their times then
-include the profiler's cost), and for each the script prints the host
-calls that take the most time inside the select stage (`stage:select+
-fetch`): torch ops and CUDA runtime calls, summed by name.
+the tick before it), and, with the recorder on (utils/timers.py
+`tracing`), its spans' seconds summed by path (`spans`:
+select+fetch/enqueue, select+fetch/fetch, clean/.../detect, ...) and its
+counters (`counters`: clean.detects, load.records, ...; the sharded runs'
+from full.LAST_TRACE), both empty for a checkout without the recorder.
+The card's name and power limit come first, as nvidia-smi gives them.
+With --trace DIR the runs named by --trace-runs run under the CLI's
+MINIASM_TPU_PROFILE (their times then include the profiler's cost), and
+for each the script prints the host calls that take the most time inside
+the select stage (`stage:select+fetch`): torch ops and CUDA runtime
+calls, summed by name.
 
     python -m miniasm_tpu_torch.eval.stages --paf CLEAN.paf \\
         --noisy NOISY.paf [--warm] [--rounds 2] [--json OUT] \\
@@ -67,6 +71,8 @@ from miniasm_tpu_torch.utils import timers
 # the device every run takes, as the CLI resolves it: the card unless
 # MINIASM_TPU_TORCH_DEVICE (--device) asks for the CPU; no card raises
 card = get_device(os.environ.get(ENV)).type == "cuda"
+if hasattr(timers, "tracing"):
+    timers.tracing(True)
 paf, noisy, trace = sys.argv[1], sys.argv[2], sys.argv[3]
 traced = set(sys.argv[4].split(",")) if trace else set()
 paths = {"PAF": paf, "NOISY": noisy}
@@ -85,7 +91,7 @@ def sharded(path, out):
             full.run_sharded(path, Opt(), out=out)
         finally:
             group.destroy()
-    return 0, dict(full.LAST_TIMING)
+    return 0, dict(full.LAST_TIMING), getattr(full, "LAST_TRACE", None)
 
 
 for tag in sys.argv[5].split(","):
@@ -95,14 +101,14 @@ for tag in sys.argv[5].split(","):
     buf, err = io.StringIO(), io.StringIO()
     if tag in traced:
         os.environ["MINIASM_TPU_PROFILE"] = os.path.join(trace, tag)
-    timers.EXTRA.clear()
     t0 = time.time()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         if args[tag][0] == "sharded":
-            rc, ticks = sharded(args[tag][1], buf)
+            rc, ticks, rec = sharded(args[tag][1], buf)
         else:
             rc = cli.main(args[tag])
             ticks = dict(pipeline.LAST_TIMING)
+            rec = getattr(pipeline, "LAST_TRACE", None)
     if card:
         torch.cuda.synchronize()
     dt = time.time() - t0
@@ -118,7 +124,8 @@ for tag in sys.argv[5].split(","):
         select_s = ticks[sel[0]] - (ticks[names[i - 1]] if i else 0.0)
     print(json.dumps({"run": tag, "wall_s": dt, "bytes": len(buf.getvalue()),
                       "stages": ticks, "select_s": select_s,
-                      "extra": dict(timers.EXTRA),
+                      "spans": rec.totals() if rec else {},
+                      "counters": dict(rec.counters) if rec else {},
                       "traced": tag in traced}), flush=True)
 """
 
@@ -216,13 +223,15 @@ def main(argv=None) -> int:
         for row in got:
             row["round"] = k
             rows.append(row)
-            x = row["extra"]
-            print("%s %s: wall %.4f s, select %s s, select.kernel_s %s, "
-                  "select.fetch_s %s, clean.detect_s %s, clean.detect_n %s"
+            x = row["spans"]
+            detect = sum(v for k, v in x.items() if k.startswith("clean/")
+                         and k.endswith("/detect"))
+            print("%s %s: wall %.4f s, select %s s, select enqueue %s s, "
+                  "fetch %s s, clean detect %.4f s, clean.detects %s"
                   % (tree, row["run"], row["wall_s"], row["select_s"],
-                     x.get("select.kernel_s"), x.get("select.fetch_s"),
-                     x.get("clean.detect_s"), x.get("clean.detect_n")),
-                  flush=True)
+                     x.get("select+fetch/enqueue"),
+                     x.get("select+fetch/fetch"), detect,
+                     row["counters"].get("clean.detects")), flush=True)
             if row["traced"]:
                 row["select_calls"] = _select_calls(os.path.join(
                     trace, row["run"], "trace.json"))

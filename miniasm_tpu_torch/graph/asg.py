@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from ..utils import timers
 from ..utils.timers import log
 
 
@@ -105,18 +106,21 @@ def arc_index(u_sorted: np.ndarray, n_vtx: int):
 def cleanup(g: Graph) -> Graph:
     """Hard-remove tombstoned arcs and arcs touching deleted reads; sort by
     ul on the FIRST cleanup only (the reference's is_srt latch, asg.c:75-78,
-    with the exact radix tie permutation); re-index (asg.c:57-80)."""
-    keep = ~g.adel & ~g.sdel[g.u >> 1] & ~g.sdel[g.v >> 1]
-    u, l, v, ol = g.u[keep], g.l[keep], g.v[keep], g.ol[keep]
-    if not g.is_srt:
-        from ..utils.exact_sort import radix_argsort
+    with the exact radix tie permutation); re-index (asg.c:57-80).  A
+    span `cleanup` under whichever pass or stage calls it."""
+    with timers.span("cleanup"):
+        keep = ~g.adel & ~g.sdel[g.u >> 1] & ~g.sdel[g.v >> 1]
+        u, l, v, ol = g.u[keep], g.l[keep], g.v[keep], g.ol[keep]
+        if not g.is_srt:
+            from ..utils.exact_sort import radix_argsort
 
-        key = (u.astype(np.uint64) << np.uint64(32)) | l.astype(np.uint64)
-        order = radix_argsort(key)
-        u, l, v, ol = u[order], l[order], v[order], ol[order]
-    start, cnt = arc_index(u, g.n_vtx)
-    return Graph(u, l, v, ol, np.zeros(len(u), dtype=bool),
-                 g.slen, g.sdel, start, cnt, g.is_symm, True)
+            key = ((u.astype(np.uint64) << np.uint64(32))
+                   | l.astype(np.uint64))
+            order = radix_argsort(key)
+            u, l, v, ol = u[order], l[order], v[order], ol[order]
+        start, cnt = arc_index(u, g.n_vtx)
+        return Graph(u, l, v, ol, np.zeros(len(u), dtype=bool),
+                     g.slen, g.sdel, start, cnt, g.is_symm, True)
 
 
 def graph_from_arcs(d, sub_s, sub_e, sub_del, cont, used, pal, arcs,

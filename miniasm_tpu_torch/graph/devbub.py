@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..cuda import I32, I64, P, SMEM_MAX, Kernel, ptr
+from ..utils import timers
 from .asg import Graph
 
 # _bub_kernel: bounded Kahn BFS per bubble source
@@ -286,55 +287,57 @@ def pop_bubbles_dev(g: Graph, cand_mask, max_dist: int,
     computes every source's verdict against the pass-entry graph; the
     host walks sources in ascending order, applying device verdicts
     whose read sets are untouched by earlier commits and recomputing
-    the (rare) conflicting sources with the sequential host BFS.
+    the (rare) conflicting sources with the sequential host BFS, in the
+    spans `dispatch` (K4 and its fetch) and `commit` (the host's walk).
     Returns the reference's packed counter (n_popped | n_tips<<32,
     asg.c:405/431)."""
     cands = [int(v) for v in np.flatnonzero(cand_mask)]
     if not cands:
         return 0
-    import time as _time
-
-    from ..utils.timers import add_extra
-
-    t0 = _time.time()
     n_pop = 0
     n_tip = 0
-    ok, nb, ntip, sink, vis, par, _K = _dispatch(g, cands, max_dist, 64,
-                                                 device)
-    add_extra("clean.bubble_s", _time.time() - t0)
-    touched = np.zeros(g.n_vtx, bool)
-    any_commit = False
-    for j, v0 in enumerate(cands):
-        # live re-validation like the reference scan (asg.c:420-424)
-        if g.sdel[v0 >> 1] or g.idx_cnt[v0] < 2:
-            continue
-        s = g.idx_start[v0]
-        if int(np.sum(~g.adel[s:s + g.idx_cnt[v0]])) < 2:
-            continue
-        nbj = int(nb[j])
-        vset = vis[j, :nbj]
-        stale = False
-        if any_commit:
-            rd = np.concatenate([vset, vset ^ 1, [v0, v0 ^ 1]])
-            stale = bool(touched[rd].any())
-        if stale:
-            okj, vlist, snk, parent, ntj = _host_pop1(g, v0, max_dist)
-            if not okj:
+    n_redo = 0
+    with timers.span("dispatch"):
+        ok, nb, ntip, sink, vis, par, _K = _dispatch(g, cands, max_dist, 64,
+                                                     device)
+    with timers.span("commit"):
+        touched = np.zeros(g.n_vtx, bool)
+        any_commit = False
+        for j, v0 in enumerate(cands):
+            # live re-validation like the reference scan (asg.c:420-424)
+            if g.sdel[v0 >> 1] or g.idx_cnt[v0] < 2:
                 continue
-            vset = np.asarray(vlist, dtype=np.int64)
-        else:
-            if not bool(ok[j]):
+            s = g.idx_start[v0]
+            if int(np.sum(~g.adel[s:s + g.idx_cnt[v0]])) < 2:
                 continue
-            snk = int(sink[j])
-            parent = dict(zip(vset.tolist(), par[j, :nbj].tolist()))
-            ntj = int(ntip[j])
-        _commit(g, v0, vset, snk, parent)
-        n_pop += 1
-        n_tip += ntj
-        touched[np.asarray(vset)] = True
-        touched[np.asarray(vset) ^ 1] = True
-        touched[[v0, v0 ^ 1]] = True
-        any_commit = True
+            nbj = int(nb[j])
+            vset = vis[j, :nbj]
+            stale = False
+            if any_commit:
+                rd = np.concatenate([vset, vset ^ 1, [v0, v0 ^ 1]])
+                stale = bool(touched[rd].any())
+            if stale:
+                n_redo += 1
+                okj, vlist, snk, parent, ntj = _host_pop1(g, v0, max_dist)
+                if not okj:
+                    continue
+                vset = np.asarray(vlist, dtype=np.int64)
+            else:
+                if not bool(ok[j]):
+                    continue
+                snk = int(sink[j])
+                parent = dict(zip(vset.tolist(), par[j, :nbj].tolist()))
+                ntj = int(ntip[j])
+            _commit(g, v0, vset, snk, parent)
+            n_pop += 1
+            n_tip += ntj
+            touched[np.asarray(vset)] = True
+            touched[np.asarray(vset) ^ 1] = True
+            touched[[v0, v0 ^ 1]] = True
+            any_commit = True
+    timers.count("clean.candidates", len(cands))
+    timers.count("clean.commits", n_pop)
+    timers.count("clean.bubble_recomputed", n_redo)
     return n_pop | (n_tip << 32)
 
 

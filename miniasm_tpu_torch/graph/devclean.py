@@ -41,6 +41,7 @@ import torch
 
 from ..cuda import F32, I32, I64, P, SMEM_MAX, Kernel, ptr
 from ..device import to_host
+from ..utils import timers
 from .asg import Graph
 
 # _clean_kernel stage A (l.179-225): transitive-reduction and multi-arc marks
@@ -439,38 +440,37 @@ def detect(g: Graph, opt, *, do_trans: bool, do_symm: bool = True,
     341-386), rank 0 calls this while the other ranks run follow(): every
     rank runs K3 stage A on its block of vertex rows of the table rank 0
     broadcasts, and an all_gather joins the arc bits; the rest of the
-    detection runs on rank 0."""
-    import time as _time
-
-    from ..utils.timers import add_extra
-
-    t0 = _time.time()
-    c = build_arcs(g, device)
-    add_extra("clean.build_s", _time.time() - t0)
-    ratios = _ratio_schedule(opt)
-    V, A = c["V"], g.n_arc
-    args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
-            int(opt.gap_fuzz), do_trans)
-    if group is None or A == 0:
-        bits = trans_multi(*args)
-    else:
-        group.broadcast_object((V, A, c["D"], int(opt.gap_fuzz), do_trans))
-        for t in args[:4]:
-            group.broadcast(t)
-        bits = _stage_a(group, *args)
-    # stage B (K14) into one buffer, which comes to the host in one copy:
-    # [counters (3 + R) | one word an arc (A) | one byte a vertex]
-    R = len(ratios)
-    buf = clean_stage_b(c["first"], c["av"], c["aol"], bits, c["sdel_v"],
-                        ratios, do_symm, c["D"], int(opt.max_ext))
-    host = to_host(buf).numpy()
-    counters = [int(x) for x in host[:3 + R]]
-    words = host[3 + R:3 + R + A]
-    masks = [((words >> k) & 1).astype(bool) for k in range(3 + R)]
-    cands = host[3 + R + A:].view(np.uint8)[:V]
-    cands = [((cands >> k) & 1).astype(bool) for k in range(4)]
-    add_extra("clean.detect_s", _time.time() - t0)
-    add_extra("clean.detect_n", 1)
+    detection runs on rank 0.  Its span `detect` holds `build` (the
+    graph's columns to the device) and `fetch` (the copy back, which
+    waits for K3 and K14)."""
+    timers.count("clean.detects")
+    with timers.span("detect"):
+        with timers.span("build"):
+            c = build_arcs(g, device)
+        ratios = _ratio_schedule(opt)
+        V, A = c["V"], g.n_arc
+        args = (c["first"], c["av"], c["al"], c["sdel_v"], c["D"],
+                int(opt.gap_fuzz), do_trans)
+        if group is None or A == 0:
+            bits = trans_multi(*args)
+        else:
+            group.broadcast_object((V, A, c["D"], int(opt.gap_fuzz),
+                                    do_trans))
+            for t in args[:4]:
+                group.broadcast(t)
+            bits = _stage_a(group, *args)
+        # stage B (K14) into one buffer, which comes to the host in one
+        # copy: [counters (3 + R) | one word an arc (A) | one byte a vertex]
+        R = len(ratios)
+        buf = clean_stage_b(c["first"], c["av"], c["aol"], bits, c["sdel_v"],
+                            ratios, do_symm, c["D"], int(opt.max_ext))
+        with timers.span("fetch"):
+            host = to_host(buf).numpy()
+        counters = [int(x) for x in host[:3 + R]]
+        words = host[3 + R:3 + R + A]
+        masks = [((words >> k) & 1).astype(bool) for k in range(3 + R)]
+        cands = host[3 + R + A:].view(np.uint8)[:V]
+        cands = [((cands >> k) & 1).astype(bool) for k in range(4)]
     return {
         "trans": masks[0], "multi": masks[1], "asymm": masks[2],
         "shorts": [masks[3 + k] for k in range(len(ratios))],

@@ -39,11 +39,13 @@ device-driven.
 
 from __future__ import annotations
 
+import functools
 import heapq
 
 import numpy as np
 import torch
 
+from ..utils import timers
 from ..utils.timers import log
 from .asg import Graph, cleanup
 from . import devclean
@@ -103,6 +105,19 @@ def extend(g: Graph, v: int, max_ext: int):
     return ret, chain
 
 
+def _pass(name):
+    """Run a cleaning pass inside the span `name` (utils/timers.py): its
+    detections, commits and cleanups are its children."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args):
+            with timers.span(name):
+                return fn(*args)
+        return run
+    return wrap
+
+
 class _Cleaner:
     """Holds the graph + the currently-valid detection; re-detects after
     mutations."""
@@ -129,6 +144,7 @@ class _Cleaner:
 
     # ---- order-independent mask application ----
 
+    @_pass("trans")
     def apply_trans(self):
         det = self.det
         n = int(det["trans"].sum())
@@ -146,6 +162,7 @@ class _Cleaner:
         self.trans_done = True
         return n
 
+    @_pass("symm")
     def apply_symm(self):
         det = self.det
         n_multi = int(det["multi"].sum())
@@ -181,6 +198,7 @@ class _Cleaner:
                 self.redetect()
         self.g.is_symm = True
 
+    @_pass("del_short")
     def del_short(self, ratio_idx: int):
         det = self.det
         mask = det["shorts"][ratio_idx]
@@ -252,12 +270,14 @@ class _Cleaner:
         heap = [int(v) for v in np.flatnonzero(cand_mask)]
         heapq.heapify(heap)
         cnt = 0
+        popped = 0
         last = -1
         while heap:
             v = heapq.heappop(heap)
             if v == last:
                 continue  # duplicate push
             last = v
+            popped += 1
             if g.sdel[v >> 1]:
                 continue
             if is_utg_end(g, v)[0] != want_start:
@@ -273,6 +293,8 @@ class _Cleaner:
                 if w > v and not g.sdel[w >> 1] \
                         and is_utg_end(g, w)[0] == want_start:
                     heapq.heappush(heap, w)
+        timers.count("clean.candidates", popped)
+        timers.count("clean.commits", cnt)
         return cnt
 
     def _chain_rows(self, chain):
@@ -293,6 +315,7 @@ class _Cleaner:
             out.update(g.v[flat].tolist())
         return out
 
+    @_pass("cut_tip")
     def cut_tip(self):
         g = self.g
 
@@ -310,6 +333,7 @@ class _Cleaner:
         log("cut_tip", "cut %d tips", cnt)
         return cnt
 
+    @_pass("cut_internal")
     def cut_internal(self):
         g = self.g
 
@@ -328,6 +352,7 @@ class _Cleaner:
         log("cut_internal", "cut %d internal sequences", cnt)
         return cnt
 
+    @_pass("cut_biloop")
     def cut_biloop(self):
         g = self.g
 
@@ -364,6 +389,7 @@ class _Cleaner:
         log("cut_biloop", "cut %d small bi-loops", cnt)
         return cnt
 
+    @_pass("pop_bubble")
     def pop_bubble(self, max_dist: int):
         """Device-detected bubble sources (>=2 live out-arcs); the Kahn
         BFS for ALL sources runs in one device dispatch and the host

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ...cuda import I32, I64, P, Kernel, ptr
+from ...utils import timers
 from ...utils.u32 import as_i32
 from ..seqdict import SeqDict
 
@@ -331,13 +332,15 @@ class _Uploader:
     the parser fills in place; each filled piece is copied on a side
     stream and an FMT3 piece decoded there at once (K9), and a buffer is
     refilled only after its copy has finished.  On the CPU: a fresh
-    buffer per piece and the plain decode."""
+    buffer per piece and the plain decode.  Counts the pieces and the
+    bytes copied to the card."""
 
     def __init__(self, dev, words):
         self.dev = dev
         self.cuda = dev.type == "cuda"
         self.words = words
         self.pieces = []  # (device tensor (4 or 7, m), real records)
+        self.n_pieces = self.bytes_up = 0
         if self.cuda:
             self.side = torch.cuda.Stream(dev)
             self.ring = [torch.empty(words, dtype=torch.int32,
@@ -351,40 +354,48 @@ class _Uploader:
             return torch.empty(self.words, dtype=torch.int32)
         i = self.turn % _RING
         if self.done[i] is not None:
-            self.done[i].synchronize()
+            with timers.span("ring_wait"):
+                self.done[i].synchronize()
         return self.ring[i]
 
     def push(self, host, n, fmt3=False):
         """Send a filled piece: `host` is the flat FMT3 words (fmt3) or a
-        (rows, m) int32 tensor with n real records."""
-        if not self.cuda:
-            self.pieces.append((decode3(host) if fmt3 else host, n))
-            return
-        with torch.cuda.stream(self.side):
-            d = torch.empty(host.shape, dtype=torch.int32, device=self.dev)
-            d.copy_(host, non_blocking=True)
-            if host.data_ptr() == self.ring[self.turn % _RING].data_ptr():
-                ev = torch.cuda.Event()
-                ev.record(self.side)
-                self.done[self.turn % _RING] = ev
-                self.turn += 1
-            if fmt3:
-                d = decode3(d)
-        self.pieces.append((d, n))
+        (rows, m) int32 tensor with n real records.  On a card its copy
+        and an FMT3 piece's K9 are enqueued on the side stream."""
+        with timers.span("push"):
+            self.n_pieces += 1
+            if not self.cuda:
+                self.pieces.append((decode3(host) if fmt3 else host, n))
+                return
+            self.bytes_up += host.numel() * host.element_size()
+            with torch.cuda.stream(self.side):
+                d = torch.empty(host.shape, dtype=torch.int32,
+                                device=self.dev)
+                d.copy_(host, non_blocking=True)
+                i = self.turn % _RING
+                if host.data_ptr() == self.ring[i].data_ptr():
+                    ev = torch.cuda.Event()
+                    ev.record(self.side)
+                    self.done[i] = ev
+                    self.turn += 1
+                if fmt3:
+                    d = decode3(d)
+            self.pieces.append((d, n))
 
     def colmat(self):
         """The exact-size (7, n) colmat of every piece, on the caller's
         stream."""
-        if self.cuda:
-            main = torch.cuda.current_stream(self.dev)
-            main.wait_stream(self.side)
-            for d, _n in self.pieces:
-                d.record_stream(main)
-        total = sum(n for _d, n in self.pieces)
-        out = torch.empty((7, total), dtype=torch.int32, device=self.dev)
-        unpack4(self.pieces, out)
-        self.pieces = []
-        return out
+        with timers.span("colmat"):
+            if self.cuda:
+                main = torch.cuda.current_stream(self.dev)
+                main.wait_stream(self.side)
+                for d, _n in self.pieces:
+                    d.record_stream(main)
+            total = sum(n for _d, n in self.pieces)
+            out = torch.empty((7, total), dtype=torch.int32, device=self.dev)
+            unpack4(self.pieces, out)
+            self.pieces = []
+            return out
 
 
 def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
@@ -426,20 +437,27 @@ def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
             lib.ma_mt_seed_carry(res, int(carry_seed))
         if retain_full:
             lib.ma_mt_retain_full(res)
-        up = _Uploader(torch.device(device if upload else "cpu"), 7 * sz)
+        # ring: the side stream and the pinned ring (a process's first
+        # run on the card makes its CUDA context here)
+        with timers.span("ring"):
+            up = _Uploader(torch.device(device if upload else "cpu"), 7 * sz)
         fmt = 4 if os.environ.get("MINIASM_TPU_FMT3") == "0" else 3
         if not upload:
             fmt = 7
+        switches = 0
         while True:
             buf = up.buffer()
             p = ctypes.cast(buf.data_ptr(), i32p)
             if fmt == 3:
-                n = lib.ma_mt_next3(res, p, sz)
+                # parse_wait: the host waits for the parser's next piece
+                with timers.span("parse_wait"):
+                    n = lib.ma_mt_next3(res, p, sz)
                 pf = bool(lib.ma_mt_pack_failed(res))
                 if pf or lib.ma_mt_rle_failed(res):
                     # cut the filled prefix to its real records and
                     # convert it on the host to the next format
                     fmt = 7 if pf else 4
+                    switches += 1
                     if n:
                         cols = _fmt3_to_cols(buf.numpy(), sz, n, fmt)
                         up.push(torch.from_numpy(cols), n)
@@ -448,12 +466,14 @@ def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
                     up.push(buf[:f3_words], n, fmt3=True)
             else:
                 fn_next = lib.ma_mt_next4 if fmt == 4 else lib.ma_mt_next
-                n = fn_next(res, p, sz)
+                with timers.span("parse_wait"):
+                    n = fn_next(res, p, sz)
                 switched = fmt == 4 and bool(lib.ma_mt_pack_failed(res))
                 if n:
                     up.push(buf[:fmt * sz].view(fmt, sz), n)
                 if switched:
                     fmt = 7
+                    switches += 1
                     continue
             if n < sz:
                 break
@@ -465,7 +485,13 @@ def load_hits_mt(fn, min_span, min_match, *, excl=None, bi_dir=True,
     if h.n_orig != h.cap:
         raise RuntimeError("loader: %d records in the colmat, %d parsed"
                            % (h.cap, h.n_orig))
-    return colmat, h.seqdict(), h
+    timers.count("load.pieces", up.n_pieces)
+    timers.count("load.records", h.n_orig)
+    timers.count("load.bytes_up", up.bytes_up)
+    timers.count("load.format_switches", switches)
+    with timers.span("seqdict"):
+        d = h.seqdict()
+    return colmat, d, h
 
 
 class _MaPafLoad(ctypes.Structure):

@@ -43,13 +43,15 @@ from ..config import Opt
 from ..cuda import I64, P, Kernel, ptr
 from ..select import fused2
 from ..utils.compact import spill_words
-from ..utils.timers import StageClock, log
+from ..utils.timers import StageClock, Trace, log
 from . import group as grp
 from .route import Layout, route
 
 # cumulative per-stage wall times of rank 0's last run_sharded (stage ->
 # seconds since the run's start)
 LAST_TIMING: dict = {}
+# its spans and counters; empty unless timers.tracing(True)
+LAST_TRACE = Trace()
 
 
 def _load_originals(paf_fn, opt, excl):
@@ -399,7 +401,7 @@ def run_sharded(paf_fn, opt: Opt, *, outfmt: str = "ug", fn_reads=None,
     pipeline (same arc insertion order, same graph path).  Rank 0 reads
     the PAF and writes -p ug|sg|bed to `out` (default stdout); the other
     ranks return None.  LAST_TIMING holds rank 0's cumulative stage
-    times."""
+    times, LAST_TRACE its spans and counters."""
     from ..graph import devclean
 
     if outfmt not in ("ug", "sg", "bed"):
@@ -407,29 +409,31 @@ def run_sharded(paf_fn, opt: Opt, *, outfmt: str = "ug", fn_reads=None,
                          % outfmt)
     g = group or grp.current()
     clock = StageClock(LAST_TIMING, g.device)
-    rows, n_seq, block, host = shard_rows(paf_fn, opt, excl, g, clock)
-    if host is not None:
-        sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read "
-                         "selection <===\n")
-    with clock.stage("select"):
-        arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
-        del rows
-    with clock.stage("gather"):
-        allarcs = gather_arcs(arcmat, g)
-    if host is None:
-        # serve the cleaner's detections until rank 0 releases the group
-        devclean.follow(g)
-        return None
-    cols, d = host
-    try:
-        log_select(counts)
-        with clock.stage("order"):
-            arcs, _ = order_arcs(allarcs, lambda: _mirror_ranks(cols, d))
-        return finish(d, meta, arcs, counts[5], opt, outfmt=outfmt,
-                      fn_reads=fn_reads, stage=stage, out=out or sys.stdout,
-                      dev=g.device, group=g, clock=clock)
-    finally:
-        devclean.release(g)
+    with LAST_TRACE.recording():
+        rows, n_seq, block, host = shard_rows(paf_fn, opt, excl, g, clock)
+        if host is not None:
+            sys.stderr.write("[M::main] ===> Step 2: 1-pass (crude) read "
+                             "selection <===\n")
+        with clock.stage("select"):
+            arcmat, meta, counts = select_step(rows, n_seq, block, opt, g)
+            del rows
+        with clock.stage("gather"):
+            allarcs = gather_arcs(arcmat, g)
+        if host is None:
+            # serve the cleaner's detections until rank 0 releases the group
+            devclean.follow(g)
+            return None
+        cols, d = host
+        try:
+            log_select(counts)
+            with clock.stage("order"):
+                arcs, _ = order_arcs(allarcs, lambda: _mirror_ranks(cols, d))
+            return finish(d, meta, arcs, counts[5], opt, outfmt=outfmt,
+                          fn_reads=fn_reads, stage=stage,
+                          out=out or sys.stdout, dev=g.device, group=g,
+                          clock=clock)
+        finally:
+            devclean.release(g)
 
 
 def shard_rows(paf_fn, opt, excl, g, clock):

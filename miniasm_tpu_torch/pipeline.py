@@ -52,7 +52,6 @@ import io
 import os
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -68,6 +67,8 @@ from .utils.timers import log
 # cumulative per-stage wall times of the last run (stage -> seconds since
 # run start)
 LAST_TIMING: dict = {}
+# the spans and counters of the last run; empty unless timers.tracing(True)
+LAST_TRACE = timers.Trace()
 
 
 def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
@@ -90,10 +91,20 @@ def run(paf_fn: str, opt: Opt, *, outfmt: str = "ug",
         raise ValueError("unknown output format %r" % outfmt)
     dev = get_device(device)
 
-    timers.EXTRA.clear()
     clock = timers.StageClock(LAST_TIMING, dev)
     emit = dict(opt=opt, stage=stage, outfmt=outfmt, fn_reads=fn_reads,
                 out=out, dev=dev, clock=clock)
+    with LAST_TRACE.recording():
+        return _route(paf_fn, staged, no_first, no_second, bi_dir, no_cont,
+                      snapshot_dir, v2, emit)
+
+
+def _route(paf_fn, staged, no_first, no_second, bi_dir, no_cont,
+           snapshot_dir, v2, emit):
+    """The path run() chose: a snapshot restore, the staged path or the
+    main path."""
+    opt, outfmt, out, clock = (emit[k] for k in ("opt", "outfmt", "out",
+                                                 "clock"))
     if not staged and snapshot_dir and not no_cont and outfmt != "paf":
         from .io.snapshot import load_graph_state
 
@@ -190,18 +201,16 @@ def _run_main(paf_fn, excl, bi_dir, emit, snapshot_dir, v2=False):
     # long as no two surviving arcs share a hit key.  Only the double
     # collision falls back to the full exact permutation.
     with clock.stage("order"):
-        t_rank = time.time()
         ul = ((arcs["u"].astype(np.uint64) << np.uint64(32))
               | arcs["l"].astype(np.uint64))
         sk = np.sort(ul)
         has_dup = bool(np.any(sk[1:] == sk[:-1])) if sk.size > 1 else False
         if has_dup and counts[7]:
-            timers.add_extra("rank.fallback", 1)
+            timers.count("order.rank_fallback")
             h3.build_rank()
             order = np.argsort(h3.arc_ranks(arcs["idx"]), kind="stable")
             arcs = {k: arcs[k][order] for k in ("u", "l", "v", "ol")}
         h3.free()
-        timers.add_extra("rank.join_s", time.time() - t_rank)
 
     with clock.stage("graph_build"):
         g, sub_s, sub_e, sub_del = graph_from_arcs(

@@ -32,6 +32,7 @@ import torch
 from ..cuda import F32, I32, I64, P, SMEM_MAX, Kernel, ptr
 from ..core.hit2arc import hit2arc, MA_HT_QCONT, MA_HT_TCONT
 from ..device import to_host
+from ..utils import timers
 from ..utils.u32 import as_i32, as_u32
 from .cut import cut_project
 
@@ -488,15 +489,55 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
     counts = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc,
     dup_hit]: counters 0-6 and 13 of the JAX program.  paf_tables adds
     md["sub1"] and md["sub2"], each pass's per-read (s, e, del) as int32,
-    int32, uint8 arrays, for the -p paf replay (HitsMt.print_paf)."""
-    import time as _time
+    int32, uint8 arrays, for the -p paf replay (HitsMt.print_paf).  Its
+    spans: `enqueue`, the host's launching of the layer's work, and
+    `fetch`, the two copies to the host, which wait for the card."""
+    n_seq = d.n_seq
+    timers.count("select.hits", colmat.shape[1])
+    with timers.span("enqueue"):
+        buf, meta = _enqueue(colmat, n_seq, opt, bi_dir, paf_tables)
+    m0 = 2 * _N_COUNTS
+    a0 = m0 + ARC_HEAD + meta * n_seq  # the arcs
+    # two copies: the counts, the head and the meta rows, then the arcs at
+    # their own size (the second copy reuses the staging block: the first
+    # is read out before it)
+    with timers.span("fetch"):
+        host = to_host(buf[:a0]).numpy()
+        (n_rem1, n_cut1, n_flt, n_rem2, n_cut2, tot_dp,
+         tot_len) = (int(x) for x in host[:m0].view(np.int64))
+        m_contained, n_arc, dup_hit = (int(x)
+                                       for x in host[m0:m0 + ARC_HEAD])
+        meta_h = host[m0 + ARC_HEAD:a0].reshape(meta, n_seq).copy()
+        cols = (to_host(buf[a0:a0 + ARC_COLS * n_arc]).numpy()
+                .reshape(ARC_COLS, n_arc) if n_arc
+                else np.zeros((ARC_COLS, 0), np.int32))
+    timers.count("select.arcs", n_arc)
+    c = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc, dup_hit]
+    arcs = {k: cols[j].copy() for j, k in enumerate(("u", "v", "l", "ol"))}
+    arcs["idx"] = cols[4].astype(np.int64)
+    flags = meta_h[FLAGS_ROW]
+    md = {
+        "sub_s": meta_h[0].astype(np.uint32),
+        "sub_e": meta_h[1].astype(np.uint32),
+        "sub_del": (flags & 1).astype(bool),
+        "cont": ((flags >> 1) & 1).astype(bool),
+        "used": ((flags >> 2) & 1).astype(bool),
+        "pal": ((flags >> 3) & 1).astype(bool),
+        "tot_dp": tot_dp,
+        "tot_len": tot_len,
+    }
+    if paf_tables:
+        for k, r in (("sub1", 3), ("sub2", 6)):
+            md[k] = (meta_h[r], meta_h[r + 1], meta_h[r + 2].astype(np.uint8))
+    return arcs, md, c
 
-    from ..utils.timers import add_extra
 
-    t0 = _time.time()
+def _enqueue(colmat, n_seq, opt, bi_dir, paf_tables):
+    """Launch Steps 2-3 on colmat's device into one buffer [7 int64
+    counts | K13's head, meta rows and arcs]; returns (buffer, number of
+    meta rows)."""
     dev = colmat.device
     i32, i64 = torch.int32, torch.int64
-    n_seq = d.n_seq
     T = n_seq + 2  # slot T-1 is never a real read
     n = colmat.shape[1]
     qid, tid, fl = colmat[0], colmat[3], colmat[6]
@@ -575,38 +616,7 @@ def select_build2(colmat, d, opt, *, bi_dir: bool, paf_tables: bool = False):
         rows[META_ROWS:].copy_(torch.stack([
             tab1[0] & 0x7FFFFFFF, e1, d1.to(i32), tab2[0] & 0x7FFFFFFF, e2,
             d2.to(i32)])[:, :n_seq])
-    add_extra("select.kernel_s", _time.time() - t0)
-    # two copies: the counts, the head and the meta rows, then the arcs at
-    # their own size (the second copy reuses the staging block: the first
-    # is read out before it)
-    t0 = _time.time()
-    host = to_host(buf[:a0]).numpy()
-    (n_rem1, n_cut1, n_flt, n_rem2, n_cut2, tot_dp,
-     tot_len) = (int(x) for x in host[:m0].view(np.int64))
-    m_contained, n_arc, dup_hit = (int(x) for x in host[m0:m0 + ARC_HEAD])
-    c = [n_rem1, n_cut1, n_flt, n_rem2, n_cut2, m_contained, n_arc, dup_hit]
-    meta_h = host[m0 + ARC_HEAD:a0].reshape(meta, n_seq).copy()
-    cols = (to_host(buf[a0:a0 + ARC_COLS * n_arc]).numpy()
-            .reshape(ARC_COLS, n_arc) if n_arc
-            else np.zeros((ARC_COLS, 0), np.int32))
-    add_extra("select.fetch_s", _time.time() - t0)
-    arcs = {k: cols[j].copy() for j, k in enumerate(("u", "v", "l", "ol"))}
-    arcs["idx"] = cols[4].astype(np.int64)
-    flags = meta_h[FLAGS_ROW]
-    md = {
-        "sub_s": meta_h[0].astype(np.uint32),
-        "sub_e": meta_h[1].astype(np.uint32),
-        "sub_del": (flags & 1).astype(bool),
-        "cont": ((flags >> 1) & 1).astype(bool),
-        "used": ((flags >> 2) & 1).astype(bool),
-        "pal": ((flags >> 3) & 1).astype(bool),
-        "tot_dp": tot_dp,
-        "tot_len": tot_len,
-    }
-    if paf_tables:
-        for k, r in (("sub1", 3), ("sub2", 6)):
-            md[k] = (meta_h[r], meta_h[r + 1], meta_h[r + 2].astype(np.uint8))
-    return arcs, md, c
+    return buf, meta
 
 
 def _n_region(tab):

@@ -134,6 +134,10 @@ def test_rank_fallback_matches_jax(monkeypatch, dup_key_paf, loader):
         monkeypatch.setenv("MINIASM_TPU_LOADER", "v2")
     args = ["-p", "sg", dup_key_paf]
     want = run_ours(args)
-    rc, got, _ = run_port(args)
+    was = timers.tracing(True)
+    try:
+        rc, got, _ = run_port(args)
+    finally:
+        timers.tracing(was)
     assert rc == 0 and got == want and got
-    assert timers.EXTRA.get("rank.fallback") == 1
+    assert pipeline.LAST_TRACE.counters.get("order.rank_fallback") == 1

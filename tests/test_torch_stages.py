@@ -1,7 +1,8 @@
 """The stage-time driver miniasm_tpu_torch.eval.stages on the CPU: a cold
 round (a fresh process per run) and a warm one on a small simulated set,
-each run's stage extras present and its output the same size in both
-modes; and the select-stage summary of a profiler trace."""
+each run's select spans and detection count present and its output the
+same size in both modes; and the select-stage summary of a profiler
+trace."""
 
 import json
 
@@ -34,13 +35,13 @@ def test_stages_cold_and_warm_on_cpu(small_paf, tmp_path, capsys):
         assert rep["warm"] is warm
         assert [r["run"] for r in rep["runs"]] == list(stages.RUNS)
         for r in rep["runs"]:
-            assert r["extra"]["select.fetch_s"] >= 0
-            assert r["extra"]["select.kernel_s"] >= 0
+            assert r["spans"]["select+fetch/fetch"] >= 0
+            assert r["spans"]["select+fetch/enqueue"] >= 0
             assert r["bytes"] > 0
-        assert rep["runs"][2]["extra"]["clean.detect_n"] >= 1
+        assert rep["runs"][2]["counters"]["clean.detects"] >= 1
         got[warm] = [r["bytes"] for r in rep["runs"]]
     assert got[False] == got[True]
-    assert "select.fetch_s" in capsys.readouterr().out
+    assert "select enqueue" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("warm", [False, True])

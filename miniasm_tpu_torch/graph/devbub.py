@@ -4,7 +4,7 @@ Port of miniasm_tpu/graph/devbub.py.  The per-source Kahn BFS runs on the
 device for all candidate sources at once (the `bubble_bfs` kernel, K4,
 csrc/bubble.cu: one warp per source, in the serial asg_bub_pop1 order),
 and the HOST commits the verdicts in the reference's ascending-source
-order.
+order, in one call of the native walk (io/native/bubwalk.cpp).
 
 Exact-semantics notes (all mirrored from asg_bub_pop1):
   - an arc pointing back at v0 aborts the bubble EVEN IF the arc is
@@ -36,6 +36,8 @@ overflow run again with K doubled, so results are always exact.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -222,145 +224,77 @@ def _dispatch(g: Graph, cands, max_dist: int, K: int, device):
             vis.cpu().numpy(), par.cpu().numpy(), K)
 
 
-def _host_pop1(g: Graph, v0: int, max_dist: int):
-    """Bounded Kahn BFS for ONE source against the LIVE graph — the
-    host-sequential conflict path of SURVEY §7 ("non-overlapping bubbles
-    commit in parallel; conflicting bubbles serialize").  Identical
-    semantics to the device kernel (and asg_bub_pop1); used only for
-    sources whose device verdict went stale behind an earlier commit.
+def _col(a, dtype, shape, name: str, out: bool = False) -> int:
+    """The address of a column handed to the native walk.  A column of
+    another dtype, shape or layout raises: a copy would lose the walk's
+    in-place writes."""
+    if not isinstance(a, np.ndarray) or a.dtype != dtype:
+        raise TypeError("bubble_walk: %s must be a %s ndarray, not %s"
+                        % (name, np.dtype(dtype), getattr(a, "dtype",
+                                                          type(a))))
+    if a.shape != shape or not a.flags.c_contiguous \
+            or (out and not a.flags.writeable):
+        raise ValueError("bubble_walk: %s must be a C-contiguous%s array "
+                         "of shape %s, not %s" % (
+                             name, " writable" if out else "", shape,
+                             a.shape))
+    return a.ctypes.data
 
-    Returns (ok, vis_list, sink, parent_map, ntip)."""
-    vis = [v0]
-    parent = {}
-    dd = {v0: 0}
-    cc = {v0: 0}
-    rr = {}
-    stack = [v0]
-    npend = 0
-    ntip = 0
-    while True:
-        v = stack.pop()
-        dv, cv = dd[v], cc[v]
-        s = int(g.idx_start[v])
-        nv = int(g.idx_cnt[v])
-        for ai in range(s, s + nv):
-            w = int(g.v[ai])
-            if w == v0:  # back-arc aborts even when deleted (asg.c:379)
-                return False, vis, -1, parent, 0
-            if g.adel[ai]:
-                continue
-            l = int(g.l[ai])
-            if dv + l > max_dist:
-                return False, vis, -1, parent, 0
-            if w not in dd:
-                vis.append(w)
-                parent[w] = v
-                dd[w] = dv + l
-                cc[w] = 0
-                sw = int(g.idx_start[w ^ 1])
-                cw = int(g.idx_cnt[w ^ 1])
-                rr[w] = int(np.count_nonzero(~g.adel[sw:sw + cw]))
-                npend += 1
-            else:
-                if cv + 1 > cc[w] or (cv + 1 == cc[w] and dv + l > dd[w]):
-                    parent[w] = v
-                if cv + 1 > cc[w]:
-                    cc[w] = cv + 1
-                if dv + l < dd[w]:
-                    dd[w] = dv + l
-            rr[w] -= 1
-            if rr[w] == 0:
-                if g.idx_cnt[w]:
-                    stack.append(w)
-                else:
-                    ntip += 1
-                npend -= 1
-        if not stack:
-            return False, vis, -1, parent, 0
-        if len(stack) == 1 and npend == 0:
-            return True, vis, stack[0], parent, ntip
+
+def bubble_walk(g: Graph, cands, verdicts, max_dist: int):
+    """The ordered commit of one bubble pass (io/native/bubwalk.cpp
+    ma_bubble_walk): sources `cands` (int32, ascending) with their K4
+    verdicts (`_dispatch`'s tuple), re-validated, re-run on the host where
+    an earlier commit touched their read set, and committed into g.adel
+    and g.sdel in place.  Returns (n_popped | n_tips << 32, candidates,
+    commits, sources recomputed on the host)."""
+    from ..io.native.build import get_lib
+
+    ok, nb, ntip, sink, vis, par, K = verdicts
+    A, V, S = g.n_arc, g.n_vtx, len(cands)
+    args = [V, _col(g.v, np.int32, (A,), "v"),
+            _col(g.u, np.int32, (A,), "u"), _col(g.l, np.int32, (A,), "l"),
+            _col(g.idx_start, np.int64, (V,), "idx_start"),
+            _col(g.idx_cnt, np.int32, (V,), "idx_cnt"),
+            _col(g.adel, np.bool_, (A,), "adel", out=True),
+            _col(g.sdel, np.bool_, (g.n_seq,), "sdel", out=True),
+            S, _col(cands, np.int32, (S,), "cands"),
+            _col(ok, np.bool_, (S,), "ok"), _col(nb, np.int32, (S,), "nb"),
+            _col(ntip, np.int32, (S,), "ntip"),
+            _col(sink, np.int32, (S,), "sink"),
+            _col(vis, np.int32, (S, K), "vis"),
+            _col(par, np.int32, (S, K), "par"), K, int(max_dist)]
+    out = np.zeros(4, dtype=np.int64)
+    fn = get_lib().ma_bubble_walk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64] + [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2 + [
+        ctypes.c_void_p]
+    if fn(*args, out.ctypes.data):
+        raise RuntimeError("bubble_walk: a verdict names a vertex outside "
+                           "the graph or a path outside its visited set")
+    return tuple(int(x) for x in out)
 
 
 def pop_bubbles_dev(g: Graph, cand_mask, max_dist: int,
                     device: torch.device = torch.device("cpu")) -> int:
     """Ordered commit of device-detected bubbles: ONE kernel dispatch
     computes every source's verdict against the pass-entry graph; the
-    host walks sources in ascending order, applying device verdicts
-    whose read sets are untouched by earlier commits and recomputing
-    the (rare) conflicting sources with the sequential host BFS, in the
-    spans `dispatch` (K4 and its fetch) and `commit` (the host's walk).
-    Returns the reference's packed counter (n_popped | n_tips<<32,
-    asg.c:405/431)."""
-    cands = [int(v) for v in np.flatnonzero(cand_mask)]
-    if not cands:
+    native walk (`bubble_walk`) goes through the sources in ascending
+    order, applying device verdicts whose read sets are untouched by
+    earlier commits and recomputing the (rare) conflicting sources with
+    the sequential host BFS, in the spans `dispatch` (K4 and its fetch)
+    and `commit` (the walk).  Returns the reference's packed counter
+    (n_popped | n_tips<<32, asg.c:405/431)."""
+    cands = np.flatnonzero(cand_mask).astype(np.int32)
+    if not cands.size:
         return 0
-    n_pop = 0
-    n_tip = 0
-    n_redo = 0
     with timers.span("dispatch"):
-        ok, nb, ntip, sink, vis, par, _K = _dispatch(g, cands, max_dist, 64,
-                                                     device)
+        verdicts = _dispatch(g, cands, max_dist, 64, device)
     with timers.span("commit"):
-        touched = np.zeros(g.n_vtx, bool)
-        any_commit = False
-        for j, v0 in enumerate(cands):
-            # live re-validation like the reference scan (asg.c:420-424)
-            if g.sdel[v0 >> 1] or g.idx_cnt[v0] < 2:
-                continue
-            s = g.idx_start[v0]
-            if int(np.sum(~g.adel[s:s + g.idx_cnt[v0]])) < 2:
-                continue
-            nbj = int(nb[j])
-            vset = vis[j, :nbj]
-            stale = False
-            if any_commit:
-                rd = np.concatenate([vset, vset ^ 1, [v0, v0 ^ 1]])
-                stale = bool(touched[rd].any())
-            if stale:
-                n_redo += 1
-                okj, vlist, snk, parent, ntj = _host_pop1(g, v0, max_dist)
-                if not okj:
-                    continue
-                vset = np.asarray(vlist, dtype=np.int64)
-            else:
-                if not bool(ok[j]):
-                    continue
-                snk = int(sink[j])
-                parent = dict(zip(vset.tolist(), par[j, :nbj].tolist()))
-                ntj = int(ntip[j])
-            _commit(g, v0, vset, snk, parent)
-            n_pop += 1
-            n_tip += ntj
-            touched[np.asarray(vset)] = True
-            touched[np.asarray(vset) ^ 1] = True
-            touched[[v0, v0 ^ 1]] = True
-            any_commit = True
-    timers.count("clean.candidates", len(cands))
+        packed, n_cand, n_pop, n_redo = bubble_walk(g, cands, verdicts,
+                                                    max_dist)
+    timers.count("clean.candidates", n_cand)
     timers.count("clean.commits", n_pop)
     timers.count("clean.bubble_recomputed", n_redo)
-    return n_pop | (n_tip << 32)
-
-
-def _commit(g: Graph, v0: int, vset, sink: int, parent):
-    """asg_bub_backtrack (asg.c:338-357): delete every visited read and
-    every live out-arc of the processed vertices, then restore the
-    max-count path sink -> v0."""
-    for w in vset[1:]:
-        g.sdel[w >> 1] = True
-    for u in (int(x) for x in np.concatenate([[v0], vset[1:]])):
-        if u == sink:
-            continue
-        s = g.idx_start[u]
-        c = g.idx_cnt[u]
-        for ai in range(s, s + c):
-            if g.adel[ai]:
-                continue
-            g.adel[ai] = True
-            g.arc_del(int(g.v[ai]) ^ 1, int(g.u[ai]) ^ 1, True)
-    v = sink
-    while v != v0:
-        u = parent[v]
-        g.sdel[v >> 1] = False
-        g.arc_del(u, v, False)
-        g.arc_del(v ^ 1, u ^ 1, False)
-        v = u
+    return packed

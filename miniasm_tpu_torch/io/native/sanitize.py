@@ -25,7 +25,9 @@ build_rank and arc_ranks, and a free while the parser threads run;
 load_hits_v2; the exact radix on both of its paths; finalize_native,
 ma_no_cont and ma_ug_seq_native through the CLI (MINIASM_TPU_CLEAN=
 native, -R -f), beside the main path, -p paf, the staged path and the v2
-loader.  It prints "<mode>: clean" and exits 0 when every check held.
+loader; ma_bubble_walk through the CLI's hybrid clean of a set with
+bubbles, one of them redone by the host BFS.  It prints "<mode>: clean"
+and exits 0 when every check held.
 """
 
 from __future__ import annotations
@@ -177,9 +179,10 @@ def _exercise(mode: str) -> None:
     import numpy as np
     import torch
 
-    from ... import cli
+    from ... import cli, pipeline
     from ...config import Opt
     from ...eval.simulate import simulate, write_fasta, write_paf
+    from ...utils import timers
     from ...utils.exact_sort import radix_argsort
     from ..seqdict import SeqDict
     from . import pafload
@@ -311,6 +314,13 @@ def _exercise(mode: str) -> None:
         run(["-1", "-p", "sg", src])
         run(["-R", "-f", fa, "-p", "ug", src])
         run(["-1", "-R", "-f", fa, "-p", "ug", src])
+    prev = timers.tracing(True)
+    try:
+        run(["-p", "ug", noisy])
+    finally:
+        timers.tracing(prev)
+    assert pipeline.LAST_TRACE.counters.get("clean.bubble_recomputed"), \
+        pipeline.LAST_TRACE.counters
     shutil.rmtree(tmp)
     print("sanitize exerciser (%s): every native entry point exercised" % mode,
           flush=True)

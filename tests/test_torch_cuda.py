@@ -677,6 +677,36 @@ def test_bubble_dispatch_on_card_reruns_overflow(dev, seed, monkeypatch):
         assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("tomb", [False, True])
+@pytest.mark.parametrize("K", [4, 64])
+def test_bubble_walk_after_card_dispatch(dev, K, tomb):
+    """K4's dispatch on the card, then the native walk, against the
+    Python spec (tests/bubwalk_spec.py) on the same verdicts: a braid of
+    overlapping bubbles, so many sources go stale behind earlier commits
+    and the host BFS redoes them; the tombstones, the packed return and
+    the counters equal."""
+    import copy
+
+    import bubwalk_spec as spec
+    from miniasm_tpu_torch.config import Opt
+    from miniasm_tpu_torch.graph import devbub
+
+    g = spec.braid_graph(np.random.default_rng(23), n_back=400, n_alt=300)
+    if tomb:
+        g.adel[::7] = True
+    live = np.array([g.live_out(v) for v in range(g.n_vtx)])
+    cands = np.flatnonzero(live >= 2).astype(np.int32)
+    max_dist = Opt().bub_dist
+    ver = devbub._dispatch(g, cands, max_dist, K, dev)
+    g_spec, g_nat = copy.deepcopy(g), copy.deepcopy(g)
+    want = spec.walk(g_spec, cands, ver, max_dist)
+    got = devbub.bubble_walk(g_nat, cands, ver, max_dist)
+    assert got == want
+    assert got[2] > 0 and got[3] > 0
+    assert np.array_equal(g_nat.adel, g_spec.adel)
+    assert np.array_equal(g_nat.sdel, g_spec.sdel)
+
+
 def _capped_rows(c, D):
     """K3's columns of build_arcs(...) c with every row cut to its first D
     slots (rows stay sorted by length): the longest row becomes D, and so

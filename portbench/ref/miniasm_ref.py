@@ -5,8 +5,11 @@ A straightforward rendering of lh3/miniasm's steps in NumPy and Python
 of the program under test: it imports nothing of miniasm_tpu_torch.  The
 order-dependent graph passes follow the C loops one vertex at a time;
 the passes over hits, which read no state that the same pass writes, are
-whole-array NumPy.  Integer columns keep the C's 32-bit wrapping where
-the C relies on it, and the float tests are float32 as in the C.
+whole-array NumPy.  Two loops run in C (native.c, built on first use):
+the PAF read and miniasm's radix order; paf.read_paf_numpy and
+radix.radix_argsort are their specs, which the tests hold the C against.
+Integer columns keep the C's 32-bit wrapping where the C relies on it, and
+the float tests are float32 as in the C.
 
     gfa = assemble("reads.paf", ["-p", "ug"])      # the bytes of stdout
 """
@@ -19,8 +22,8 @@ import time
 
 import numpy as np
 
+from . import native
 from .paf import read_paf
-from .radix import radix_argsort
 
 MA_HT_INT, MA_HT_QCONT, MA_HT_TCONT, MA_HT_SHORT_OVLP = -1, -2, -3, -4
 ET_MERGEABLE, ET_TIP, ET_MULTI_OUT, ET_MULTI_NEI = 0, 1, 2, 3
@@ -135,19 +138,22 @@ def hit_sub(h, n_seq, min_dp, min_iden, end_clip):
     has_q = np.zeros(n_seq, dtype=bool)
     has_q[qid] = True
     # each event as qid<<32 | key, key = pos<<1 | is_end (uint32), sorted
-    both = np.sort(np.concatenate([
-        (qid[ok] << 32) | ((evs[ok] << 1) & M32),
-        (qid[ok] << 32) | (((eve[ok] << 1) | 1) & M32)]))
-    seg, key = both >> 32, both & M32
-    delta = np.where(key & 1, -1, 1)
-    dp = np.cumsum(delta)
+    q = qid[ok] << 32
+    m = q.size
+    both = np.empty(2 * m, dtype=np.int64)
+    both[:m] = q | ((evs[ok] << 1) & M32)
+    both[m:] = q | (((eve[ok] << 1) | 1) & M32)
+    del q
+    both.sort()
+    delta = 1 - 2 * (both & 1).astype(np.int32)
+    dp = np.cumsum(delta, dtype=np.int32)
     old = dp - delta
     start_tr = (old < min_dp) & (dp >= min_dp)
     end_tr = (old >= min_dp) & (dp < min_dp)
     ti = np.flatnonzero(start_tr | end_tr)
-    pos = key[ti] >> 1
+    pos = (both[ti] & M32) >> 1
     prev = np.concatenate([[0], pos[:-1]])
-    tseg = seg[ti]
+    tseg = both[ti] >> 32
     length = np.where(end_tr[ti], pos - prev, -1)
     best = np.full(n_seq, -1, dtype=np.int64)
     np.maximum.at(best, tseg, length)
@@ -201,7 +207,7 @@ def hit_cut(h, sub, min_span):
         (te2 - ts2 >= min_span)
     out = {k: v[keep] for k, v in h.items()}
     for k, v in (("qs", qs2), ("qe", qe2), ("ts", ts2), ("te", te2)):
-        out[k] = v[keep].view(u32).astype(np.int64)
+        out[k] = v[keep].view(u32)
     return out
 
 
@@ -278,7 +284,7 @@ class Graph:
         if not self.is_srt:
             key = (u.astype(np.uint64) << np.uint64(32)) | \
                 (l.astype(np.int64) & M32).astype(np.uint64)
-            o = radix_argsort(key)
+            o = native.radix_order(key)
             u, l, v, ol = u[o], l[o], v[o], ol[o]
             self.is_srt = True
         self.u, self.l, self.v, self.ol = u, l, v, ol
@@ -754,33 +760,42 @@ def ug_print(units, ug, names, s, e, out):
 # ---------------------------------------------------------------- main.c
 
 
-def _hits(rec, bi_dir=True):
-    """ma_hit_read's hit array: each record, then its mirror when the two
-    reads differ; with its sort key qid<<32|qs."""
-    n = rec["qid"].size
-    fwd = {k: rec[k] for k in ("qid", "qs", "qe", "tid", "ts", "te", "ml",
-                               "bl", "rev")}
-    mir = dict(fwd, qid=rec["tid"], qs=rec["ts"], qe=rec["te"],
-               tid=rec["qid"], ts=rec["qs"], te=rec["qe"])
-    keep = np.ones(2 * n, dtype=bool)
+def _pair(a, b):
+    """a[0], b[0], a[1], b[1], ...: each record, then its mirror."""
+    out = np.empty(2 * a.size, dtype=a.dtype)
+    out[0::2], out[1::2] = a, b
+    return out
+
+
+def _hits(rec):
+    """ma_hit_read's hit array (hit.c): each record, then its mirror when
+    the two reads differ, in the order of miniasm's radix sort of the key
+    qid<<32|qs (ties of the key reach the output).  Coordinates, ml and bl
+    are uint32 as in the C; qid, tid int64; rev bool."""
+    qid = _pair(rec["qid"], rec["tid"])
+    qs = _pair(rec["qs"], rec["ts"])
+    keep = np.ones(qid.size, dtype=bool)
     keep[1::2] = rec["qid"] != rec["tid"]
-    h = {}
-    for k in fwd:
-        a = np.empty(2 * n, dtype=np.int64)
-        a[0::2], a[1::2] = fwd[k], mir[k]
-        h[k] = a[keep]
-    h["key"] = (h["qid"].astype(np.uint64) << np.uint64(32)) | \
-        h["qs"].astype(np.uint64)
-    return h
+    src = np.flatnonzero(keep)
+    key = (qid[src].astype(np.uint64) << np.uint64(32)) | \
+        qs[src].astype(np.uint64)
+    src = src[native.radix_order(key)]
+    del key
+    u32 = np.uint32
+    return {"qid": qid[src], "qs": qs[src].astype(u32),
+            "qe": _pair(rec["qe"], rec["te"])[src].astype(u32),
+            "tid": _pair(rec["tid"], rec["qid"])[src],
+            "ts": _pair(rec["ts"], rec["qs"])[src].astype(u32),
+            "te": _pair(rec["te"], rec["qe"])[src].astype(u32),
+            "ml": (rec["ml"][src >> 1]).astype(u32),
+            "bl": (rec["bl"][src >> 1]).astype(u32),
+            "rev": rec["rev"][src >> 1] != 0}
 
 
 def select(rec, opt, n_seq):
-    """Steps 1-3 of main.c: the hits sorted by qid<<32|qs in the order of
-    miniasm's radix sort (ties of the key reach the output), both read
+    """Steps 1-3 of main.c: the hits in miniasm's radix order, both read
     selection passes and containment."""
     h = _hits(rec)
-    o = radix_argsort(h["key"])
-    h = {k: v[o] for k, v in h.items()}
     sub = hit_sub(h, n_seq, opt.min_dp, opt.min_iden, 0)
     h = hit_cut(h, sub, opt.min_span)
     h = hit_flt(h, sub, int(opt.max_hang * 1.5), int(opt.min_ovlp * .5))
@@ -795,7 +810,7 @@ def assemble(paf: str, argv=("-p", "ug"), intern: str = "order",
              stats: dict | None = None) -> bytes:
     """miniasm's stdout for `argv` (without the file) on `paf`.
     `intern="split"` numbers the reads in another order (see
-    paf.read_paf): the control of the benchmark's check.  `stats`, when
+    paf.read_paf_numpy): the control of the benchmark's check.  `stats`, when
     given, receives the sizes of the work: PAF lines, kept records,
     reads, and (-p ug) the arcs that the hits give, and the seconds of
     its steps."""

@@ -1,4 +1,4 @@
-"""PAF reading for the plain reference, in NumPy.
+"""PAF reading for the plain reference.
 
 miniasm's reading of a PAF file (paf.c, hit.c:70-107): a line counts when
 it has at least 10 tab-separated fields; each number is read as a uint32
@@ -8,6 +8,9 @@ are at least min_span and ml at least min_match, and only kept records
 give their read names ids, in the order the names first appear, the
 query's before the target's.  The length of a name's first appearance is
 its length.
+
+`read_paf` parses in C (native.c's pb_paf_read); `read_paf_numpy` is the
+same reading in NumPy, the spec that the tests hold the C against.
 """
 
 from __future__ import annotations
@@ -16,12 +19,15 @@ import gzip
 
 import numpy as np
 
-def _read_bytes(fn: str) -> np.ndarray:
+from . import native
+
+
+def _read_raw(fn: str) -> bytes:
     with open(fn, "rb") as f:
         raw = f.read()
     if raw[:2] == b"\x1f\x8b":
         raw = gzip.decompress(raw)
-    return np.frombuffer(raw, dtype=np.uint8)
+    return raw
 
 
 def _u32(buf: np.ndarray, s: np.ndarray, e: np.ndarray) -> np.ndarray:
@@ -93,13 +99,24 @@ def _columns(buf: np.ndarray):
 
 
 def read_paf(fn: str, min_span: int, min_match: int, intern: str = "order"):
+    """The kept records of `fn` and the read dictionary, as
+    read_paf_numpy gives them, parsed in C."""
+    if intern not in ("order", "split"):
+        raise ValueError("intern: order or split")
+    cols, names, lens, n_lines = native.paf_read(
+        _read_raw(fn), min_span, min_match, intern == "split")
+    return dict(cols, names=names, lens=lens, n_lines=n_lines)
+
+
+def read_paf_numpy(fn: str, min_span: int, min_match: int,
+                   intern: str = "order"):
     """The kept records of `fn` and the read dictionary.  Returns a dict of
     int64 columns qid, qs, qe, tid, ts, te, ml, bl, rev; `names` (list of
     str) and `lens` (int64) of the reads by id; `n_lines`.
     `intern="split"` gives the ids in another order: the names of the
     second half of the kept records first, then those of the first half
     (the control of the benchmark's check; not miniasm's order)."""
-    cols, qn, tn = _columns(_read_bytes(fn))
+    cols, qn, tn = _columns(np.frombuffer(_read_raw(fn), dtype=np.uint8))
     n_lines = int(cols["ql"].size)
     has_bl = cols.pop("has_bl")
     if not has_bl.all():

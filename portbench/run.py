@@ -23,7 +23,9 @@ the window and reports the per-layer metrics (portbench/metrics/<name>.py,
 each a reader found by its name) instead of the end-to-end ones.
 
 The run needs the CUDA card: without one it exits 3 and prints no
-result.  It never falls back to the CPU.
+result.  It never falls back to the CPU.  Where the reference's C
+(portbench/ref/native.c, built by the host's cc on first use) does not
+build, the run exits 5 with the compiler's message.
 """
 
 from __future__ import annotations
@@ -346,7 +348,11 @@ def _run(args, cfg, traffic, e2e, layer, readers, work, device_check,
         torch.cuda.empty_cache()
     t = time.perf_counter()
     counts = {}
-    ref = assemble(paf, traffic["argv"], stats=counts)
+    from portbench.ref.native import BuildError
+    try:
+        ref = assemble(paf, traffic["argv"], stats=counts)
+    except BuildError as e:
+        raise Failed(5, str(e)) from e
     ref_s = time.perf_counter() - t
     total, bad, where = asm.compare(ref)
     failed = asm.failed

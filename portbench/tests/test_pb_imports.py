@@ -1,10 +1,12 @@
 """No module of the benchmark imports JAX or the JAX package, and the
 plain reference imports nothing of the program: each imported module's
 top-level name is compared whole, since miniasm_tpu_torch begins with
-miniasm_tpu."""
+miniasm_tpu.  The reference's C includes only system headers and opens
+no file."""
 
 import ast
 import os
+import re
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,9 +44,30 @@ def test_reference_imports_nothing_of_the_program():
     for p in _sources(os.path.join(PB, "ref")):
         tops = set(_imports(p))
         assert "miniasm_tpu_torch" not in tops, p
-        assert tops <= {"__future__", "getopt", "gzip", "io", "numpy",
+        assert tops <= {"__future__", "ctypes", "getopt", "gzip",
+                        "hashlib", "io", "numpy", "os", "subprocess",
                         "time"}, \
             (p, tops)
+
+
+def _c_sources():
+    ref = os.path.join(PB, "ref")
+    return [os.path.join(ref, f) for f in sorted(os.listdir(ref))
+            if f.endswith((".c", ".h"))]
+
+
+def test_reference_c_includes_only_system_headers_and_opens_no_file():
+    srcs = _c_sources()
+    assert srcs
+    for p in srcs:
+        text = open(p).read()
+        incs = re.findall(r"^\s*#\s*include\s*(\S+)", text, re.M)
+        assert set(incs) <= {"<stdint.h>", "<stdlib.h>", "<string.h>"}, \
+            (p, incs)
+        code = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+        assert "miniasm_tpu" not in code, p
+        for call in ("fopen", "open", "mmap", "dlopen", "system", "popen"):
+            assert not re.search(r"\b%s\s*\(" % call, code), (p, call)
 
 
 def test_forbidden_modules_compares_whole_names():
